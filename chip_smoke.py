@@ -7,23 +7,45 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 1. device: a CUDA device must be present; its name and power limit are
    printed as ``nvidia-smi`` reports them.
 2. build: the CUDA C++ kernels are compiled from ``psld_tpu_torch/csrc``
-   with nvcc for sm_90a (the Triton kernel compiles at its first launch).
+   with nvcc for sm_90a (the Triton kernels compile at their first launch).
 3. gn: the Triton GroupNorm+act kernel against its plain PyTorch version at
-   the eight (H*W, C) shapes of a flagship forward, batch 64.
-4. attention: the CUDA C++ attention kernel against its plain version at
-   the two attention shapes of a flagship forward, batch 64.
-5. net: the flagship CIFAR-10 NCSN++ (97.6M parameters, weights drawn as
+   the eight (H*W, C) shapes of a flagship forward, at batch 64 (the
+   sample path) and again at batch 128 (the train path).
+4. gn_bwd: the Triton GroupNorm+act backward kernel (dx, dscale, dbias)
+   against autograd through the plain version at the same shapes, at
+   batch 128: only the train path runs it.
+5. attention: the CUDA C++ attention kernel against its plain version at
+   the two attention shapes of a flagship forward, at batch 64 and at
+   batch 128.
+6. dropout: the Triton counter-hash dropout kernel against its plain
+   version, bit for bit, at the three dropout shapes of a flagship training
+   step at batch 128, with an offset, an odd size, and its backward.
+7. net: the flagship CIFAR-10 NCSN++ (97.6M parameters, weights drawn as
    N(0, 1) * 0.02 from a numpy seed): float32 forward on the card against
    the same forward on the CPU, with the kernel launch counts of one
    forward; then a 3-step Euler-Maruyama trajectory on the card against the
    CPU with the same injected noise.
-6. sample: ``psld_tpu_torch.cli.sample`` with the flagship's settings
-   (batch 64, bf16 network, gn_bf16, 100-NFE EM with denoise) writes 64
-   PNGs; every GroupNorm and attention call of that run must have gone
+8. train_check: one float32 optimizer step of the flagship at batch 2 with
+   hash dropout 0.15, on the card against the CPU with the same t, eps and
+   seed words: loss, gradient norm and every parameter's gradient, and the
+   kernel launch counts of one step.
+9. train: ``psld_tpu_torch.cli.train_sde`` on the synthetic dataset at the
+   flagship's training point (batch 128, bf16 compute on float32 master
+   weights, hash dropout 0.15, HSM loss, Adam with warmup, clip 1, EMA):
+   2 warm-up and 10 timed steps with one sync at the end, a checkpoint
+   written; every GroupNorm, attention and dropout call must have gone
    through the kernels.
+10. sample: ``psld_tpu_torch.cli.sample`` loads the checkpoint the train
+    phase wrote (batch 64, bf16 network, gn_bf16, 100-NFE EM with denoise)
+    and writes 64 PNGs; every GroupNorm and attention call of that run must
+    have gone through the kernels.
 
-Float32 comparisons run with TF32 off. The second-to-last line is a JSON
-object listing the kernels; the last line is
+Each kernel's time stands beside its bound (the larger of its bytes over
+3.35 TB/s and its operations over the card's peak for their type, from
+this run's shapes), its plain version's time, and the time of the one
+PyTorch call that computes the same function (``library_ms``; the port
+never calls it). Float32 comparisons run with TF32 off. The
+second-to-last line is a JSON object listing the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device the script exits non-zero and prints no result.
 """
@@ -47,13 +69,25 @@ import torch  # noqa: E402
 
 BATCH = 64
 SAMPLE_NFE = 100
+TRAIN_BATCH = 128
+TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+
+# published peaks of one H100 SXM: bytes/s of device memory, FLOP/s of the
+# bf16 tensor cores, and of float32 (and, taken as the same, integer)
+# arithmetic outside the tensor cores
+HBM_BPS = 3.35e12
+BF16_TENSOR_OPS = 989e12
+SCALAR_OPS = 67e12
 
 # (H*W, C, calls per flagship forward) of every GroupNorm and attention
 GN_CALLS = [(1024, 128, 1), (1024, 256, 27), (1024, 384, 1), (1024, 512, 8),
             (256, 256, 38), (256, 512, 9), (64, 256, 32), (64, 512, 9)]
 ATTN_CALLS = [(256, 256, 9), (64, 256, 1)]
+# (H*W, C, sites per flagship forward) of the resblocks' dropout
+DROPOUT_CALLS = [(1024, 256, 18), (256, 256, 19), (64, 256, 20)]
 GN_PER_FWD = sum(n for _, _, n in GN_CALLS)
 ATTN_PER_FWD = sum(n for _, _, n in ATTN_CALLS)
+DROPOUT_SITES = sum(n for _, _, n in DROPOUT_CALLS)
 
 # the flagship option set of psld_tpu/eval/bench.py
 FLAGSHIP_ARGS = [
@@ -86,8 +120,45 @@ def say(*parts) -> None:
     print(*parts, flush=True)
 
 
+_SIDE = None
+
+
+def side_stream():
+    """The stream the timed graphs are captured on."""
+    global _SIDE
+    if _SIDE is None:
+        _SIDE = torch.cuda.Stream()
+    return _SIDE
+
+
+def device_ms(fn, launches: int = 10, replays: int = 3) -> float:
+    """Mean milliseconds of ``fn()`` on the device alone: ``launches``
+    calls are captured into one CUDA graph, and the graph's replays are
+    timed with CUDA events, so the host's cost of a launch stays out."""
+    side = side_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # compiles and allocates outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of ``fn()`` on the current stream (CUDA events)."""
+    """Mean milliseconds of ``fn()`` called eagerly on the current stream
+    (CUDA events): the host's cost of a launch counts where it exceeds
+    the device's time."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -98,6 +169,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    by_bytes, by_ops = n_bytes / HBM_BPS * 1e3, n_ops / ops_per_s * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def add_bound(total: dict, calls: int, n_bytes: float, n_ops: float,
+              ops_per_s: float) -> None:
+    """Add ``calls`` times one call's bound to a kernel's running total."""
+    ms, by = bound(n_bytes, n_ops, ops_per_s)
+    total["bound_ms"] = total.get("bound_ms", 0.0) + calls * ms
+    total.setdefault("by", set()).add(by)
+
+
+def bound_by(total: dict) -> str:
+    by = total.pop("by")
+    return "bytes" if "bytes" in by else "operations"
 
 
 def max_err(got, want) -> float:
@@ -148,17 +239,20 @@ def phase_build():
                 say(f"[build] {src}: {line.strip()}")
 
 
-def phase_gn(card):
+def phase_gn(card, batch):
     from psld_tpu_torch.ops import group_norm_act, group_norm_act_plain
+
+    import torch.nn.functional as F
 
     rng = np.random.default_rng(0)
     rows, errs = [], {}
-    kernel_fwd = plain_fwd = 0.0
+    kernel_fwd = eager_fwd = plain_fwd = lib_fwd = 0.0
+    total = {}
     t0 = time.perf_counter()
     for hw, c, calls in GN_CALLS:
         s = int(round(hw ** 0.5))
         g = min(c // 4, 32)
-        x32 = torch.from_numpy((rng.standard_normal((BATCH, s, s, c)) * 2.0
+        x32 = torch.from_numpy((rng.standard_normal((batch, s, s, c)) * 2.0
                                 + 0.5).astype(np.float32)).cuda()
         sc32 = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(c)).astype(
             np.float32)).cuda()
@@ -182,36 +276,266 @@ def phase_gn(card):
         # time the main path's case: bf16, swish, gn_bf16 on
         x, sc, bi = x32.bfloat16(), sc32.bfloat16(), bi32.bfloat16()
         set_gn_bf16(True)
-        k_ms = cuda_ms(lambda: group_norm_act(x, sc, bi, g, 1e-6, "swish"))
-        p_ms = cuda_ms(lambda: group_norm_act_plain(x, sc, bi, g, 1e-6,
-                                                    "swish"))
+        k_ms = device_ms(lambda: group_norm_act(x, sc, bi, g, 1e-6, "swish"))
+        e_ms = cuda_ms(lambda: group_norm_act(x, sc, bi, g, 1e-6, "swish"))
+        p_ms = device_ms(lambda: group_norm_act_plain(x, sc, bi, g, 1e-6,
+                                                      "swish"))
+        # the library's GroupNorm takes NCHW: the same memory, permuted
+        xn = x.permute(0, 3, 1, 2)
+        l_ms = device_ms(lambda: F.silu(F.group_norm(xn, g, sc, bi, 1e-6)))
         kernel_fwd += calls * k_ms
+        eager_fwd += calls * e_ms
         plain_fwd += calls * p_ms
-        gbytes = 2 * x.numel() * x.element_size() / 1e9
-        rows.append((hw, c, calls, k_ms, p_ms, gbytes / (k_ms / 1e3)))
+        lib_fwd += calls * l_ms
+        # read x, write y, read scale and bias; ~12 f32 operations a value
+        n_bytes = (2 * x.numel() + 2 * c) * x.element_size()
+        add_bound(total, calls, n_bytes, 12 * x.numel(), SCALAR_OPS)
+        rows.append((hw, c, calls, k_ms, e_ms, p_ms, l_ms,
+                     n_bytes / 1e9 / (k_ms / 1e3)))
     os.environ.pop("PSLD_GN_BF16")
-    say(f"[gn] Triton kernel == plain at all {len(GN_CALLS)} shapes, B={BATCH}"
+    say(f"[gn] Triton kernel == plain at all {len(GN_CALLS)} shapes, B={batch}"
         f" (f32 tol 1e-5; bf16 tol 1e-2; bf16+gn_bf16 tol 3e-2) in "
         f"{time.perf_counter() - t0:.1f} s; max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-    say(f"[gn] times: bf16 swish, {card}")
-    for hw, c, calls, k_ms, p_ms, gbps in rows:
+    say(f"[gn] device times (CUDA-graph replay; eager = called one by one, "
+        f"the host's launch cost included): bf16 swish, B={batch}, {card}")
+    for hw, c, calls, k_ms, e_ms, p_ms, l_ms, gbps in rows:
         say(f"[gn]   HW={hw:5d} C={c:3d} x{calls:2d}/fwd: kernel {k_ms:.4f} ms"
-            f" ({gbps:.0f} GB/s read+write), plain {p_ms:.4f} ms")
-    say(f"[gn]   per flagship forward ({GN_PER_FWD} calls): kernel "
-        f"{kernel_fwd:.3f} ms, plain {plain_fwd:.3f} ms")
+            f" ({gbps:.0f} GB/s read+write; eager {e_ms:.4f} ms), plain "
+            f"{p_ms:.4f} ms, F.group_norm+F.silu {l_ms:.4f} ms")
+    say(f"[gn]   per flagship forward at B={batch} ({GN_PER_FWD} calls): "
+        f"kernel "
+        f"{kernel_fwd:.3f} ms (eager {eager_fwd:.3f} ms), bound "
+        f"{total['bound_ms']:.3f} ms, plain {plain_fwd:.3f} ms, "
+        f"F.group_norm+F.silu {lib_fwd:.3f} ms")
     return {"max_abs_err": errs["bfloat16+gn_bf16"], "ms": kernel_fwd,
-            "plain_ms": plain_fwd}
+            "eager_ms": eager_fwd, "plain_ms": plain_fwd,
+            "bound_by": bound_by(total), **total, "library_ms": lib_fwd}
 
 
-def phase_attention(card):
+def phase_gn_bwd(card):
+    """dx, dscale, dbias of the backward kernel against autograd through
+    the plain version, at the train path's batch. Tolerances, relative
+    to each gradient's largest magnitude: f32 1e-4 (sums of up to
+    131,072 x 64 terms in another order); bf16 2e-2 (bf16 inputs, one rounding of dx; dscale and dbias
+    rounded to bf16); bf16 with gn_bf16 3e-2 (the plain version then
+    differentiates its bf16-rounded chain, the kernel the f32 one). Under
+    gn_bf16 relu and leaky relu have a kink where the two chains can
+    disagree on the sign of z, and such an element's dx differs by its
+    whole size: there dx is held by the share of elements outside the
+    tolerance, at most 1e-3 of them."""
+    import torch.nn.functional as F
+
+    from psld_tpu_torch.ops import (group_norm_act_backward,
+                                    group_norm_act_backward_plain,
+                                    group_norm_act_plain)
+
+    rng = np.random.default_rng(3)
+    rows, errs, abs_errs = [], {}, {}
+    kernel_bwd = eager_bwd = plain_bwd = lib_bwd = 0.0
+    total = {}
+    t0 = time.perf_counter()
+
+    def rel_err(got, want, tol, what, mode, kinked):
+        worst = 0.0
+        for a, w, name in zip(got, want, ("dx", "dscale", "dbias")):
+            check(a.dtype == w.dtype and a.shape == w.shape,
+                  f"{what}: {name} is {a.dtype} {tuple(a.shape)}")
+            check(bool(torch.isfinite(a.float()).all()),
+                  f"{what}: non-finite {name}")
+            ref = float(w.float().abs().max()) + 1e-12
+            if kinked and name == "dx":
+                out = float(((a.float() - w.float()).abs()
+                             > tol * ref).float().mean())
+                check(out <= 1e-3, f"{what}: {out:.3e} of dx outside {tol} "
+                      f"of its scale {ref:.3e} (at most 1e-3 may be)")
+                continue
+            err = max_err(a, w)
+            check(err <= tol * ref, f"{what}: {name} max abs error {err:.3e}"
+                  f" over {tol} of its scale {ref:.3e}")
+            worst = max(worst, err / ref)
+            abs_errs[mode] = max(abs_errs.get(mode, 0.0), err)
+        return worst
+
+    for hw, c, calls in GN_CALLS:
+        s = int(round(hw ** 0.5))
+        g = min(c // 4, 32)
+        x32 = torch.from_numpy((rng.standard_normal((TRAIN_BATCH, s, s, c))
+                                * 2.0 + 0.5).astype(np.float32)).cuda()
+        ct32 = torch.from_numpy(rng.standard_normal(
+            (TRAIN_BATCH, s, s, c)).astype(np.float32)).cuda()
+        sc32 = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(c)).astype(
+            np.float32)).cuda()
+        bi32 = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(
+            np.float32)).cuda()
+        acts = ["swish"] + (["none", "relu", "elu", "lrelu"]
+                            if (hw, c) == (1024, 256) else [])
+        for act in acts:
+            for dt, gn16, tol in ((torch.float32, False, 1e-4),
+                                  (torch.bfloat16, False, 2e-2),
+                                  (torch.bfloat16, True, 3e-2)):
+                x, ct, sc, bi = (a.to(dt) for a in (x32, ct32, sc32, bi32))
+                set_gn_bf16(gn16)
+                got = group_norm_act_backward(x, sc, bi, ct, g, 1e-6, act)
+                want = group_norm_act_backward_plain(x, sc, bi, ct, g, 1e-6,
+                                                     act)
+                torch.cuda.synchronize()
+                mode = f"{str(dt)[6:]}{'+gn_bf16' if gn16 else ''}"
+                errs[mode] = max(errs.get(mode, 0.0), rel_err(
+                    got, want, tol, f"gn_bwd {hw}x{c} {act} {mode}", mode,
+                    kinked=gn16 and act in ("relu", "lrelu")))
+        # time the training path's case: bf16, swish, gn_bf16 on
+        x, ct, sc, bi = (a.bfloat16() for a in (x32, ct32, sc32, bi32))
+        set_gn_bf16(True)
+        k_ms = device_ms(lambda: group_norm_act_backward(
+            x, sc, bi, ct, g, 1e-6, "swish"))
+        e_ms = cuda_ms(lambda: group_norm_act_backward(
+            x, sc, bi, ct, g, 1e-6, "swish"))
+        # the plain version's forward is part of its autograd: it is
+        # timed on its own and taken off
+        p_ms = device_ms(lambda: group_norm_act_backward_plain(
+            x, sc, bi, ct, g, 1e-6, "swish"), launches=3) - device_ms(
+            lambda: group_norm_act_plain(x, sc, bi, g, 1e-6, "swish"))
+        # the library's backward alone: its forward runs once, on the
+        # stream the timed graph is captured on, and its graph is kept
+        leaves = [t.detach().requires_grad_() for t in
+                  (x.permute(0, 3, 1, 2), sc, bi)]
+        side_stream().wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side_stream()):
+            y = F.silu(F.group_norm(leaves[0], g, leaves[1], leaves[2],
+                                    1e-6))
+        ctn = ct.permute(0, 3, 1, 2)
+        l_ms = device_ms(lambda: torch.autograd.grad(y, leaves, ctn,
+                                                     retain_graph=True))
+        del y, leaves
+        kernel_bwd += calls * k_ms
+        eager_bwd += calls * e_ms
+        plain_bwd += calls * p_ms
+        lib_bwd += calls * l_ms
+        # read x and g, write dx; scale, bias, dscale, dbias; ~30 f32
+        # operations a value
+        n_bytes = (3 * x.numel() + 4 * c) * x.element_size()
+        add_bound(total, calls, n_bytes, 30 * x.numel(), SCALAR_OPS)
+        rows.append((hw, c, calls, k_ms, e_ms, p_ms, l_ms,
+                     n_bytes / 1e9 / (k_ms / 1e3)))
+    os.environ.pop("PSLD_GN_BF16")
+    say(f"[gn_bwd] Triton backward kernel == autograd through plain at all "
+        f"{len(GN_CALLS)} shapes, B={TRAIN_BATCH} (of each gradient's scale: "
+        f"f32 "
+        f"tol 1e-4; bf16 tol 2e-2; bf16+gn_bf16 tol 3e-2) in "
+        f"{time.perf_counter() - t0:.1f} s; max error of scale "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + "; max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in abs_errs.items()))
+    say(f"[gn_bwd] device times (CUDA-graph replay; eager = called one by "
+        f"one): bf16 swish, B={TRAIN_BATCH}, {card}")
+    for hw, c, calls, k_ms, e_ms, p_ms, l_ms, gbps in rows:
+        say(f"[gn_bwd]   HW={hw:5d} C={c:3d} x{calls:2d}/bwd: kernel "
+            f"{k_ms:.4f} ms ({gbps:.0f} GB/s of x, g, dx; eager {e_ms:.4f} "
+            f"ms), plain autograd {p_ms:.4f} ms, F.group_norm+F.silu "
+            f"backward {l_ms:.4f} ms")
+    say(f"[gn_bwd]   per flagship backward at B={TRAIN_BATCH} ({GN_PER_FWD} "
+        f"calls): kernel "
+        f"{kernel_bwd:.3f} ms (eager {eager_bwd:.3f} ms), bound "
+        f"{total['bound_ms']:.3f} ms, plain {plain_bwd:.3f} ms, library "
+        f"{lib_bwd:.3f} ms")
+    return {"max_abs_err": abs_errs["bfloat16+gn_bf16"],
+            "max_err_of_scale": errs["bfloat16+gn_bf16"], "ms": kernel_bwd,
+            "eager_ms": eager_bwd, "plain_ms": plain_bwd,
+            "bound_by": bound_by(total), **total, "library_ms": lib_bwd}
+
+
+def phase_dropout(card):
+    """The hash dropout kernel against its plain version, bit for bit."""
+    import torch.nn.functional as F
+
+    from psld_tpu_torch.ops import hash_dropout, hash_dropout_plain
+
+    rng = np.random.default_rng(4)
+    rows = []
+    kernel_step = eager_step = plain_step = lib_step = 0.0
+    total = {}
+    seed = (123456789, 4000000000)
+    n_cases, worst = 0, 0.0
+    for hw, c, calls in DROPOUT_CALLS:
+        s = int(round(hw ** 0.5))
+        x32 = torch.from_numpy(rng.standard_normal(
+            (TRAIN_BATCH, s, s, c)).astype(np.float32)).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            # the layout inside the network: NCHW-logical, channels_last
+            x = x32.to(dt).permute(0, 3, 1, 2)
+            for rate, off in ((0.15, 0), (0.5, 0), (0.15, 1_000_003)):
+                got = hash_dropout(x, seed, rate, elem_off=off)
+                want = hash_dropout_plain(x, seed, rate, elem_off=off)
+                torch.cuda.synchronize()
+                what = f"dropout {hw}x{c} {dt} rate={rate} off={off}"
+                check(got.dtype == dt and got.stride() == x.stride(),
+                      f"{what}: output dtype or layout changed")
+                worst = max(worst, max_err(got, want))
+                check(torch.equal(got, want), f"{what}: kernel != plain")
+                kept = float((got != 0).float().mean())
+                sigma = (rate * (1 - rate) / x.numel()) ** 0.5
+                check(abs(kept - (1 - rate)) < 4 * sigma,
+                      f"{what}: kept share {kept:.6f}")
+                n_cases += 1
+        x = x32.bfloat16().permute(0, 3, 1, 2)
+        xg = x.detach().requires_grad_()
+        ct = torch.randn_like(x)
+        (dx,) = torch.autograd.grad(hash_dropout(xg, seed, 0.15), xg, ct)
+        check(torch.equal(dx, hash_dropout_plain(ct, seed, 0.15)),
+              f"dropout {hw}x{c}: backward does not re-mask the cotangent")
+        k_ms = device_ms(lambda: hash_dropout(x, seed, 0.15))
+        e_ms = cuda_ms(lambda: hash_dropout(x, seed, 0.15))
+        p_ms = device_ms(lambda: hash_dropout_plain(x, seed, 0.15),
+                         launches=3)
+        l_ms = device_ms(lambda: F.dropout(x, 0.15, training=True))
+        # forward and backward of a step launch the same kernel
+        kernel_step += 2 * calls * k_ms
+        eager_step += 2 * calls * e_ms
+        plain_step += 2 * calls * p_ms
+        lib_step += 2 * calls * l_ms
+        # one read, one write; ~25 integer operations a value
+        n_bytes = 2 * x.numel() * x.element_size()
+        add_bound(total, 2 * calls, n_bytes, 25 * x.numel(), SCALAR_OPS)
+        rows.append((hw, c, calls, k_ms, e_ms, p_ms, l_ms,
+                     n_bytes / 1e9 / (k_ms / 1e3)))
+    # a size that is no multiple of 128, four seed words
+    odd = torch.from_numpy(rng.standard_normal(100_003).astype(
+        np.float32)).cuda()
+    got = hash_dropout(odd, (1, 2, 0xFFFFFFFF, 7), 0.15)
+    want = hash_dropout_plain(odd, (1, 2, 0xFFFFFFFF, 7), 0.15)
+    worst = max(worst, max_err(got, want))
+    check(torch.equal(got, want),
+          "dropout: odd size, 4-word seed: kernel != plain")
+    say(f"[dropout] Triton kernel == plain bit for bit in {n_cases + 1} cases"
+        f" (f32 and bf16, rates 0.15 and 0.5, an offset, an odd size), "
+        f"B={TRAIN_BATCH}; kept share within 4 sigma; backward re-masks")
+    say(f"[dropout] device times (CUDA-graph replay; eager = called one by "
+        f"one): bf16, rate 0.15, {card}")
+    for hw, c, calls, k_ms, e_ms, p_ms, l_ms, gbps in rows:
+        say(f"[dropout]   HW={hw:5d} C={c} x{calls} sites: kernel {k_ms:.4f}"
+            f" ms ({gbps:.0f} GB/s read+write; eager {e_ms:.4f} ms), plain "
+            f"{p_ms:.4f} ms, F.dropout {l_ms:.4f} ms")
+    say(f"[dropout]   per flagship step ({2 * DROPOUT_SITES} launches): "
+        f"kernel {kernel_step:.3f} ms (eager {eager_step:.3f} ms), bound "
+        f"{total['bound_ms']:.3f} ms, plain {plain_step:.3f} ms, F.dropout "
+        f"{lib_step:.3f} ms")
+    return {"max_abs_err": worst, "ms": kernel_step, "eager_ms": eager_step,
+            "plain_ms": plain_step, "bound_by": bound_by(total), **total,
+            "library_ms": lib_step}
+
+
+def phase_attention(card, batch):
     from psld_tpu_torch.ops import attention, attention_plain
+
+    import torch.nn.functional as F
 
     rng = np.random.default_rng(1)
     rows, errs = [], {}
-    kernel_fwd = plain_fwd = 0.0
+    kernel_fwd = eager_fwd = plain_fwd = lib_fwd = 0.0
+    total = {}
     for n, c, calls in ATTN_CALLS:
-        qkv32 = [torch.from_numpy(rng.standard_normal((BATCH, n, c)).astype(
+        qkv32 = [torch.from_numpy(rng.standard_normal((batch, n, c)).astype(
             np.float32)).cuda() for _ in range(3)]
         scale = float(c) ** -0.5
         for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
@@ -222,36 +546,61 @@ def phase_attention(card):
             err = assert_close(got, want, tol, tol, f"attention {n}x{c} {dt}")
             errs[str(dt)[6:]] = max(errs.get(str(dt)[6:], 0.0), err)
         q, k, v = (a.bfloat16() for a in qkv32)
-        k_ms = cuda_ms(lambda: attention(q, k, v, scale))
-        p_ms = cuda_ms(lambda: attention_plain(q, k, v, scale))
+        k_ms = device_ms(lambda: attention(q, k, v, scale))
+        e_ms = cuda_ms(lambda: attention(q, k, v, scale))
+        p_ms = device_ms(lambda: attention_plain(q, k, v, scale))
+        q4, k4, v4 = (a[:, None] for a in (q, k, v))  # one head
+        l_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, scale=scale))
         kernel_fwd += calls * k_ms
+        eager_fwd += calls * e_ms
         plain_fwd += calls * p_ms
-        tflops = BATCH * 4 * n * n * c / (k_ms / 1e3) / 1e12
-        rows.append((n, c, calls, k_ms, p_ms, tflops))
+        lib_fwd += calls * l_ms
+        flops = batch * 4 * n * n * c
+        # q, k, v read, o written; bf16 inputs: the tensor cores' peak
+        add_bound(total, calls, 4 * q.numel() * q.element_size(), flops,
+                  BF16_TENSOR_OPS)
+        rows.append((n, c, calls, k_ms, e_ms, p_ms, l_ms,
+                     flops / (k_ms / 1e3) / 1e12))
     say(f"[attention] CUDA kernel == plain at {len(ATTN_CALLS)} shapes, "
-        f"B={BATCH} (f32 tol 1e-5; bf16 tol 1e-2); max abs err "
+        f"B={batch} (f32 tol 1e-5; bf16 tol 1e-2); max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-    say(f"[attention] times: bf16, {card}")
-    for n, c, calls, k_ms, p_ms, tflops in rows:
+    say(f"[attention] device times (CUDA-graph replay; eager = called one "
+        f"by one): bf16, B={batch}, {card}")
+    for n, c, calls, k_ms, e_ms, p_ms, l_ms, tflops in rows:
         say(f"[attention]   N={n:3d} C={c} x{calls}/fwd: kernel {k_ms:.4f} ms "
-            f"({tflops:.1f} TFLOP/s), plain {p_ms:.4f} ms")
-    say(f"[attention]   per flagship forward ({ATTN_PER_FWD} calls): kernel "
-        f"{kernel_fwd:.3f} ms, plain {plain_fwd:.3f} ms")
+            f"({tflops:.1f} TFLOP/s; eager {e_ms:.4f} ms), plain {p_ms:.4f} "
+            f"ms, F.scaled_dot_product_attention {l_ms:.4f} ms")
+    say(f"[attention]   per flagship forward at B={batch} ({ATTN_PER_FWD} "
+        f"calls): kernel "
+        f"{kernel_fwd:.3f} ms (eager {eager_fwd:.3f} ms), bound "
+        f"{total['bound_ms']:.3f} ms, plain {plain_fwd:.3f} ms, "
+        f"F.scaled_dot_product_attention {lib_fwd:.3f} ms")
     return {"max_abs_err": errs["bfloat16"], "ms": kernel_fwd,
-            "plain_ms": plain_fwd}
+            "eager_ms": eager_fwd, "plain_ms": plain_fwd,
+            "bound_by": bound_by(total), **total, "library_ms": lib_fwd}
+
+
+def _wrappers() -> dict:
+    from psld_tpu_torch import ops
+
+    return {"group_norm_act": ops.group_norm_act,
+            "group_norm_act_bwd": ops.group_norm_act_backward,
+            "attention": ops.attention, "hash_dropout": ops.hash_dropout}
 
 
 def reset_counts():
-    from psld_tpu_torch.ops import attention, group_norm_act
+    for fn in _wrappers().values():
+        fn.launches = 0
 
-    group_norm_act.launches = 0
-    attention.launches = 0
+
+def all_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def counts():
-    from psld_tpu_torch.ops import attention, group_norm_act
-
-    return group_norm_act.launches, attention.launches
+    c = all_counts()
+    return c["group_norm_act"], c["attention"]
 
 
 def flagship_weights(net, seed: int = 0) -> dict:
@@ -333,17 +682,167 @@ def phase_net(card, cfg):
     return weights, fwd_ms
 
 
-def phase_sample(card, weights):
-    import shutil
+TRAIN_ARGS = [
+    "dataset.diffusion.data.name=synthetic",
+    "+dataset.diffusion.model.score_fn.dropout_impl=hw",
+    "+dataset.diffusion.training.bf16=True",
+]
+STEP_COUNTS = {"group_norm_act": GN_PER_FWD, "group_norm_act_bwd": GN_PER_FWD,
+               "attention": ATTN_PER_FWD, "hash_dropout": 2 * DROPOUT_SITES}
 
+
+def phase_train_check(card, weights):
+    """One float32 optimizer step of the flagship at B=2, hash dropout
+    0.15, on the card against the CPU, with the same t, eps and seed
+    words. The first step's learning rate is 0 (warmup), so the weights
+    stay and Adam's first moment is (1 - beta_1) times the clipped
+    gradient: it holds every parameter's gradient. Tolerance: 1e-3 of
+    each gradient's scale (float32 sums in another order through ~250
+    layers, TF32 off)."""
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.train.loop import build_score_model, build_sde
+    from psld_tpu_torch.train.state import init_state
+    from psld_tpu_torch.train.steps import make_train_step
+    from psld_tpu_torch.registry import get_module
+
+    t0 = time.perf_counter()
+    cfg = bootstrap(FLAGSHIP_ARGS + [
+        "+dataset.diffusion.model.score_fn.dropout_impl=hw"
+    ]).dataset.diffusion
+    set_gn_bf16(False)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 32, 32, 3)).astype(
+        np.float32))
+    t = torch.tensor([0.3, 0.7], dtype=torch.float64)
+    eps = torch.from_numpy(rng.standard_normal((2, 32, 32, 6)).astype(
+        np.float32))
+    seeds = [tuple(int(w) for w in row)
+             for row in rng.integers(0, 2 ** 32, (DROPOUT_SITES, 2))]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        net = build_score_model(cfg)
+        net.load_state_dict(weights, strict=True)
+        net.to(dev)
+        sde = build_sde(cfg)
+        crit = get_module("losses", cfg.training.loss.name)(cfg, sde)
+        step, opt = make_train_step(net, sde, crit, cfg)
+        state = init_state(dict(net.named_parameters()), opt)
+        reset_counts()
+        state, m = step(state, x.to(dev), t=t, eps=eps.to(dev),
+                        dropout_seeds=seeds)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = all_counts()
+            check(n == STEP_COUNTS, f"one train step launched {n}, expected "
+                  f"{STEP_COUNTS}")
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    {k: v.cpu() for k, v in state.opt_state["mu"].items()})
+        del state, step, net
+    os.environ.pop("PSLD_GN_BF16")
+    (l_c, g_c, mu_c), (l_g, g_g, mu_g) = out["cpu"], out["cuda"]
+    check(abs(l_g - l_c) <= 1e-3 * abs(l_c),
+          f"train_check: loss {l_g} on the card, {l_c} on the CPU")
+    check(abs(g_g - g_c) <= 1e-3 * abs(g_c),
+          f"train_check: grad_norm {g_g} on the card, {g_c} on the CPU")
+    top = max(float(v.abs().max()) for v in mu_c.values())
+    worst, worst_key = 0.0, ""
+    for k, want in mu_c.items():
+        if k.endswith(".W"):
+            check(not mu_g[k].any(), f"train_check: {k} has a gradient")
+            continue
+        ref = max(float(want.abs().max()), 1e-4 * top)
+        err = max_err(mu_g[k], want) / ref
+        if err > worst:
+            worst, worst_key = err, k
+    check(worst <= 1e-3, f"train_check: gradient of {worst_key} differs by "
+          f"{worst:.3e} of its scale (tol 1e-3)")
+    say(f"[train_check] f32 step at B=2, hash dropout 0.15: card == CPU "
+        f"(loss {l_g:.6f} vs {l_c:.6f}; grad_norm {g_g:.6f} vs {g_c:.6f}; "
+        f"worst parameter gradient {worst:.2e} of its scale, {worst_key}; "
+        f"tol 1e-3); one step launched {STEP_COUNTS}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def phase_train(card, work):
+    """``cli.train_sde`` at the flagship's training point; returns the
+    path of the checkpoint it wrote and the launch counts of the run."""
+    from psld_tpu_torch.cli import train_sde as train_cli
+    from psld_tpu_torch.train.checkpoint import latest_checkpoint
+
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+
+    def run(batch, accum, results):
+        # the synthetic set holds 512 images: 512 / (batch * accum) steps
+        # an epoch; one checkpoint, after the last epoch; one read of the
+        # loss, at the last step
+        epochs = n_steps * batch * accum // 512
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        return train_cli.main(FLAGSHIP_ARGS + TRAIN_ARGS + [
+            f"dataset.diffusion.training.results_dir={results}",
+            f"dataset.diffusion.training.batch_size={batch}",
+            f"+dataset.diffusion.training.grad_accum={accum}",
+            f"dataset.diffusion.training.epochs={epochs}",
+            f"dataset.diffusion.training.chkpt_interval={epochs}",
+            f"dataset.diffusion.training.log_step={n_steps}",
+            "+dataset.diffusion.training.device=cuda",
+        ])
+
+    t0 = time.perf_counter()
+    batch, accum = TRAIN_BATCH, 1
+    results = os.path.join(work, "train")
+    try:
+        state, stats = run(batch, accum, results)
+    except torch.cuda.OutOfMemoryError as e:
+        # a finding to print, not to hide: the step does not fit at 128
+        say(f"[train] batch {TRAIN_BATCH} does not fit in the card's memory "
+            f"({e}); running 2 x {TRAIN_BATCH // 2} through grad_accum")
+        torch.cuda.empty_cache()
+        batch, accum = TRAIN_BATCH // 2, 2
+        results = os.path.join(work, "train_accum")
+        state, stats = run(batch, accum, results)
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(stats) == n_steps and state.step == n_steps,
+          f"train took {len(stats)} steps")
+    want = {k: v * n_steps * accum for k, v in STEP_COUNTS.items()}
+    check(n == want, f"training launched {n}, expected {want}")
+    losses = [r["loss"] for r in stats]
+    check(all(np.isfinite(v) for v in losses)
+          and all(np.isfinite(r["grad_norm"]) for r in stats),
+          f"train: non-finite loss or gradient norm: {losses}")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    check(last <= 1.05 * first, f"train: loss rose from {first} to {last}")
+    for tree in (state.params, state.ema_params):
+        check(all(bool(torch.isfinite(v).all()) for v in tree.values()),
+              "train: non-finite parameters")
+    ckpt = latest_checkpoint(os.path.join(results, "checkpoints"))
+    check(ckpt is not None and os.path.exists(ckpt + ".meta.json"),
+          "train wrote no checkpoint")
+    timed = [r["ms"] for r in stats[TRAIN_WARMUP:]]
+    ms_step = float(np.mean(timed))
+    img_s = batch * accum / (ms_step / 1e3)
+    say(f"[train] cli.train_sde: {n_steps} steps of the flagship at batch "
+        f"{batch} x grad_accum {accum} (bf16 compute, f32 master weights, "
+        f"hash dropout 0.15, HSM, Adam+warmup, clip 1, EMA 0.9999), "
+        f"synthetic data: {ms_step:.2f} ms/step over the last {TRAIN_TIMED} "
+        f"(min {min(timed):.2f}, max {max(timed):.2f}), {img_s:.2f} img/s, "
+        f"peak {peak_gb:.2f} GB allocated; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; entry point {wall:.1f} s; {card}")
+    say(f"[train] kernel launches in the run: {n}")
+    say(f"[train] checkpoint: {os.path.basename(ckpt)} "
+        f"({os.path.getsize(ckpt) / 1e9:.2f} GB)")
+    del state
+    torch.cuda.empty_cache()
+    return ckpt, n, {"ms_step": ms_step, "img_s": img_s, "peak_gb": peak_gb}
+
+
+def phase_sample(card, work, ckpt):
+    """``cli.sample`` from the checkpoint the train phase wrote."""
     from psld_tpu_torch.cli import sample as sample_cli
 
-    work = os.path.join(REPO, "build", "smoke")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    ckpt = os.path.join(work, "flagship_random.pt")
-    torch.save({"params": weights, "ema_params": weights, "step": 10**6},
-               ckpt)
     out_dir = os.path.join(work, "samples")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -354,11 +853,13 @@ def phase_sample(card, weights):
         f"dataset.diffusion.evaluation.batch_size={BATCH}",
         f"dataset.diffusion.evaluation.n_samples={BATCH}",
         f"dataset.diffusion.evaluation.n_discrete_steps={SAMPLE_NFE}",
+        "dataset.diffusion.evaluation.sample_from=source",
         "+dataset.diffusion.evaluation.bf16=True",
         "+dataset.diffusion.evaluation.device=cuda",
     ])
     wall = time.perf_counter() - t0
-    n_gn, n_attn = counts()
+    n = all_counts()
+    n_gn, n_attn = n["group_norm_act"], n["attention"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     pngs = [f for f in os.listdir(os.path.join(out_dir, "images"))
             if f.endswith(".png")]
@@ -372,43 +873,93 @@ def phase_sample(card, weights):
                              ATTN_PER_FWD * SAMPLE_NFE),
           f"sampling launched {n_gn} GN and {n_attn} attention kernels for "
           f"{SAMPLE_NFE} NFE")
+    check(n["group_norm_act_bwd"] == 0 and n["hash_dropout"] == 0,
+          f"sampling launched training kernels: {n}")
     ms_nfe = row["seconds"] / SAMPLE_NFE * 1e3
     img_s = BATCH / row["seconds"]
-    say(f"[sample] cli.sample: {len(pngs)} PNGs, finite, batch {BATCH}, "
-        f"{SAMPLE_NFE}-NFE EM (bf16 net, gn_bf16): {ms_nfe:.2f} ms/NFE, "
-        f"{img_s:.3f} img/s at {SAMPLE_NFE} NFE (trajectory "
-        f"{row['seconds']:.2f} s, entry point {wall:.2f} s), peak "
-        f"{peak_gb:.2f} GB allocated; {card}")
+    say(f"[sample] cli.sample from the trained checkpoint: {len(pngs)} PNGs, "
+        f"finite, batch {BATCH}, {SAMPLE_NFE}-NFE EM (bf16 net, gn_bf16): "
+        f"{ms_nfe:.2f} ms/NFE, {img_s:.3f} img/s at {SAMPLE_NFE} NFE "
+        f"(trajectory {row['seconds']:.2f} s, entry point {wall:.2f} s), "
+        f"peak {peak_gb:.2f} GB allocated; {card}")
     say(f"[sample] kernel launches in the run: GN {n_gn} "
         f"({GN_PER_FWD}/NFE), attention {n_attn} ({ATTN_PER_FWD}/NFE)")
-    return n_gn, n_attn
+    return n
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    import shutil
+
     from psld_tpu_torch.cli._common import bootstrap
 
     card = phase_device()
     phase_build()
-    gn = phase_gn(card)
-    attn = phase_attention(card)
+    # each kernel at the shapes of every path that launches it
+    gn = {"sample": phase_gn(card, BATCH),
+          "train": phase_gn(card, TRAIN_BATCH)}
+    gn_bwd = {"train": phase_gn_bwd(card)}
+    attn = {"sample": phase_attention(card, BATCH),
+            "train": phase_attention(card, TRAIN_BATCH)}
+    drop = {"train": phase_dropout(card)}
     cfg = bootstrap(FLAGSHIP_ARGS).dataset.diffusion
     weights, _ = phase_net(card, cfg)
-    n_gn, n_attn = phase_sample(card, weights)
-    basis = (f"bf16, batch {BATCH}: ms summed over the calls of one "
-             "flagship forward; max_abs_err of the bf16 kernel against "
-             "the plain version (GroupNorm: its gn_bf16 chain)")
+    phase_train_check(card, weights)
+    del weights
+    work = os.path.join(REPO, "build", "smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ckpt, n_train, _ = phase_train(card, work)
+    n_sample = phase_sample(card, work, ckpt)
+    # each path was driven with the counts set to 0 just before it
+    on_path = {"train": n_train, "sample": n_sample}
+    for name, path in (("group_norm_act", "sample"), ("attention", "sample"),
+                       *((k, "train") for k in STEP_COUNTS)):
+        check(on_path[path][name] > 0,
+              f"the {path} path never launched the {name} kernel")
+
+    def row(name, route, source, replaces, times, basis):
+        """One kernel's line. Its numbers are those at the shapes of the
+        path named by ``path`` (the sample path where the kernel runs on
+        both); ``by_path`` holds the same keys for every path that
+        launches the kernel, each at that path's batch."""
+        by_path = {p: {"launches": on_path[p][name], "batch": b, **times[p]}
+                   for p, b in (("sample", BATCH), ("train", TRAIN_BATCH))
+                   if p in times}
+        path = "sample" if "sample" in times else "train"
+        return {"name": name, "route": route, "source": source,
+                "replaces": replaces,
+                "launches": sum(c[name] for c in on_path.values()),
+                "path": path, **times[path], "basis": basis,
+                "by_path": by_path}
+
+    fwd = ("bf16: device ms (CUDA-graph replay) summed over the calls of "
+           "one flagship forward at the path's batch, eager_ms the same "
+           "calls made one by one; max_abs_err of the bf16 kernel against "
+           "the plain version (GroupNorm: its gn_bf16 chain)")
     say(json.dumps({"kernels": [
-        {"name": "group_norm_act", "route": "triton",
-         "source": "psld_tpu_torch/ops/group_norm.py",
-         "replaces": "psld_tpu/ops/group_norm.py:67", "launches": n_gn,
-         **gn, "basis": basis},
-        {"name": "attention", "route": "cuda",
-         "source": "psld_tpu_torch/csrc/attention.cu",
-         "replaces": "psld_tpu/ops/attention.py:34", "launches": n_attn,
-         **attn, "basis": basis},
+        row("group_norm_act", "triton", "psld_tpu_torch/ops/group_norm.py",
+            "psld_tpu/ops/group_norm.py:67", gn, fwd),
+        row("group_norm_act_bwd", "triton",
+            "psld_tpu_torch/ops/group_norm.py",
+            "psld_tpu/ops/group_norm.py:125", gn_bwd,
+            "bf16: device ms summed over the calls of one flagship backward "
+            "at the path's batch; max_abs_err is the largest |kernel - "
+            "plain| over dx, dscale and dbias against autograd through the "
+            "plain version's gn_bf16 chain (dscale sums 131,072 x 64 terms, "
+            "so it is large in absolute terms); max_err_of_scale is that "
+            "error over each gradient's largest magnitude, which the phase "
+            "holds under 3e-2"),
+        row("attention", "cuda", "psld_tpu_torch/csrc/attention.cu",
+            "psld_tpu/ops/attention.py:34", attn, fwd),
+        row("hash_dropout", "triton", "psld_tpu_torch/ops/dropout.py",
+            "psld_tpu/ops/dropout.py:96", drop,
+            f"bf16, rate 0.15: device ms summed over the "
+            f"{2 * DROPOUT_SITES} launches of one flagship training step "
+            "(forward and backward); max_abs_err measured over every "
+            "compared case, f32 and bf16 (the phase demands bit equality)"),
     ]}))
     say(card)
     say(json.dumps({"ok": True, "device": {

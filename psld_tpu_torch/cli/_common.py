@@ -16,7 +16,7 @@ def bootstrap(argv=None):
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s: %(message)s",
     )
-    from psld_tpu.config import compose
+    from psld_tpu_torch.config import compose
 
     return compose(sys.argv[1:] if argv is None else list(argv))
 

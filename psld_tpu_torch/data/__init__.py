@@ -1,1 +1,6 @@
-from psld_tpu_torch.data.datasets import SDELatentDataset  # noqa: F401
+from psld_tpu_torch.data.datasets import (  # noqa: F401
+    ArrayDataset,
+    CIFAR10Dataset,
+    SDELatentDataset,
+    SyntheticDataset,
+)

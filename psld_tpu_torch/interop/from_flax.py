@@ -70,3 +70,25 @@ def load_flax_params(model: torch.nn.Module, params) -> torch.nn.Module:
     """Fill ``model`` from a flax param tree in place; returns it."""
     model.load_state_dict(flax_to_state_dict(params, model), strict=True)
     return model
+
+
+def train_state_from_flax(model: torch.nn.Module, params, ema_params, mu, nu,
+                          count: int, step: int):
+    """A JAX-package ``TrainState`` as the port's.
+
+    ``params``, ``ema_params`` and the Adam moments ``mu`` and ``nu`` (of
+    optax's ``ScaleByAdamState``) are flax trees with numpy leaves;
+    ``count`` is the optimizer's update count and ``step`` the state's.
+    ``model`` is filled with ``params`` and its parameters become the
+    state's, so the returned state and ``model`` share storage."""
+    from psld_tpu_torch.train.state import TrainState
+
+    load_flax_params(model, params)
+    own = dict(model.named_parameters())
+
+    def tree(t):
+        return {k: v.clone() for k, v in flax_to_state_dict(t, model).items()}
+
+    return TrainState(step=int(step), params=own, ema_params=tree(ema_params),
+                      opt_state={"mu": tree(mu), "nu": tree(nu),
+                                 "count": int(count)})

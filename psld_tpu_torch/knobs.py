@@ -8,6 +8,10 @@ model.score_fn.     GroupNorm normalize/act chain of the     PSLD_GN_BF16
                     bf16 inputs (moment sums stay f32). The
                     Triton kernel always runs the chain in
                     f32, as the TPU kernel did.
+model.score_fn.     resblock dropout: hw and hw_inline =     --
+  dropout_impl      the counter-hash kernel, save_mask and
+                    remat = a saved Bernoulli mask; see
+                    ``models.layers.DropoutSites``
 model.score_fn.     accepted, no effect: on CUDA the port    --
   fused_gn          always runs its GroupNorm kernel
 model.score_fn.     accepted, no effect: the attention       --
@@ -42,3 +46,16 @@ def gn_bf16() -> bool:
     if env != "":
         return env == "1"
     return bool(_gn_bf16)
+
+
+def resolved(config=None) -> dict:
+    """The effective knob values (``PSLD_GN_BF16`` applied), for a run's
+    metadata. With a config, also the model-threaded ``dropout_impl``."""
+    from psld_tpu_torch.models.layers import resolve_dropout_impl
+
+    out = {"gn_bf16": gn_bf16()}
+    if config is not None:
+        sf = config.model.score_fn
+        out["dropout_impl"] = resolve_dropout_impl(
+            str(sf.get("dropout_impl", "save_mask")))
+    return out

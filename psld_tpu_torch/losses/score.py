@@ -1,0 +1,77 @@
+"""Score-matching loss of PSLD (``psld_tpu/losses/score.py``).
+
+The criterion is built from (config, sde) and called with explicit
+tensors. ``score_fn`` is any ``(z, t) -> eps_pred`` callable. The random
+draws (the momentum ``m0`` of DSM, the noise ``eps``) come from ``rng``,
+an object with ``normal(shape)`` such as
+:class:`psld_tpu_torch.train.steps.StepRandom`, or are handed in, which is
+how a test feeds this loss and the JAX package's the same numbers.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from psld_tpu_torch.registry import get_module, register_module
+from psld_tpu_torch.sde.psld import split_xm
+
+
+def _reduce(loss: torch.Tensor, strategy: str) -> torch.Tensor:
+    return loss.mean() if strategy == "mean" else loss.sum()
+
+
+def _sample_momentum(sde, x_0, mode: str, rng=None, m0=None):
+    """DSM: m_0 ~ N(0, mm_0 I), kernel mm_0 = 0; HSM: m_0 = 0, kernel
+    mm_0 = kappa M. An injected ``m0`` is the standard-normal draw, before
+    its scaling."""
+    if mode == "hsm":
+        return torch.zeros_like(x_0), sde.mm_0
+    if m0 is None:
+        m0 = rng.normal(x_0.shape)
+    return math.sqrt(sde.mm_0) * m0.to(x_0.dtype), 0.0
+
+
+@register_module(category="losses", name="psld_score_loss")
+class PSLDScoreLoss:
+    """HSM/DSM epsilon-prediction loss for PSLD."""
+
+    def __init__(self, config, sde):
+        if config.training.loss.weighting not in ("fid",):
+            raise ValueError("psld_score_loss takes weighting=fid")
+        if config.training.mode not in ("hsm", "dsm"):
+            raise ValueError(f"training.mode {config.training.mode!r}")
+        if not isinstance(sde, get_module("sde", "psld")):
+            raise TypeError("psld_score_loss needs the PSLD SDE")
+        self.sde = sde
+        self.l_type = config.training.loss.l_type
+        self.mode = config.training.mode
+        self.decomp_mode = config.model.sde.decomp_mode
+        self.reduce_strategy = (
+            "mean" if config.training.loss.reduce_mean else "sum")
+
+    def __call__(self, x_0, t, score_fn, rng=None, eps=None, m0=None):
+        """``x_0`` NHWC float32, ``t`` float64 [B]. Draw order: m0 (DSM
+        only), then eps."""
+        m_0, mm_0 = _sample_momentum(self.sde, x_0, self.mode, rng, m0)
+        if eps is None:
+            eps = rng.normal(x_0.shape[:-1] + (2 * x_0.shape[-1],))
+        eps = eps.to(x_0.dtype)
+        z_t, _, _ = self.sde.perturb_data(x_0, m_0, 0.0, mm_0, t, eps)
+        eps_pred = score_fn(z_t.float(),
+                            t.to(device=z_t.device, dtype=torch.float32))
+
+        # target selection by (sde.mode, decomp)
+        eps_x, eps_m = split_xm(eps)
+        if self.sde.mode == "score_m" and self.decomp_mode == "lower":
+            target = eps_m
+        elif self.sde.mode == "score_x" and self.decomp_mode == "upper":
+            target = eps_x
+        else:
+            target = eps
+        if eps_pred.shape != target.shape:
+            raise ValueError(f"network output {tuple(eps_pred.shape)} vs "
+                             f"target {tuple(target.shape)}")
+        diff = target - eps_pred
+        return _reduce(diff * diff, self.reduce_strategy)

@@ -1,4 +1,4 @@
-"""NCSN++ layers (``psld_tpu/models/layers.py``), eval-mode.
+"""NCSN++ layers (``psld_tpu/models/layers.py``).
 
 Activations are NCHW-logical tensors in ``channels_last`` memory; the NHWC
 view that GroupNorm, NIN and attention take is a free permute. Each
@@ -8,8 +8,16 @@ module's (``GroupNormAct_0``, ``Conv_1``, ``NIN_2.Dense_0``, ``scale``,
 path. Convs and Denses compute in the promoted dtype of input and
 weight, as flax does: f32 inputs with bf16 weights run in f32.
 
-Dropout is the identity in eval mode; ``train=True`` raises until the
-training slice brings the dropout kernel.
+Dropout is the identity in eval mode. In train mode each resblock drops
+at one site, between its second GroupNorm and its second conv; the sites
+of a forward are numbered in call order, and :class:`DropoutSites` hands
+site ``i`` its seed words (``hw``, ``hw_inline``) or the step's generator
+(``save_mask``, ``remat``).
+
+Initialization is the JAX package's ``default_init`` (variance scaling,
+fan_avg, uniform): each Conv, Dense and FIRConv2d carries the
+``init_scale`` its JAX counterpart is built with, and
+:func:`init_parameters` draws every weight from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -22,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from psld_tpu_torch.ops import attention, group_norm_act
+from psld_tpu_torch.ops import attention, group_norm_act, hash_dropout
 from psld_tpu_torch.ops.upfirdn import (conv_downsample_2d_nchw,
                                         downsample_2d_nchw,
                                         upsample_2d_nchw,
@@ -47,11 +55,117 @@ def get_act(name: str) -> Callable:
     return _ACT_FNS[name]
 
 
-def _check_eval(train: bool) -> None:
-    if train:
-        raise NotImplementedError(
-            "train=True: the dropout of a training-mode forward comes with "
-            "the port's training slice")
+# the JAX package's four names for ``model.score_fn.dropout_impl`` select
+# two behaviours here: True = the counter-hash op, False = a saved mask
+DROPOUT_IMPLS = {"save_mask": False, "hw": True, "hw_inline": True,
+                 "remat": False}
+
+
+def resolve_dropout_impl(impl: str = "save_mask") -> str:
+    """``impl`` (``model.score_fn.dropout_impl``) if it is one of the JAX
+    package's names, else an error. The config key alone decides: the
+    JAX package's env overrides switch its Pallas kernel and its
+    compiler's recompute, neither of which exists here."""
+    if impl not in DROPOUT_IMPLS:
+        raise ValueError(f"dropout_impl must be one of "
+                         f"{tuple(DROPOUT_IMPLS)}; got {impl!r}")
+    return impl
+
+
+def dropout_is_hashed(impl: str) -> bool:
+    """Whether ``impl`` drops through the counter-hash op."""
+    return DROPOUT_IMPLS[resolve_dropout_impl(impl)]
+
+
+class DropoutSites:
+    """The dropout of one train-mode forward: call it at each site, in
+    order.
+
+    - ``hw`` and ``hw_inline``: the counter-hash op of
+      :mod:`psld_tpu_torch.ops.dropout` with ``seeds[i]`` (2 or 4 uint32
+      words) at site ``i``. One op serves both names: ``hw_inline`` is
+      the JAX package's way of lowering the same mask without a kernel
+      boundary, and has no counterpart here.
+    - ``save_mask`` and ``remat``: a Bernoulli mask drawn from
+      ``generator`` and saved for the backward (``remat`` recomputes the
+      same mask in the JAX package, a memory lever of its compiler).
+
+    ``close()`` raises unless every seed was used: a seed list of the
+    wrong length means the sites were numbered differently."""
+
+    def __init__(self, rate: float, impl: str = "save_mask", seeds=None,
+                 generator=None):
+        self.rate = float(rate)
+        self.impl = resolve_dropout_impl(impl)
+        self.seeds = seeds
+        self.generator = generator
+        self.site = 0
+        if not 0.0 <= self.rate <= 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1]; got {rate}")
+        if self.hashed and 0.0 < self.rate < 1.0 and seeds is None:
+            raise ValueError(
+                f"dropout_impl={self.impl} in train mode needs "
+                "dropout_seeds: one tuple of uint32 words per site")
+
+    @property
+    def hashed(self) -> bool:
+        return dropout_is_hashed(self.impl)
+
+    def __call__(self, h):
+        i, self.site = self.site, self.site + 1
+        if self.rate == 0.0:
+            return h
+        if self.rate == 1.0:
+            return torch.zeros_like(h)
+        if self.hashed:
+            if i >= len(self.seeds):
+                raise ValueError(f"dropout site {i}: only "
+                                 f"{len(self.seeds)} seeds were given")
+            return hash_dropout(h, self.seeds[i], self.rate)
+        keep = 1.0 - self.rate
+        mask = torch.rand(h.shape, generator=self.generator,
+                          device=h.device) < keep
+        return torch.where(mask, h / keep, torch.zeros_like(h))
+
+    def close(self) -> None:
+        if self.hashed and self.seeds is not None \
+                and 0.0 < self.rate < 1.0 and self.site != len(self.seeds):
+            raise ValueError(f"{len(self.seeds)} dropout seeds for "
+                             f"{self.site} sites")
+
+
+def variance_scaling_(weight, scale: float, fan_in: int, fan_out: int,
+                      generator=None):
+    """``default_init(scale)`` in place: uniform with variance
+    ``scale / fan_avg`` (``scale`` 0 becomes 1e-10)."""
+    scale = 1e-10 if scale == 0 else scale
+    lim = math.sqrt(3.0 * scale / ((fan_in + fan_out) / 2.0))
+    with torch.no_grad():
+        return weight.uniform_(-lim, lim, generator=generator)
+
+
+def init_parameters(net: nn.Module, generator=None) -> nn.Module:
+    """Initialize ``net`` in place as the JAX package's modules do:
+    weights by :func:`variance_scaling_` with each layer's ``init_scale``,
+    biases 0, GroupNorm scale 1 and bias 0, Fourier ``W`` normal times its
+    scale. Draws come from ``generator`` in module order."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (Conv, FIRConv2d)):
+                o, i, kh, kw = m.weight.shape
+                variance_scaling_(m.weight, m.init_scale, i * kh * kw,
+                                  o * kh * kw, generator)
+            elif isinstance(m, Dense):
+                o, i = m.weight.shape
+                variance_scaling_(m.weight, m.init_scale, i, o, generator)
+            elif isinstance(m, GroupNormAct):
+                m.scale.fill_(1.0)
+            elif isinstance(m, GaussianFourierProjection):
+                m.W.normal_(generator=generator).mul_(m.scale)
+            if isinstance(m, (Conv, FIRConv2d, Dense, GroupNormAct)) \
+                    and m.bias is not None:
+                m.bias.zero_()
+    return net
 
 
 def _promote(x, *params):
@@ -79,7 +193,9 @@ class Conv(nn.Conv2d):
     explicit ((top, bottom), (left, right)) padding."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
-                 stride: int = 1, padding=1, bias: bool = True):
+                 stride: int = 1, padding=1, bias: bool = True,
+                 init_scale: float = 1.0):
+        self.init_scale = init_scale
         self._pad = None
         if not isinstance(padding, int):
             (t, b), (l_, r) = padding
@@ -98,18 +214,26 @@ class Conv(nn.Conv2d):
 class Dense(nn.Linear):
     """flax ``nn.Dense`` on the last axis, with dtype promotion."""
 
+    def __init__(self, in_features: int, out_features: int,
+                 init_scale: float = 1.0):
+        super().__init__(in_features, out_features)
+        self.init_scale = init_scale
+
     def forward(self, x):
         x, w, b = _promote(x, self.weight, self.bias)
         return F.linear(x, w, b)
 
 
 def conv3x3(in_ch: int, out_ch: int, stride: int = 1, bias: bool = True,
-            padding=1) -> Conv:
-    return Conv(in_ch, out_ch, 3, stride=stride, padding=padding, bias=bias)
+            padding=1, init_scale: float = 1.0) -> Conv:
+    return Conv(in_ch, out_ch, 3, stride=stride, padding=padding, bias=bias,
+                init_scale=init_scale)
 
 
-def conv1x1(in_ch: int, out_ch: int, bias: bool = True) -> Conv:
-    return Conv(in_ch, out_ch, 1, padding=0, bias=bias)
+def conv1x1(in_ch: int, out_ch: int, bias: bool = True,
+            init_scale: float = 1.0) -> Conv:
+    return Conv(in_ch, out_ch, 1, padding=0, bias=bias,
+                init_scale=init_scale)
 
 
 class GroupNormAct(nn.Module):
@@ -154,6 +278,7 @@ class GaussianFourierProjection(nn.Module):
 
     def __init__(self, embedding_size: int = 256, scale: float = 1.0):
         super().__init__()
+        self.scale = scale
         self.W = nn.Parameter(torch.randn(embedding_size) * scale,
                               requires_grad=False)
 
@@ -165,9 +290,9 @@ class GaussianFourierProjection(nn.Module):
 class NIN(nn.Module):
     """1x1 projection over channels: a Dense on the last (NHWC) axis."""
 
-    def __init__(self, in_ch: int, num_units: int):
+    def __init__(self, in_ch: int, num_units: int, init_scale: float = 0.1):
         super().__init__()
-        self.Dense_0 = Dense(in_ch, num_units)
+        self.Dense_0 = Dense(in_ch, num_units, init_scale=init_scale)
 
     def forward(self, x):
         return self.Dense_0(x)
@@ -194,14 +319,15 @@ class AttnBlock(nn.Module):
     """Full-spatial single-head self-attention; on CUDA the score/softmax/
     value chain is the kernel of :mod:`psld_tpu_torch.ops.attention`."""
 
-    def __init__(self, ch: int, skip_rescale: bool = False):
+    def __init__(self, ch: int, skip_rescale: bool = False,
+                 init_scale: float = 0.0):
         super().__init__()
         self.skip_rescale = skip_rescale
         self.GroupNormAct_0 = GroupNormAct(ch)
         self.NIN_0 = NIN(ch, ch)
         self.NIN_1 = NIN(ch, ch)
         self.NIN_2 = NIN(ch, ch)
-        self.NIN_3 = NIN(ch, ch)
+        self.NIN_3 = NIN(ch, ch, init_scale=init_scale)
 
     def forward(self, x):
         b, c, hh, ww = x.shape
@@ -231,6 +357,7 @@ class FIRConv2d(nn.Module):
         if kernel < 1 or kernel % 2 != 1:
             raise ValueError("FIRConv2d: kernel must be odd")
         self.up, self.down = up, down
+        self.init_scale = 1.0
         self.resample_kernel = list(resample_kernel)
         self.weight = nn.Parameter(
             torch.randn(out_ch, in_ch, kernel, kernel)
@@ -306,7 +433,7 @@ class ResnetBlockDDPM(nn.Module):
 
     def __init__(self, act: str, in_ch: int, out_ch: int | None = None,
                  conv_shortcut: bool = False, skip_rescale: bool = False,
-                 temb_dim: int | None = None):
+                 temb_dim: int | None = None, init_scale: float = 0.0):
         super().__init__()
         out_ch = out_ch or in_ch
         self.act = get_act(act)
@@ -317,7 +444,7 @@ class ResnetBlockDDPM(nn.Module):
         if temb_dim is not None:
             self.Dense_0 = Dense(temb_dim, out_ch)
         self.GroupNormAct_1 = GroupNormAct(out_ch, act)
-        self.Conv_1 = conv3x3(out_ch, out_ch)
+        self.Conv_1 = conv3x3(out_ch, out_ch, init_scale=init_scale)
         self.shortcut = None
         if in_ch != out_ch:
             if conv_shortcut:
@@ -327,12 +454,15 @@ class ResnetBlockDDPM(nn.Module):
                 self.NIN_0 = NIN(in_ch, out_ch)
                 self.shortcut = "nin"
 
-    def forward(self, x, temb=None, train: bool = False):
-        _check_eval(train)
+    def forward(self, x, temb=None, dropout: DropoutSites | None = None):
+        """``dropout``: the train-mode forward's sites, None in eval."""
         h = self.Conv_0(self.GroupNormAct_0(x))
         if temb is not None:
             h = h + _temb_bias(self.Dense_0, self.act, temb)
-        h = self.Conv_1(self.GroupNormAct_1(h))
+        h = self.GroupNormAct_1(h)
+        if dropout is not None:
+            h = dropout(h)
+        h = self.Conv_1(h)
         if self.shortcut == "conv":
             x = self.Conv_2(x)
         elif self.shortcut == "nin":
@@ -348,7 +478,8 @@ class ResnetBlockBigGAN(nn.Module):
     def __init__(self, act: str, in_ch: int, out_ch: int | None = None,
                  up: bool = False, down: bool = False, fir: bool = False,
                  fir_kernel: Sequence[float] = (1, 3, 3, 1),
-                 skip_rescale: bool = True, temb_dim: int | None = None):
+                 skip_rescale: bool = True, temb_dim: int | None = None,
+                 init_scale: float = 0.0):
         super().__init__()
         out_ch = out_ch or in_ch
         self.act = get_act(act)
@@ -360,7 +491,7 @@ class ResnetBlockBigGAN(nn.Module):
         if temb_dim is not None:
             self.Dense_0 = Dense(temb_dim, out_ch)
         self.GroupNormAct_1 = GroupNormAct(out_ch, act)
-        self.Conv_1 = conv3x3(out_ch, out_ch)
+        self.Conv_1 = conv3x3(out_ch, out_ch, init_scale=init_scale)
         self.has_shortcut = in_ch != out_ch or up or down
         if self.has_shortcut:
             self.Conv_2 = conv1x1(in_ch, out_ch)
@@ -376,14 +507,17 @@ class ResnetBlockBigGAN(nn.Module):
             return F.avg_pool2d(x, 2)
         return x
 
-    def forward(self, x, temb=None, train: bool = False):
-        _check_eval(train)
+    def forward(self, x, temb=None, dropout: DropoutSites | None = None):
+        """``dropout``: the train-mode forward's sites, None in eval."""
         h = self.GroupNormAct_0(x)
         h, x = self._resample(h), self._resample(x)
         h = self.Conv_0(h)
         if temb is not None:
             h = h + _temb_bias(self.Dense_0, self.act, temb)
-        h = self.Conv_1(self.GroupNormAct_1(h))
+        h = self.GroupNormAct_1(h)
+        if dropout is not None:
+            h = dropout(h)
+        h = self.Conv_1(h)
         if self.has_shortcut:
             x = self.Conv_2(x)
         if not self.skip_rescale:

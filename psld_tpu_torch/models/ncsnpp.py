@@ -1,4 +1,4 @@
-"""NCSN++ score U-Net (``psld_tpu/models/ncsnpp.py::NCSNpp``), eval-mode.
+"""NCSN++ score U-Net (``psld_tpu/models/ncsnpp.py::NCSNpp``).
 
 ``forward`` takes NHWC ``x`` and returns NHWC, as the JAX module does;
 inside, activations are NCHW-logical in ``channels_last`` memory, so both
@@ -12,8 +12,12 @@ the next module of each class; that is what lets a flax param tree map
 onto this module by path (:mod:`psld_tpu_torch.interop.from_flax`).
 
 ``remat`` and ``scan_blocks`` are accepted and ignored: they change only
-how XLA compiles the JAX model, not what it computes. ``dropout`` and
-``dropout_impl`` are accepted for the training slice; eval-mode dropout
+how XLA compiles the JAX model, not what it computes.
+
+``forward(..., train=True)`` drops with rate ``dropout`` once in every
+resblock (``dropout_impl``: see :class:`layers.DropoutSites`). The sites
+are numbered in call order, ``dropout_sites`` in all; with the hash
+implementations site ``i`` takes ``dropout_seeds[i]``. Eval-mode dropout
 is the identity.
 """
 
@@ -104,7 +108,10 @@ class _NCSNBase(nn.Module):
             raise ValueError(f"embedding_type {embedding_type!r}")
         if resblock_type not in ("ddpm", "biggan"):
             raise ValueError(f"resblock_type {resblock_type!r}")
-        del remat, scan_blocks, dropout, dropout_impl, init_scale
+        del remat, scan_blocks
+        self.dropout = float(dropout)
+        self.dropout_impl = layers.resolve_dropout_impl(dropout_impl)
+        self.init_scale = init_scale
         self.image_size, self.in_ch, self.out_ch = image_size, in_ch, out_ch
         self.act_name = nonlinearity.lower()
         self.act = layers.get_act(self.act_name)
@@ -144,17 +151,19 @@ class _NCSNBase(nn.Module):
         if self.ddpm:
             blk = layers.ResnetBlockDDPM(
                 self.act_name, in_ch, out_ch,
-                skip_rescale=self.skip_rescale, temb_dim=temb_dim)
+                skip_rescale=self.skip_rescale, temb_dim=temb_dim,
+                init_scale=self.init_scale)
         else:
             blk = layers.ResnetBlockBigGAN(
                 self.act_name, in_ch, out_ch, up=up, down=down, fir=self.fir,
                 fir_kernel=self.fir_kernel, skip_rescale=self.skip_rescale,
-                temb_dim=temb_dim)
+                temb_dim=temb_dim, init_scale=self.init_scale)
         self._add(blk)
         return out_ch
 
     def _attn(self, ch: int) -> None:
-        self._add(layers.AttnBlock(ch, skip_rescale=self.skip_rescale))
+        self._add(layers.AttnBlock(ch, skip_rescale=self.skip_rescale,
+                                   init_scale=self.init_scale))
 
     def _build_time_embedding(self) -> None:
         emb_dim = self.nf
@@ -219,14 +228,14 @@ class _NCSNBase(nn.Module):
         temb = nxt("Dense")(temb)
         return nxt("Dense")(self.act(temb))
 
-    def _encoder(self, x, temb, nxt):
+    def _encoder(self, x, temb, nxt, drop=None):
         n_levels = len(self.ch_mult)
         input_pyramid = x
         hs = [nxt("Conv")(x)]
         for i_level in range(n_levels):
             with_attn = self.all_resolutions[i_level] in self.attn_resolutions
             for _ in range(self.num_res_blocks):
-                h = nxt(self.block_kind)(hs[-1], temb)
+                h = nxt(self.block_kind)(hs[-1], temb, drop)
                 if with_attn:
                     h = nxt("AttnBlock")(h)
                 hs.append(h)
@@ -235,7 +244,7 @@ class _NCSNBase(nn.Module):
             if self.ddpm:
                 h = nxt("Downsample")(hs[-1])
             else:
-                h = nxt(self.block_kind)(hs[-1], temb)
+                h = nxt(self.block_kind)(hs[-1], temb, drop)
             if self.progressive_input == "input_skip":
                 input_pyramid = nxt("Downsample")(input_pyramid)
                 h = nxt("Combine")(input_pyramid, h)
@@ -245,9 +254,9 @@ class _NCSNBase(nn.Module):
                     if self.skip_rescale else input_pyramid + h
                 h = input_pyramid
             hs.append(h)
-        h = nxt(self.block_kind)(hs[-1], temb)
+        h = nxt(self.block_kind)(hs[-1], temb, drop)
         h = nxt("AttnBlock")(h)
-        h = nxt(self.block_kind)(h, temb)
+        h = nxt(self.block_kind)(h, temb, drop)
         return h, hs
 
 
@@ -273,12 +282,15 @@ class NCSNpp(_NCSNBase):
                 if i_level == n_levels - 1:
                     self._add(layers.GroupNormAct(h_c, self.act_name))
                     pyr_c = self.out_ch if skip else h_c
-                    self._add(layers.conv3x3(h_c, pyr_c))
+                    self._add(layers.conv3x3(
+                        h_c, pyr_c,
+                        init_scale=self.init_scale if skip else 1.0))
                 elif skip:
                     self._add(layers.Upsample(pyr_c, fir=self.fir,
                                               fir_kernel=self.fir_kernel))
                     self._add(layers.GroupNormAct(h_c, self.act_name))
-                    self._add(layers.conv3x3(h_c, self.out_ch))
+                    self._add(layers.conv3x3(h_c, self.out_ch,
+                                             init_scale=self.init_scale))
                 else:
                     self._add(layers.Upsample(pyr_c, h_c, with_conv=True,
                                               fir=self.fir,
@@ -294,30 +306,43 @@ class NCSNpp(_NCSNBase):
         assert not hs_c
         if self.progressive != "output_skip":
             self._add(layers.GroupNormAct(h_c, self.act_name))
-            self._add(layers.conv3x3(h_c, self.out_ch))
+            self._add(layers.conv3x3(h_c, self.out_ch,
+                                     init_scale=self.init_scale))
         self.to(memory_format=torch.channels_last)
 
     @classmethod
     def from_config(cls, config) -> "NCSNpp":
         return cls(**_model_kwargs(config))
 
-    def forward(self, x, time_cond, train: bool = False):
+    @property
+    def dropout_sites(self) -> int:
+        """Dropout sites of one train-mode forward: one per resblock."""
+        return sum(1 for name, _ in self.named_children()
+                   if name.startswith(self.block_kind + "_"))
+
+    def forward(self, x, time_cond, train: bool = False, dropout_seeds=None,
+                generator=None):
         """NHWC ``x`` (B, H, W, in_ch), noise level ``time_cond`` (B,) ->
-        NHWC (B, H, W, out_ch)."""
-        layers._check_eval(train)
+        NHWC (B, H, W, out_ch). ``train=True`` turns dropout on:
+        ``dropout_seeds`` holds one tuple of uint32 words per site for the
+        hash implementations, ``generator`` draws the masks of the
+        others."""
+        drop = layers.DropoutSites(self.dropout, self.dropout_impl,
+                                   dropout_seeds, generator) \
+            if train else None
         nxt = _Next(self)
         n_levels = len(self.ch_mult)
         h = x.permute(0, 3, 1, 2)
         temb = self._time_embedding(time_cond, nxt)
         if temb is not None and temb.dtype != h.dtype:
             temb = temb.to(h.dtype)
-        h, hs = self._encoder(h, temb, nxt)
+        h, hs = self._encoder(h, temb, nxt, drop)
 
         pyramid = None
         for i_level in reversed(range(n_levels)):
             for _ in range(self.num_res_blocks + 1):
                 h = nxt(self.block_kind)(torch.cat([h, hs.pop()], dim=1),
-                                         temb)
+                                         temb, drop)
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 h = nxt("AttnBlock")(h)
             if self.progressive != "none":
@@ -335,8 +360,10 @@ class NCSNpp(_NCSNBase):
                     h = pyramid
             if i_level != 0:
                 kind = "Upsample" if self.ddpm else self.block_kind
-                h = nxt(kind)(h) if self.ddpm else nxt(kind)(h, temb)
+                h = nxt(kind)(h) if self.ddpm else nxt(kind)(h, temb, drop)
         assert not hs
+        if drop is not None:
+            drop.close()
         if self.progressive == "output_skip":
             h = pyramid
         else:

@@ -1,9 +1,16 @@
 from psld_tpu_torch.ops.attention import (  # noqa: F401
     attention,
+    attention_backward,
     attention_plain,
+)
+from psld_tpu_torch.ops.dropout import (  # noqa: F401
+    hash_dropout,
+    hash_dropout_plain,
 )
 from psld_tpu_torch.ops.group_norm import (  # noqa: F401
     group_norm_act,
+    group_norm_act_backward,
+    group_norm_act_backward_plain,
     group_norm_act_plain,
 )
 from psld_tpu_torch.ops.upfirdn import (  # noqa: F401

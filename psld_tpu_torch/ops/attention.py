@@ -6,6 +6,12 @@ Replaces ``psld_tpu/ops/attention.py::_attn_kernel`` (launched by
 bounds the kernel on the H100 and how it streams K and V past the shared
 memory limit. ``_lane_pad`` is a TPU-lane detail and has no counterpart:
 the kernel takes any C that is a multiple of 8.
+
+The gradient follows ``_attention_bwd`` of the JAX package, which is no
+kernel either: the autograd Function saves q, k and v only, recomputes
+the probability matrix and pulls the cotangent back through the float32
+einsum chain (:func:`attention_backward`). Those products lie outside any
+kernel in the JAX package too and stay ``torch.einsum``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,21 @@ def attention_plain(q, k, v, scale: float):
     return torch.einsum("bqk,bkc->bqc", w, v.float()).to(q.dtype)
 
 
+def attention_backward(q, k, v, scale: float, g):
+    """(dq, dk, dv) of :func:`attention_plain` at cotangent ``g``: P is
+    recomputed, then dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dP *
+    P)), dQ = dS K * scale, dK = dS^T Q * scale, all in float32, cast to
+    the inputs' dtype at the end."""
+    q32, k32, v32, g32 = q.float(), k.float(), v.float(), g.float()
+    p = torch.softmax(torch.einsum("bqc,bkc->bqk", q32, k32) * scale, dim=-1)
+    dv = torch.einsum("bqk,bqc->bkc", p, g32)
+    dp = torch.einsum("bqc,bkc->bqk", g32, v32)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bqk,bkc->bqc", ds, k32) * scale
+    dk = torch.einsum("bqk,bqc->bkc", ds, q32) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _lib():
     lib = build.load("attention.cu")
     fn = lib.psld_attention_fwd
@@ -39,8 +60,38 @@ def _lib():
     return lib
 
 
+def _launch(q, k, v, scale: float):
+    b, n, c = q.shape
+    lib = _lib()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.psld_attention_fwd(q.data_ptr(), k.data_ptr(),
+                                     v.data_ptr(), out.data_ptr(), b, n, c,
+                                     float(scale), _DTYPE_CODE[q.dtype],
+                                     stream)
+    build.check(lib, err, "attention kernel launch")
+    attention.launches += 1
+    return out
+
+
+class _Attention(torch.autograd.Function):
+    """Forward kernel; saves q, k, v and recomputes P in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*attention_backward(*ctx.saved_tensors, ctx.scale, g), None)
+
+
 def attention(q, k, v, scale: float):
-    """(B, N, C) -> (B, N, C) softmax(q k^T * scale) v.
+    """(B, N, C) -> (B, N, C) softmax(q k^T * scale) v, differentiable in
+    q, k and v.
 
     A CPU tensor runs :func:`attention_plain`. A CUDA tensor launches the
     kernel (``attention.launches`` counts the calls) or raises on what the
@@ -63,17 +114,7 @@ def attention(q, k, v, scale: float):
             and 1 <= b <= 65535):
         raise ValueError(f"attention kernel takes N <= {MAX_N} and C a "
                          f"multiple of 8 up to {MAX_C}; got {(b, n, c)}")
-    lib = _lib()
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.psld_attention_fwd(q.data_ptr(), k.data_ptr(),
-                                     v.data_ptr(), out.data_ptr(), b, n, c,
-                                     float(scale), _DTYPE_CODE[q.dtype],
-                                     stream)
-    build.check(lib, err, "attention kernel launch")
-    attention.launches += 1
-    return out
+    return _Attention.apply(q, k, v, float(scale))
 
 
 attention.launches = 0

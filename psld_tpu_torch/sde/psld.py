@@ -1,5 +1,6 @@
-"""Phase-Space Langevin Diffusion SDE, the part EM sampling needs
-(``psld_tpu/sde/psld.py``; the math is derived in that module's docstring).
+"""Phase-Space Langevin Diffusion SDE, the part EM sampling and training
+need (``psld_tpu/sde/psld.py``; the math is derived in that module's
+docstring).
 
 State ``z = (x, m)``; ``E(s) = exp(A s / 2) = e^{-lam s}(I + s N / 2)``
 with the nilpotent ``N`` of the critically damped system, and the kernel
@@ -8,8 +9,8 @@ covariance ``E Sigma_0 E^T + D I0 + S I1 + Q I2``.
 Time vectors are float64 tensors; every coefficient stays float64 until
 :func:`~psld_tpu_torch.utils.numerics.to_edge` casts it to the image
 tensor's dtype and device, as ``_mean`` and ``get_score`` do in the JAX
-package. ``perturb_data``, ``get_coeff``, ``sscs_transition`` and the
-likelihood pieces come with the training and SSCS slices.
+package. ``sscs_transition`` and the likelihood pieces come with the SSCS
+and evaluation slices.
 """
 
 from __future__ import annotations
@@ -79,6 +80,10 @@ class PSLD(SDE):
             return "score_x"
         return "score_xm"
 
+    @property
+    def type(self) -> str:
+        return f"psld-{self.mode}"
+
     # -- matrix exponential pieces --------------------------------------------
     def _exp_half_As(self, s):
         """Entries of E(s) = exp(A s / 2) as per-batch scalars."""
@@ -88,6 +93,17 @@ class PSLD(SDE):
         e21 = decay * (self._c * s)
         e22 = decay * (1.0 - self._a * s)
         return e11, e12, e21, e22
+
+    def kernel_mean_coeff(self, t):
+        """Perturbation-kernel mean map coefficients at time t ([B] each)."""
+        return self._exp_half_As(self.b_t(t))
+
+    def _mean(self, x_0, m_0, t):
+        """Kernel mean, NHWC with ``t`` of shape [B]; the float64
+        coefficients are cast to ``x_0``'s dtype at the edge."""
+        e11, e12, e21, e22 = (to_edge(c, x_0)
+                              for c in self.kernel_mean_coeff(t))
+        return join_xm(e11 * x_0 + e12 * m_0, e21 * x_0 + e22 * m_0)
 
     def _cov_inhom(self, s):
         """Driven part of the kernel covariance: D I0 + S I1 + Q I2."""
@@ -114,6 +130,21 @@ class PSLD(SDE):
 
     def _cov(self, xx_0, mm_0, t):
         return self._cov_from_s(xx_0, mm_0, self.b_t(t))
+
+    def get_coeff(self, var):
+        """Triangular factor of the 2x2 kernel covariance: lower, the
+        Cholesky L with Sigma = L L^T; upper, U with Sigma = U U^T.
+        Returns (c11, c12, c21, c22) per-batch scalars."""
+        xx, xm, mm = var
+        if self.decomp_mode == "lower":
+            l11 = torch.sqrt(xx)
+            l21 = xm / l11
+            l22 = torch.sqrt(mm - l21 * l21)
+            return l11, torch.zeros_like(l11), l21, l22
+        u22 = torch.sqrt(mm)
+        u12 = xm / u22
+        u11 = torch.sqrt(xx - u12 * u12)
+        return u11, u12, torch.zeros_like(u22), u22
 
     def get_inv_coeff(self, var):
         """Inverse-transpose of the triangular covariance factor."""
@@ -147,6 +178,20 @@ class PSLD(SDE):
         score_x = -coef(c11) * eps_x - coef(c12) * eps_m
         score_m = -coef(c21) * eps_x - coef(c22) * eps_m
         return join_xm(score_x, score_m)
+
+    # -- forward perturbation --------------------------------------------------
+    def cond_marginal_prob(self, x_0, m_0, xx_0, mm_0, t):
+        """Mean and 2x2 covariance of the perturbation kernel."""
+        return self._mean(x_0, m_0, t), self._cov(xx_0, mm_0, t)
+
+    def perturb_data(self, x_0, m_0, xx_0, mm_0, t, eps):
+        """z_t = mean + L eps; ``eps`` has 2C channels. Returns
+        (z_t, mean, covariance entries)."""
+        mu_t, var = self.cond_marginal_prob(x_0, m_0, xx_0, mm_0, t)
+        eps_x, eps_m = split_xm(eps)
+        c11, c12, c21, c22 = (to_edge(c, eps_x) for c in self.get_coeff(var))
+        noise = join_xm(c11 * eps_x + c12 * eps_m, c21 * eps_x + c22 * eps_m)
+        return mu_t.to(eps.dtype) + noise, mu_t, var
 
     # -- dynamics ------------------------------------------------------------
     def sde(self, z_t, t):

@@ -15,6 +15,14 @@ _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _COLOR_TYPE = {1: 0, 3: 2, 4: 6}
 
 
+def data_scaler(img, norm: bool = True) -> np.ndarray:
+    """uint8 image -> [-1, 1] (norm) or [0, 1]."""
+    img = np.asarray(img).astype(np.float32)
+    if norm:
+        return img / 127.5 - 1.0
+    return img / 255.0
+
+
 def to_uint8(batch: np.ndarray, denorm: bool = True) -> np.ndarray:
     """float NHWC -> uint8, optionally denormalizing x*0.5+0.5."""
     x = np.asarray(batch, np.float32)

@@ -109,27 +109,58 @@ def test_writer_keeps_only_the_x_half(tmp_path):
 
 
 _IMPORT_ALL = """
-import pkgutil, sys
+import pkgutil, sys, tempfile
 import psld_tpu_torch
 for m in pkgutil.walk_packages(psld_tpu_torch.__path__, "psld_tpu_torch."):
     __import__(m.name)
 from psld_tpu_torch.cli._common import bootstrap
+from psld_tpu_torch.cli import sample, train_sde
+from psld_tpu_torch.train.checkpoint import latest_checkpoint
 bootstrap(["+dataset=cifar10/cifar10_psld"])
-allowed = {"psld_tpu", "psld_tpu.config", "psld_tpu.registry"}
-bad = sorted(m for m in sys.modules if m not in allowed and
-             m.split(".")[0] in ("jax", "jaxlib", "flax", "psld_tpu",
-                                 "triton"))
+tiny = {tiny!r}
+with tempfile.TemporaryDirectory() as d:
+    state, stats = train_sde.main(tiny + [
+        "dataset.diffusion.training.results_dir=" + d + "/results"])
+    batches = sample.main(tiny + [
+        "dataset.diffusion.evaluation.chkpt_path="
+        + latest_checkpoint(d + "/results/checkpoints"),
+        "dataset.diffusion.evaluation.save_path=" + d + "/out"])
+print("RAN", state.step, sum(b["samples"] for b in batches))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "psld_tpu", "triton"))
 print("IMPORTED", bad)
 """
 
+# a train of 2 steps and a sample of 2 images, on the CPU, at 8x8
+_TINY_RUN = ["+dataset=cifar10/cifar10_psld",
+             "dataset.diffusion.data.root=/unused",
+             "dataset.diffusion.data.name=synthetic", *TINY_ARGS,
+             "dataset.diffusion.data.image_size=8",
+             "dataset.diffusion.model.score_fn.nf=8",
+             "dataset.diffusion.model.score_fn.ch_mult=[1,2]",
+             "dataset.diffusion.model.score_fn.attn_resolutions=[4]",
+             "+dataset.diffusion.model.score_fn.dropout_impl=hw",
+             "dataset.diffusion.training.batch_size=256",
+             "dataset.diffusion.training.epochs=1",
+             "+dataset.diffusion.training.device=cpu",
+             "dataset.diffusion.evaluation.n_samples=2",
+             "dataset.diffusion.evaluation.batch_size=2",
+             "dataset.diffusion.evaluation.n_discrete_steps=3",
+             "dataset.diffusion.evaluation.sample_from=source",
+             "+dataset.diffusion.evaluation.device=cpu"]
+
 
 def test_importing_the_port_pulls_in_no_jax():
-    """Every module of the port, imported in a fresh process, and a config
-    composed through the JAX package's jax-free ``psld_tpu.config``, leave
-    JAX, the rest of the JAX package and Triton out of ``sys.modules``."""
-    r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
-                       capture_output=True, text=True, timeout=120)
+    """Every module of the port imported in a fresh process, a config
+    composed by ``bootstrap``, and a tiny ``cli.train_sde`` and
+    ``cli.sample`` run leave no module named ``psld_tpu`` or
+    ``psld_tpu.*``, nothing of JAX and no Triton in ``sys.modules``."""
+    r = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL.format(tiny=_TINY_RUN)], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+    assert "RAN 2 2" in r.stdout, r.stdout
     assert "IMPORTED []" in r.stdout, r.stdout
 
 

@@ -1,8 +1,10 @@
 """What the port builds from each shipped dataset config (CPU).
 
-The port composes its configs with the JAX package's ``psld_tpu.config``
-and the YAML tree under ``psld_tpu/configs``. These tests hold what the
-port makes of every shipped PSLD config (its score network's constructor
+The port composes its configs with its own copy of the composer
+(``psld_tpu_torch/config.py``) and of the YAML tree
+(``psld_tpu_torch/configs``). These tests hold every composed tree equal
+to the JAX package's, so the two copies cannot drift, hold what the port
+makes of every shipped PSLD config (its score network's constructor
 arguments, the network itself, the SDE) to what the JAX package makes of
 the same config, and check that the configs of SDEs the port does not
 have yet are refused.
@@ -19,11 +21,13 @@ import pytest
 import torch
 
 from psld_tpu import knobs as jknobs
-from psld_tpu.config import compose
+from psld_tpu import config as jconfig
 from psld_tpu.models.ncsnpp import _model_kwargs as j_model_kwargs
 from psld_tpu.sde.psld import PSLD as JPSLD
+from psld_tpu_torch import config as tconfig
 from psld_tpu_torch import knobs
 from psld_tpu_torch.cli import sample as sample_cli
+from psld_tpu_torch.config import compose
 from psld_tpu_torch.eval.generate import build_score_model, build_sde
 from psld_tpu_torch.models.ncsnpp import _model_kwargs
 
@@ -53,6 +57,43 @@ def latched_knobs(monkeypatch):
 def test_every_shipped_config_is_covered():
     assert "cifar10/cifar10_psld" in PSLD_GROUPS and len(PSLD_GROUPS) == 4
     assert OTHER_GROUPS and all(g.endswith("_vpsde") for g in OTHER_GROUPS)
+    own = os.path.join(os.path.dirname(tconfig.__file__), "configs",
+                       "dataset")
+    assert sorted(f"{d}/{os.path.splitext(f)[0]}" for d in os.listdir(own)
+                  for f in os.listdir(os.path.join(own, d))) == GROUPS
+
+
+OVERRIDES = ["dataset.diffusion.data.root='/data dir'",
+             "dataset.diffusion.model.score_fn.ch_mult=[2,2,2]",
+             "dataset.diffusion.training.optimizer.lr=1e-3",
+             "+dataset.diffusion.training.bf16=True",
+             "+dataset.diffusion.model.score_fn.dropout_impl=hw"]
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_composed_tree_equals_the_jax_packages(group):
+    """The port's YAML copy and composer give the JAX package's tree, bare
+    and under overrides of every kind (quoted string, list, float, added
+    keys); mandatory ``???`` fields raise and are listed alike."""
+    for argv in ([f"+dataset={group}"], [f"+dataset={group}", *OVERRIDES]):
+        got, want = tconfig.compose(argv), jconfig.compose(argv)
+        assert got.to_dict() == want.to_dict()
+        assert tconfig.validate_no_missing(got) == \
+            jconfig.validate_no_missing(want)
+    bare = tconfig.compose([f"+dataset={group}"])
+    assert "dataset.diffusion.data.root" in tconfig.validate_no_missing(bare)
+    with pytest.raises(tconfig.MissingMandatoryValue):
+        bare.dataset.diffusion.data.root
+
+
+def test_composer_refuses_what_the_jax_composer_refuses():
+    for argv, err in ((["+dataset=cifar10/nope"], FileNotFoundError),
+                      (["dataset"], ValueError),
+                      (["+dataset=cifar10/cifar10_psld",
+                        "dataset.diffusion.nope=1"], KeyError)):
+        for mod in (tconfig, jconfig):
+            with pytest.raises(err):
+                mod.compose(argv)
 
 
 @pytest.mark.parametrize("group", PSLD_GROUPS)
@@ -88,3 +129,36 @@ def test_sample_refuses_an_sde_not_ported(group):
                          "dataset.diffusion.data.root=/unused",
                          "dataset.diffusion.evaluation.chkpt_path=/unused",
                          "+dataset.diffusion.evaluation.device=cpu"])
+
+
+@pytest.mark.parametrize("impl,hashed", [("save_mask", False), ("hw", True),
+                                         ("hw_inline", True),
+                                         ("remat", False)])
+def test_dropout_impl_names_select_two_behaviours(impl, hashed, monkeypatch):
+    """The JAX package's four names are kept as they are (a run's metadata
+    shows the configured one) and select the hash op or a saved mask; the
+    JAX package's env overrides switch nothing here."""
+    from psld_tpu_torch.models import layers
+
+    monkeypatch.setenv("PSLD_DROPOUT_PALLAS", "0" if hashed else "1")
+    monkeypatch.setenv("PSLD_DROPOUT_REMAT", "1")
+    assert layers.resolve_dropout_impl(impl) == impl
+    assert layers.dropout_is_hashed(impl) is hashed
+    assert layers.DropoutSites(0.0, impl).hashed is hashed
+    cfg = compose(["+dataset=cifar10/cifar10_psld",
+                   "dataset.diffusion.data.root=/unused",
+                   f"+dataset.diffusion.model.score_fn.dropout_impl={impl}"])
+    cfg = cfg.dataset.diffusion
+    assert _model_kwargs(cfg)["dropout_impl"] == impl
+    assert knobs.resolved(cfg)["dropout_impl"] == impl
+
+
+def test_unknown_dropout_impl_is_refused():
+    from psld_tpu_torch.models import layers
+
+    assert layers.resolve_dropout_impl() == "save_mask"
+    for bad in ("pallas", "", "HW"):
+        with pytest.raises(ValueError, match="dropout_impl"):
+            layers.resolve_dropout_impl(bad)
+        with pytest.raises(ValueError, match="dropout_impl"):
+            layers.dropout_is_hashed(bad)

@@ -1,16 +1,19 @@
 """The hand-written kernels against their plain versions, on the card.
 
-``chip_smoke.py`` holds both kernels to their plain versions at the
+``chip_smoke.py`` holds the kernels to their plain versions at the
 flagship's shapes; these tests cover the edges it does not reach: ragged
-pixel tiles, widths that are not powers of two, one group per program,
-N and C at their limits, and the inputs the wrappers refuse. They need a
+pixel tiles, widths that are not powers of two (C=320 is the AFHQ width),
+one group per program, N and C at their limits, odd sizes and offsets for
+the dropout hash, finite differences for the GroupNorm backward, and the
+inputs the wrappers refuse. They need a
 CUDA device (the CUDA source is built for sm_90a) and skip without one:
 
     python -m pytest -m cuda --noconftest tests/test_torch_kernels.py
 
 Tolerances: f32 1e-5 (the same f32 arithmetic, summed in another order);
 bf16 1e-2 (one rounding of equal f32 values to the output dtype, which
-may fall on either side of a rounding boundary).
+may fall on either side of a rounding boundary). The dropout kernel is
+held bit for bit.
 """
 
 import numpy as np
@@ -99,3 +102,123 @@ def test_attention_kernel_refuses_what_it_does_not_take(card):
                  [t.transpose(1, 2) for t in qkv((2, 64, 64))]):
         with pytest.raises(ValueError):
             ops.attention(*args, 0.125)
+
+
+GN_BWD_SHAPES = [
+    ((3, 5, 7, 40), 10),     # ragged pixel tile, 20-channel slices
+    ((2, 16, 16, 320), 32),  # the AFHQ width: 10-channel groups
+    ((1, 8, 8, 256), 32),    # B=1, H*W=64
+    ((2, 3, 3, 1024), 32),   # one 32-channel group per program
+    ((1, 1, 1, 64), 16),     # a single pixel: every variance is 0
+]
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("shape,groups", GN_BWD_SHAPES)
+def test_group_norm_act_backward_kernel_matches_plain(card, shape, groups,
+                                                      dtype):
+    """dx, dscale, dbias against autograd through the plain version, for
+    every activation. f32: 1e-4 of each gradient's scale (sums over up to
+    H*W*B terms in another order, through rstd up to 1e3 at the
+    single-pixel shape); bf16: 2e-2 of scale (one rounding of dx, and
+    inputs that are themselves bf16)."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    x = rand(shape, 0, dtype, card, scale=2.0, shift=0.5)
+    g = rand(shape, 3, dtype, card)
+    c = shape[-1]
+    scale = rand((c,), 1, torch.float32, card, 0.1, 1.0)
+    bias = rand((c,), 2, torch.float32, card, 0.1)
+    for act in ("none", "swish", "relu", "elu", "lrelu"):
+        n = ops.group_norm_act_backward.launches
+        got = ops.group_norm_act_backward(x, scale, bias, g, groups, 1e-6,
+                                          act)
+        assert ops.group_norm_act_backward.launches == n + 1
+        want = ops.group_norm_act_backward_plain(x, scale, bias, g, groups,
+                                                 1e-6, act)
+        torch.cuda.synchronize()
+        for a, w in zip(got, want):
+            assert a.dtype == w.dtype and a.shape == w.shape
+            ref = float(w.float().abs().max()) + 1e-6
+            err = float((a.float() - w.float()).abs().max())
+            assert err <= tol * ref, (act, err, ref)
+
+
+def test_group_norm_act_autograd_goes_through_both_kernels(card):
+    """``group_norm_act`` on a CUDA tensor that requires grad: forward and
+    backward each launch their kernel once, and the gradients match
+    central finite differences of the plain version, summed in float64
+    (step 1e-2, tolerance 2e-2 of the gradient's scale)."""
+    x = rand((2, 4, 4, 32), 0, torch.float32, card, 2.0, 0.5).requires_grad_()
+    scale = rand((32,), 1, torch.float32, card, 0.1, 1.0).requires_grad_()
+    bias = rand((32,), 2, torch.float32, card, 0.1).requires_grad_()
+    ct = rand((2, 4, 4, 32), 3, torch.float32, card)
+    n_f, n_b = ops.group_norm_act.launches, \
+        ops.group_norm_act_backward.launches
+    y = ops.group_norm_act(x, scale, bias, 8, 1e-6, "swish")
+    dx, dscale, dbias = torch.autograd.grad(y, (x, scale, bias), ct)
+    assert ops.group_norm_act.launches == n_f + 1
+    assert ops.group_norm_act_backward.launches == n_b + 1
+
+    def f(x_, s_, b_):
+        return float((ops.group_norm_act_plain(
+            x_, s_, b_, 8, 1e-6, "swish").double() * ct.double()).sum())
+
+    h = 1e-2
+    with torch.no_grad():
+        for got, which, idx in ((dx, 0, (1, 2, 3, 5)), (dx, 0, (0, 0, 1, 17)),
+                                (dscale, 1, (7,)), (dbias, 2, (30,))):
+            args = [x.detach().clone(), scale.detach().clone(),
+                    bias.detach().clone()]
+            args[which][idx] += h
+            up = f(*args)
+            args[which][idx] -= 2 * h
+            fd = (up - f(*args)) / (2 * h)
+            ref = float(got.abs().max())
+            assert abs(float(got[idx]) - fd) <= 2e-2 * ref, (which, idx)
+
+
+def test_group_norm_act_backward_kernel_refuses_what_it_does_not_take(card):
+    x = rand((2, 4, 4, 32), 0, torch.float32, card)
+    s, b = torch.ones(32, device=card), torch.zeros(32, device=card)
+    for bad_g in (x.bfloat16(), x.permute(0, 2, 1, 3), x[:1]):
+        with pytest.raises(ValueError):
+            ops.group_norm_act_backward(x, s, b, bad_g, 8)
+    with pytest.raises(ValueError):
+        ops.group_norm_act_backward(x.double(), s, b, x.double(), 8)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("shape,off", [
+    ((1, 1, 1, 1), 0), ((3, 5, 7, 3), 0), ((2, 16, 16, 320), 12345),
+    ((1, 8, 8, 256), 2 ** 32 - 1000),  # positions wrap mod 2**32
+    ((4099,), 77),
+])
+def test_hash_dropout_kernel_matches_plain_bit_for_bit(card, shape, off,
+                                                       dtype):
+    x = rand(shape, 0, dtype, card)
+    for seed, rate in (([123456789, 4000000000], 0.15), ([1, 1], 0.5),
+                       ([1, 2, 0xFFFFFFFF, 7], 0.9)):
+        n = ops.hash_dropout.launches
+        got = ops.hash_dropout(x, seed, rate, elem_off=off)
+        assert ops.hash_dropout.launches == n + 1
+        want = ops.hash_dropout_plain(x, seed, rate, elem_off=off)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_hash_dropout_kernel_backward_and_layouts(card):
+    x = rand((2, 4, 4, 8), 0, torch.float32, card).requires_grad_()
+    inner = x.permute(0, 3, 1, 2)  # NCHW-logical, channels_last memory
+    n = ops.hash_dropout.launches
+    y = ops.hash_dropout(inner, [5, 6], 0.5)
+    ct = rand((2, 8, 4, 4), 1, torch.float32, card)  # NCHW-contiguous
+    (dx,) = torch.autograd.grad(y, x, ct)
+    assert ops.hash_dropout.launches == n + 2
+    want = ops.hash_dropout_plain(
+        ct.permute(0, 2, 3, 1).contiguous(), [5, 6], 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, want)
+    with pytest.raises(ValueError):
+        ops.hash_dropout(x.detach().permute(0, 2, 1, 3), [5, 6], 0.5)
+    with pytest.raises(ValueError):
+        ops.hash_dropout(x.detach().double(), [5, 6], 0.5)

@@ -169,7 +169,91 @@ def test_converter_is_strict_both_ways():
 
 
 def test_train_mode_is_refused():
-    _, _, net = tiny_pair()
+    """Train mode with a hash dropout and no seed words is refused, as is
+    a seed list that does not match the sites; with ``save_mask`` a
+    train-mode forward drops from the generator it is given."""
+    _, params, net = tiny_pair()
+    x, t = (torch.from_numpy(a) for a in inputs())
+    hashed = load_flax_params(
+        NCSNpp(**FLAGSHIP_TINY, dropout_impl="hw"), params)
+    assert hashed.dropout_sites == 10
+    with pytest.raises(ValueError, match="needs dropout_seeds"):
+        hashed(x, t, train=True)
+    with pytest.raises(ValueError, match="only 9 seeds"):
+        hashed(x, t, train=True, dropout_seeds=[(1, 2)] * 9)
+    with pytest.raises(ValueError, match="11 dropout seeds for 10 sites"):
+        hashed(x, t, train=True, dropout_seeds=[(1, 2)] * 11)
+    with torch.no_grad():
+        a, b = (net(x, t, train=True,
+                    generator=torch.Generator().manual_seed(s))
+                for s in (0, 0))
+        c = net(x, t, train=True, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert not torch.equal(a, net(x, t))
+
+
+@pytest.mark.parametrize("impl", ["hw_inline", "hw"])
+def test_train_mode_hash_dropout_matches_jax(monkeypatch, impl):
+    """A train-mode forward with the counter-hash dropout against the JAX
+    package's, on the same seed words per site. The JAX side runs eagerly
+    with ``psld_tpu.ops.hw_dropout`` wrapped to record each site's words
+    in call order; the port is handed that list. Tolerance as for the
+    eval-mode forward: 1e-4 of the output's scale."""
+    import psld_tpu.ops as jops
+
+    jnet = JNCSNpp(**FLAGSHIP_TINY, dropout_impl=impl)
+    _, params, _ = tiny_pair()
     x, t = inputs()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        net(torch.from_numpy(x), torch.from_numpy(t), train=True)
+    seeds, real = [], jops.hw_dropout
+
+    def recording(x_, seed, rate, use_pallas=None):
+        seeds.append(tuple(int(w) for w in np.asarray(seed)))
+        return real(x_, seed, rate, False)
+
+    monkeypatch.setattr(jops, "hw_dropout", recording)
+    want = jnet.apply(params, jnp.asarray(x), jnp.asarray(t), train=True,
+                      rngs={"dropout": jax.random.PRNGKey(7)})
+    net = load_flax_params(NCSNpp(**FLAGSHIP_TINY, dropout_impl=impl), params)
+    assert len(seeds) == net.dropout_sites == 10
+    assert len(set(seeds)) == 10  # every site its own words
+    got = net(torch.from_numpy(x), torch.from_numpy(t), train=True,
+              dropout_seeds=seeds)
+    assert_close_to_scale(got.detach().numpy(), want, 1e-4)
+    # and it is not the eval-mode output
+    with torch.no_grad():
+        ev = net(torch.from_numpy(x), torch.from_numpy(t))
+    assert float((got.detach() - ev).abs().max()) > 1e-3 * float(
+        ev.abs().max())
+
+
+def test_default_init_follows_the_jax_initializers():
+    """``init_parameters``: a weight of each kind (plain conv, a block's
+    last conv with ``init_scale`` 0, NIN, the attention's last NIN, a
+    Dense) is uniform within the bound of the JAX package's
+    ``default_init`` for that layer and spread over most of it; biases 0,
+    GroupNorm scale 1, Fourier W ~ N(0, 16^2)."""
+    from psld_tpu.models.layers import default_init
+    from psld_tpu_torch.models.layers import init_parameters
+
+    net = init_parameters(NCSNpp(**FLAGSHIP_TINY),
+                          torch.Generator().manual_seed(0))
+    sd = net.state_dict()
+    for key, scale in [("Conv_0.weight", 1.0),
+                       ("ResnetBlockBigGAN_0.Conv_1.weight", 0.0),
+                       ("AttnBlock_0.NIN_0.Dense_0.weight", 0.1),
+                       ("AttnBlock_0.NIN_3.Dense_0.weight", 0.0),
+                       ("ResnetBlockBigGAN_0.Dense_0.weight", 1.0)]:
+        p = sd[key]
+        shape = tuple(p.shape[2:]) + (p.shape[1], p.shape[0])  # HWIO / IO
+        want = np.asarray(default_init(scale)(jax.random.PRNGKey(0), shape,
+                                              jnp.float32))
+        # two uniform draws of one bound: maxima within 25% (>= 500 values)
+        ratio = float(p.abs().max()) / float(np.abs(want).max())
+        assert 0.75 < ratio < 1.33, (key, ratio)
+    for key, p in sd.items():
+        if key.endswith("bias"):
+            assert not p.any(), key
+        elif key.endswith("scale"):
+            assert torch.equal(p, torch.ones_like(p)), key
+    w = sd["GaussianFourierProjection_0.W"]
+    assert abs(float(w.std()) / 16.0 - 1.0) < 0.5

@@ -214,3 +214,88 @@ def test_upsample_output_is_channels_last():
     x = torch.from_numpy(rand((2, 8, 8, 6), 33))
     y = tfir.upsample_2d(x, [1, 3, 3, 1])
     assert y.is_contiguous()
+
+
+# -- gradients ----------------------------------------------------------------
+# On the CPU the port's ops differentiate their plain versions; held here
+# to jax.grad through the JAX package's custom VJPs (Pallas forward in
+# interpret mode, backward through the jnp chain). f32: rtol 1e-5 of the
+# gradient's scale, the same f32 arithmetic summed in another order.
+
+def _grad_close(got, want, tol):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(_np(got), want, rtol=tol,
+                               atol=tol * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("act", ["none", "swish", "relu", "elu", "lrelu"])
+def test_group_norm_act_gradients_match_jax(monkeypatch, act):
+    monkeypatch.setenv("PSLD_GN_BF16", "0")
+    c = 128
+    g = min(c // 4, 32)
+    x, scale, bias = _gn_inputs(c)
+    ct = rand(x.shape, 4)
+
+    def f(x_, s_, b_):
+        y = jgn.fused_group_norm_act(x_, s_, b_, g, 1e-6, act, force=True)
+        return jnp.sum(y * jnp.asarray(ct))
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jit_o0(jax.grad(f, argnums=(0, 1, 2)), jnp.asarray(x),
+                      jnp.asarray(scale), jnp.asarray(bias))
+    args = [torch.from_numpy(a) for a in (x, scale, bias)]
+    got = tops.group_norm_act_backward(*args, torch.from_numpy(ct), g, 1e-6,
+                                       act)
+    leaves = [a.clone().requires_grad_() for a in args]
+    auto = torch.autograd.grad(
+        tops.group_norm_act(*leaves, g, 1e-6, act), leaves,
+        torch.from_numpy(ct))
+    for a, b_, w in zip(got, auto, want):
+        _grad_close(a, w, 1e-5)
+        _grad_close(b_, w, 1e-5)
+
+
+def test_group_norm_act_gradient_bf16_follows_gn_bf16(monkeypatch):
+    """bf16 input: the gradient of the bf16-rounded chain (gn_bf16 on) and
+    of the f32 chain (off) against the JAX package's, 3e-2 and 1e-2 of the
+    gradient's scale as for the forward."""
+    c, g = 128, 32
+    x, scale, bias = _gn_inputs(c)
+    ct = rand(x.shape, 4)
+    for gn16, tol in (("1", 3e-2), ("0", 1e-2)):
+        monkeypatch.setenv("PSLD_GN_BF16", gn16)
+
+        def f(x_):
+            y = jgn.group_norm_act_reference(
+                x_, jnp.asarray(scale), jnp.asarray(bias), g, 1e-6, "swish")
+            return jnp.sum(y.astype(jnp.float32) * jnp.asarray(ct))
+
+        want = jit_o0(jax.grad(f), _j(x, jnp.bfloat16))
+        dx, _, _ = tops.group_norm_act_backward(
+            _t(x, torch.bfloat16), torch.from_numpy(scale),
+            torch.from_numpy(bias), _t(ct, torch.bfloat16), g, 1e-6, "swish")
+        assert dx.dtype == torch.bfloat16
+        _grad_close(dx, _np(want), tol)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 128), (2, 256, 64)])
+def test_attention_gradients_match_jax(shape):
+    q, k, v = (rand(shape, s) for s in (10, 11, 12))
+    ct = rand(shape, 13)
+    scale = float(shape[-1]) ** -0.5
+
+    def f(q_, k_, v_):
+        return jnp.sum(jattn.fused_attention(q_, k_, v_, scale, force=True)
+                       * jnp.asarray(ct))
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(a)
+                                                for a in (q, k, v)))
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    chain = tops.attention_backward(*args, scale, torch.from_numpy(ct))
+    leaves = [a.clone().requires_grad_() for a in args]
+    auto = torch.autograd.grad(tops.attention(*leaves, scale), leaves,
+                               torch.from_numpy(ct))
+    for a, b_, w in zip(chain, auto, want):
+        _grad_close(a, w, 1e-5)
+        _grad_close(b_, w, 1e-5)

@@ -142,3 +142,57 @@ def test_make_timesteps_matches_jax(n, stride):
     want = j_make_timesteps(n, 1e-3, 1.0, stride)
     assert got.dtype == torch.float64 and got.shape == (n + 1,)
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-12, atol=1e-15)
+
+
+# -- the forward perturbation kernel (training) -------------------------------
+
+@pytest.mark.parametrize("decomp", ["lower", "upper"])
+@pytest.mark.parametrize("nu,gamma", PARAM_GRID)
+def test_mean_coeff_and_factor_match_jax(nu, gamma, decomp):
+    """``kernel_mean_coeff`` and ``get_coeff``: float64 per-batch scalars,
+    at the HSM start (0, mm_0) and a generic one. The factor's last entry
+    is the root of a difference that cancels at small t, so it is held to
+    1e-9 relative; everything else to 1e-12."""
+    sde, jsde = make_pair(nu, gamma, decomp)
+    t, jt = torch.from_numpy(TS), jnp.asarray(TS)
+    for g, w in zip(sde.kernel_mean_coeff(t), jsde.kernel_mean_coeff(jt)):
+        np.testing.assert_allclose(_np(g), _np(w), **F64)
+    for xx0, mm0 in [(0.0, sde.mm_0), (0.3, 0.7)]:
+        got = sde.get_coeff(sde._cov(xx0, mm0, t))
+        want = jsde.get_coeff(jsde._cov(xx0, mm0, jt))
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float64
+            np.testing.assert_allclose(_np(g), _np(w), rtol=1e-9, atol=1e-300)
+        for g, w in zip(got[:3], want[:3]):
+            np.testing.assert_allclose(_np(g), _np(w), **F64)
+
+
+@pytest.mark.parametrize("nu,gamma", PARAM_GRID)
+def test_perturb_data_matches_jax(nu, gamma):
+    """z_t, its mean and the covariance, HSM (m_0 = 0, mm_0 = kappa M) and
+    DSM (m_0 drawn, mm_0 = 0)."""
+    sde, jsde = make_pair(nu, gamma)
+    b = len(TS)
+    x0, m0, eps = rand((b, 4, 4, 3), 4), rand((b, 4, 4, 3), 5), \
+        rand((b, 4, 4, 6), 6)
+    t, jt = torch.from_numpy(TS), jnp.asarray(TS)
+    for m_0, mm_0 in ((np.zeros_like(m0), sde.mm_0),
+                      (np.sqrt(sde.mm_0).astype(np.float32) * m0, 0.0)):
+        z, mu, var = sde.perturb_data(torch.from_numpy(x0),
+                                      torch.from_numpy(m_0), 0.0, mm_0, t,
+                                      torch.from_numpy(eps))
+        jz, jmu, jvar = jsde.perturb_data(jnp.asarray(x0), jnp.asarray(m_0),
+                                          0.0, mm_0, jt, jnp.asarray(eps))
+        assert z.dtype == torch.float32 and z.shape == (b, 4, 4, 6)
+        assert_f32_close(_np(z), _np(jz))
+        assert_f32_close(_np(mu), _np(jmu))
+        assert_f32_close(_np(sde._mean(torch.from_numpy(x0),
+                                       torch.from_numpy(m_0), t)), _np(jmu))
+        for g, w in zip(var, jvar):
+            np.testing.assert_allclose(_np(g), _np(w), **F64)
+
+
+def test_sde_type_names_the_checkpoint_as_jax_does():
+    for nu, gamma in PARAM_GRID:
+        sde, jsde = make_pair(nu, gamma)
+        assert sde.type == jsde.type
