@@ -7,38 +7,58 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 1. device: a CUDA device must be present; its name and power limit are
    printed as ``nvidia-smi`` reports them.
 2. build: the CUDA C++ kernels are compiled from ``psld_tpu_torch/csrc``
-   with nvcc for sm_90a (the Triton kernels compile at their first launch).
-3. gn: the Triton GroupNorm+act kernel against its plain PyTorch version at
-   the eight (H*W, C) shapes of a flagship forward, at batch 64 (the
-   sample path) and again at batch 128 (the train path).
-4. gn_bwd: the Triton GroupNorm+act backward kernel (dx, dscale, dbias)
-   against autograd through the plain version at the same shapes, at
-   batch 128: only the train path runs it.
-5. attention: the CUDA C++ attention kernel against its plain version at
-   the two attention shapes of a flagship forward, at batch 64 and at
-   batch 128.
-6. dropout: the Triton counter-hash dropout kernel against its plain
-   version, bit for bit, at the three dropout shapes of a flagship training
-   step at batch 128, with an offset, an odd size, and its backward.
-7. net: the flagship CIFAR-10 NCSN++ (97.6M parameters, weights drawn as
+   with nvcc for sm_90a, one nvcc per source, started together (the
+   Triton kernels compile at their first launch).
+3. fused_act: the CUDA C++ fused bias + leaky ReLU kernels (forward and
+   backward) against their plain versions, bit for bit, in f32 and bf16,
+   at the flagship's activation shapes at batch 128 seen as (rows, C), its
+   temb width and an odd shape. No path calls the op; this phase drives it.
+4. gn: the Triton GroupNorm+act kernel against its plain PyTorch version at
+   the (H*W, C) shapes of a flagship forward at batch 64 (sample, sscs and
+   guided paths) and 128 (train), and of a classifier forward at 64
+   (guided) and 32 (train_clf), H*W = 16 included.
+5. gn_bwd: the Triton GroupNorm+act backward kernel (dx, dscale, dbias)
+   against autograd through the plain version, at the flagship's shapes
+   at batch 128 and the classifier's at 64 and 32.
+6. attention: the CUDA C++ attention kernel against its plain version at
+   the attention shapes of the same four (network, batch) pairs, N = 16
+   tokens included.
+7. dropout: the Triton counter-hash dropout kernel against its plain
+   version, bit for bit, at the dropout shapes of a flagship training
+   step at batch 128 and a classifier step at 32, with an offset, an odd
+   size, and its backward.
+8. net: the flagship CIFAR-10 NCSN++ (97.6M parameters, weights drawn as
    N(0, 1) * 0.02 from a numpy seed): float32 forward on the card against
    the same forward on the CPU, with the kernel launch counts of one
    forward; then a 3-step Euler-Maruyama trajectory on the card against the
-   CPU with the same injected noise.
-8. train_check: one float32 optimizer step of the flagship at batch 2 with
+   CPU with the same injected noise; [sscs] then the same for a 3-NFE SSCS
+   trajectory.
+9. train_check: one float32 optimizer step of the flagship at batch 2 with
    hash dropout 0.15, on the card against the CPU with the same t, eps and
    seed words: loss, gradient norm and every parameter's gradient, and the
    kernel launch counts of one step.
-9. train: ``psld_tpu_torch.cli.train_sde`` on the synthetic dataset at the
-   flagship's training point (batch 128, bf16 compute on float32 master
-   weights, hash dropout 0.15, HSM loss, Adam with warmup, clip 1, EMA):
-   2 warm-up and 10 timed steps with one sync at the end, a checkpoint
-   written; every GroupNorm, attention and dropout call must have gone
-   through the kernels.
-10. sample: ``psld_tpu_torch.cli.sample`` loads the checkpoint the train
+10. clf_check: the same for one float32 step of the shipped classifier
+    (loss, top-1, every parameter's gradient), then one float32 guidance
+    gradient into the input, on the card against the CPU.
+11. train: ``psld_tpu_torch.cli.train_sde`` on the synthetic dataset at the
+    flagship's training point (batch 128, bf16 compute on float32 master
+    weights, hash dropout 0.15, HSM loss, Adam with warmup, clip 1, EMA):
+    2 warm-up and 10 timed steps with one sync at the end, a checkpoint
+    written; every GroupNorm, attention and dropout call must have gone
+    through the kernels.
+12. sample: ``psld_tpu_torch.cli.sample`` loads the checkpoint the train
     phase wrote (batch 64, bf16 network, gn_bf16, 100-NFE EM with denoise)
     and writes 64 PNGs; every GroupNorm and attention call of that run must
     have gone through the kernels.
+13. train_clf: ``psld_tpu_torch.cli.train_clf`` at the shipped classifier's
+    width and batch 32 (bf16 compute, hash dropout 0.1), one epoch of the
+    synthetic set, 16 steps, a checkpoint written.
+14. guided: ``psld_tpu_torch.cli.class_cond_sample`` from the checkpoints
+    of train and train_clf: two batches of 64, labels 0 and 1, 20-NFE
+    guided EM with bf16 networks; every GroupNorm (forward and backward)
+    and attention call through the kernels.
+15. sscs: ``psld_tpu_torch.cli.sample`` with SSCS-2M on the quadratic grid,
+    50 NFE at batch 64, bf16, from the train checkpoint.
 
 Each kernel's time stands beside its bound (the larger of its bytes over
 3.35 TB/s and its operations over the card's peak for their type, from
@@ -89,6 +109,25 @@ GN_PER_FWD = sum(n for _, _, n in GN_CALLS)
 ATTN_PER_FWD = sum(n for _, _, n in ATTN_CALLS)
 DROPOUT_SITES = sum(n for _, _, n in DROPOUT_CALLS)
 
+# the same for the shipped guidance classifier (cifar10_psld.yaml's clf
+# tree: nf 128, ch_mult [1,2,2,2], 2 blocks a level, attention at 16^2;
+# its middle block attends over the 4x4 map, N = 16)
+CLF_GN_CALLS = [(1024, 128, 5), (256, 128, 2), (256, 256, 6), (64, 256, 6),
+                (16, 256, 10)]
+CLF_ATTN_CALLS = [(256, 256, 2), (16, 256, 1)]
+CLF_DROPOUT_CALLS = [(1024, 128, 2), (256, 128, 1), (256, 256, 2),
+                     (64, 256, 3), (16, 256, 5)]
+CLF_GN_PER_FWD = sum(n for _, _, n in CLF_GN_CALLS)
+CLF_ATTN_PER_FWD = sum(n for _, _, n in CLF_ATTN_CALLS)
+CLF_DROPOUT_SITES = sum(n for _, _, n in CLF_DROPOUT_CALLS)
+CLF_TRAIN_BATCH = 32
+GUIDED_NFE = 20
+SSCS_NFE = 50
+# (rows, C) of the fused bias + leaky ReLU phase: the flagship's
+# activations at batch 128 seen as (B*H*W, C), its temb width, an odd one
+FUSED_ACT_SHAPES = [(128 * 1024, 256), (128 * 256, 256), (128 * 64, 512),
+                    (128, 512), (1000, 6)]
+
 # the flagship option set of psld_tpu/eval/bench.py
 FLAGSHIP_ARGS = [
     "+dataset=cifar10/cifar10_psld",
@@ -104,6 +143,13 @@ FLAGSHIP_ARGS = [
     "+dataset.diffusion.model.score_fn.gn_bf16=True",
     "dataset.diffusion.model.sde.nu=4.02",
     "dataset.diffusion.model.sde.gamma=0.02",
+]
+# the shipped classifier with CIFAR-10's 10 classes, on synthetic data
+CLF_ARGS = [
+    "dataset.clf.data.root=/unused",
+    "dataset.clf.data.name=synthetic",
+    "dataset.clf.model.clf_fn.n_cls=10",
+    "+dataset.clf.model.clf_fn.dropout_impl=hw",
 ]
 
 
@@ -230,8 +276,11 @@ def phase_build():
     from psld_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.load("attention.cu")
-    say(f"[build] nvcc sm_90a: attention.cu in "
+    srcs = ["attention.cu", "fused_act.cu"]
+    build.build_all(srcs)  # one nvcc per source, started together
+    for src in srcs:
+        build.load(src)
+    say(f"[build] nvcc sm_90a: {', '.join(srcs)} in "
         f"{time.perf_counter() - t0:.1f} s")
     for src, log in sorted(build.build_logs.items()):
         for line in log.splitlines():
@@ -239,7 +288,9 @@ def phase_build():
                 say(f"[build] {src}: {line.strip()}")
 
 
-def phase_gn(card, batch):
+def phase_gn(card, batch, calls=GN_CALLS, net="flagship"):
+    """The forward kernel against its plain version at the (H*W, C)
+    shapes of one ``net`` forward (``calls``) at ``batch``."""
     from psld_tpu_torch.ops import group_norm_act, group_norm_act_plain
 
     import torch.nn.functional as F
@@ -249,7 +300,7 @@ def phase_gn(card, batch):
     kernel_fwd = eager_fwd = plain_fwd = lib_fwd = 0.0
     total = {}
     t0 = time.perf_counter()
-    for hw, c, calls in GN_CALLS:
+    for hw, c, n_calls in calls:
         s = int(round(hw ** 0.5))
         g = min(c // 4, 32)
         x32 = torch.from_numpy((rng.standard_normal((batch, s, s, c)) * 2.0
@@ -283,28 +334,30 @@ def phase_gn(card, batch):
         # the library's GroupNorm takes NCHW: the same memory, permuted
         xn = x.permute(0, 3, 1, 2)
         l_ms = device_ms(lambda: F.silu(F.group_norm(xn, g, sc, bi, 1e-6)))
-        kernel_fwd += calls * k_ms
-        eager_fwd += calls * e_ms
-        plain_fwd += calls * p_ms
-        lib_fwd += calls * l_ms
+        kernel_fwd += n_calls * k_ms
+        eager_fwd += n_calls * e_ms
+        plain_fwd += n_calls * p_ms
+        lib_fwd += n_calls * l_ms
         # read x, write y, read scale and bias; ~12 f32 operations a value
         n_bytes = (2 * x.numel() + 2 * c) * x.element_size()
-        add_bound(total, calls, n_bytes, 12 * x.numel(), SCALAR_OPS)
-        rows.append((hw, c, calls, k_ms, e_ms, p_ms, l_ms,
+        add_bound(total, n_calls, n_bytes, 12 * x.numel(), SCALAR_OPS)
+        rows.append((hw, c, n_calls, k_ms, e_ms, p_ms, l_ms,
                      n_bytes / 1e9 / (k_ms / 1e3)))
     os.environ.pop("PSLD_GN_BF16")
-    say(f"[gn] Triton kernel == plain at all {len(GN_CALLS)} shapes, B={batch}"
+    say(f"[gn] Triton kernel == plain at all {len(calls)} {net} shapes, "
+        f"B={batch}"
         f" (f32 tol 1e-5; bf16 tol 1e-2; bf16+gn_bf16 tol 3e-2) in "
         f"{time.perf_counter() - t0:.1f} s; max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     say(f"[gn] device times (CUDA-graph replay; eager = called one by one, "
         f"the host's launch cost included): bf16 swish, B={batch}, {card}")
-    for hw, c, calls, k_ms, e_ms, p_ms, l_ms, gbps in rows:
-        say(f"[gn]   HW={hw:5d} C={c:3d} x{calls:2d}/fwd: kernel {k_ms:.4f} ms"
+    for hw, c, n_calls, k_ms, e_ms, p_ms, l_ms, gbps in rows:
+        say(f"[gn]   HW={hw:5d} C={c:3d} x{n_calls:2d}/fwd: kernel "
+            f"{k_ms:.4f} ms"
             f" ({gbps:.0f} GB/s read+write; eager {e_ms:.4f} ms), plain "
             f"{p_ms:.4f} ms, F.group_norm+F.silu {l_ms:.4f} ms")
-    say(f"[gn]   per flagship forward at B={batch} ({GN_PER_FWD} calls): "
-        f"kernel "
+    say(f"[gn]   per {net} forward at B={batch} "
+        f"({sum(n for _, _, n in calls)} calls): kernel "
         f"{kernel_fwd:.3f} ms (eager {eager_fwd:.3f} ms), bound "
         f"{total['bound_ms']:.3f} ms, plain {plain_fwd:.3f} ms, "
         f"F.group_norm+F.silu {lib_fwd:.3f} ms")
@@ -313,9 +366,10 @@ def phase_gn(card, batch):
             "bound_by": bound_by(total), **total, "library_ms": lib_fwd}
 
 
-def phase_gn_bwd(card):
+def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship"):
     """dx, dscale, dbias of the backward kernel against autograd through
-    the plain version, at the train path's batch. Tolerances, relative
+    the plain version, at the (H*W, C) shapes of one ``net`` backward
+    (``calls``) at ``batch``. Tolerances, relative
     to each gradient's largest magnitude: f32 1e-4 (sums of up to
     131,072 x 64 terms in another order); bf16 2e-2 (bf16 inputs, one rounding of dx; dscale and dbias
     rounded to bf16); bf16 with gn_bf16 3e-2 (the plain version then
@@ -357,13 +411,13 @@ def phase_gn_bwd(card):
             abs_errs[mode] = max(abs_errs.get(mode, 0.0), err)
         return worst
 
-    for hw, c, calls in GN_CALLS:
+    for hw, c, n_calls in calls:
         s = int(round(hw ** 0.5))
         g = min(c // 4, 32)
-        x32 = torch.from_numpy((rng.standard_normal((TRAIN_BATCH, s, s, c))
+        x32 = torch.from_numpy((rng.standard_normal((batch, s, s, c))
                                 * 2.0 + 0.5).astype(np.float32)).cuda()
         ct32 = torch.from_numpy(rng.standard_normal(
-            (TRAIN_BATCH, s, s, c)).astype(np.float32)).cuda()
+            (batch, s, s, c)).astype(np.float32)).cuda()
         sc32 = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(c)).astype(
             np.float32)).cuda()
         bi32 = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(
@@ -408,19 +462,19 @@ def phase_gn_bwd(card):
         l_ms = device_ms(lambda: torch.autograd.grad(y, leaves, ctn,
                                                      retain_graph=True))
         del y, leaves
-        kernel_bwd += calls * k_ms
-        eager_bwd += calls * e_ms
-        plain_bwd += calls * p_ms
-        lib_bwd += calls * l_ms
+        kernel_bwd += n_calls * k_ms
+        eager_bwd += n_calls * e_ms
+        plain_bwd += n_calls * p_ms
+        lib_bwd += n_calls * l_ms
         # read x and g, write dx; scale, bias, dscale, dbias; ~30 f32
         # operations a value
         n_bytes = (3 * x.numel() + 4 * c) * x.element_size()
-        add_bound(total, calls, n_bytes, 30 * x.numel(), SCALAR_OPS)
-        rows.append((hw, c, calls, k_ms, e_ms, p_ms, l_ms,
+        add_bound(total, n_calls, n_bytes, 30 * x.numel(), SCALAR_OPS)
+        rows.append((hw, c, n_calls, k_ms, e_ms, p_ms, l_ms,
                      n_bytes / 1e9 / (k_ms / 1e3)))
     os.environ.pop("PSLD_GN_BF16")
     say(f"[gn_bwd] Triton backward kernel == autograd through plain at all "
-        f"{len(GN_CALLS)} shapes, B={TRAIN_BATCH} (of each gradient's scale: "
+        f"{len(calls)} {net} shapes, B={batch} (of each gradient's scale: "
         f"f32 "
         f"tol 1e-4; bf16 tol 2e-2; bf16+gn_bf16 tol 3e-2) in "
         f"{time.perf_counter() - t0:.1f} s; max error of scale "
@@ -428,14 +482,14 @@ def phase_gn_bwd(card):
         + "; max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in abs_errs.items()))
     say(f"[gn_bwd] device times (CUDA-graph replay; eager = called one by "
-        f"one): bf16 swish, B={TRAIN_BATCH}, {card}")
-    for hw, c, calls, k_ms, e_ms, p_ms, l_ms, gbps in rows:
-        say(f"[gn_bwd]   HW={hw:5d} C={c:3d} x{calls:2d}/bwd: kernel "
+        f"one): bf16 swish, B={batch}, {card}")
+    for hw, c, n_calls, k_ms, e_ms, p_ms, l_ms, gbps in rows:
+        say(f"[gn_bwd]   HW={hw:5d} C={c:3d} x{n_calls:2d}/bwd: kernel "
             f"{k_ms:.4f} ms ({gbps:.0f} GB/s of x, g, dx; eager {e_ms:.4f} "
             f"ms), plain autograd {p_ms:.4f} ms, F.group_norm+F.silu "
             f"backward {l_ms:.4f} ms")
-    say(f"[gn_bwd]   per flagship backward at B={TRAIN_BATCH} ({GN_PER_FWD} "
-        f"calls): kernel "
+    say(f"[gn_bwd]   per {net} backward at B={batch} "
+        f"({sum(n for _, _, n in calls)} calls): kernel "
         f"{kernel_bwd:.3f} ms (eager {eager_bwd:.3f} ms), bound "
         f"{total['bound_ms']:.3f} ms, plain {plain_bwd:.3f} ms, library "
         f"{lib_bwd:.3f} ms")
@@ -445,8 +499,11 @@ def phase_gn_bwd(card):
             "bound_by": bound_by(total), **total, "library_ms": lib_bwd}
 
 
-def phase_dropout(card):
-    """The hash dropout kernel against its plain version, bit for bit."""
+def phase_dropout(card, batch=TRAIN_BATCH, calls=DROPOUT_CALLS,
+                  net="flagship"):
+    """The hash dropout kernel against its plain version, bit for bit, at
+    the (H*W, C) shapes of ``net``'s dropout sites (``calls``) at
+    ``batch``."""
     import torch.nn.functional as F
 
     from psld_tpu_torch.ops import hash_dropout, hash_dropout_plain
@@ -457,10 +514,10 @@ def phase_dropout(card):
     total = {}
     seed = (123456789, 4000000000)
     n_cases, worst = 0, 0.0
-    for hw, c, calls in DROPOUT_CALLS:
+    for hw, c, n_calls in calls:
         s = int(round(hw ** 0.5))
         x32 = torch.from_numpy(rng.standard_normal(
-            (TRAIN_BATCH, s, s, c)).astype(np.float32)).cuda()
+            (batch, s, s, c)).astype(np.float32)).cuda()
         for dt in (torch.float32, torch.bfloat16):
             # the layout inside the network: NCHW-logical, channels_last
             x = x32.to(dt).permute(0, 3, 1, 2)
@@ -490,14 +547,14 @@ def phase_dropout(card):
                          launches=3)
         l_ms = device_ms(lambda: F.dropout(x, 0.15, training=True))
         # forward and backward of a step launch the same kernel
-        kernel_step += 2 * calls * k_ms
-        eager_step += 2 * calls * e_ms
-        plain_step += 2 * calls * p_ms
-        lib_step += 2 * calls * l_ms
+        kernel_step += 2 * n_calls * k_ms
+        eager_step += 2 * n_calls * e_ms
+        plain_step += 2 * n_calls * p_ms
+        lib_step += 2 * n_calls * l_ms
         # one read, one write; ~25 integer operations a value
         n_bytes = 2 * x.numel() * x.element_size()
-        add_bound(total, 2 * calls, n_bytes, 25 * x.numel(), SCALAR_OPS)
-        rows.append((hw, c, calls, k_ms, e_ms, p_ms, l_ms,
+        add_bound(total, 2 * n_calls, n_bytes, 25 * x.numel(), SCALAR_OPS)
+        rows.append((hw, c, n_calls, k_ms, e_ms, p_ms, l_ms,
                      n_bytes / 1e9 / (k_ms / 1e3)))
     # a size that is no multiple of 128, four seed words
     odd = torch.from_numpy(rng.standard_normal(100_003).astype(
@@ -509,14 +566,16 @@ def phase_dropout(card):
           "dropout: odd size, 4-word seed: kernel != plain")
     say(f"[dropout] Triton kernel == plain bit for bit in {n_cases + 1} cases"
         f" (f32 and bf16, rates 0.15 and 0.5, an offset, an odd size), "
-        f"B={TRAIN_BATCH}; kept share within 4 sigma; backward re-masks")
+        f"{net} shapes, B={batch}; kept share within 4 sigma; backward "
+        f"re-masks")
     say(f"[dropout] device times (CUDA-graph replay; eager = called one by "
         f"one): bf16, rate 0.15, {card}")
-    for hw, c, calls, k_ms, e_ms, p_ms, l_ms, gbps in rows:
-        say(f"[dropout]   HW={hw:5d} C={c} x{calls} sites: kernel {k_ms:.4f}"
+    for hw, c, n_calls, k_ms, e_ms, p_ms, l_ms, gbps in rows:
+        say(f"[dropout]   HW={hw:5d} C={c} x{n_calls} sites: kernel {k_ms:.4f}"
             f" ms ({gbps:.0f} GB/s read+write; eager {e_ms:.4f} ms), plain "
             f"{p_ms:.4f} ms, F.dropout {l_ms:.4f} ms")
-    say(f"[dropout]   per flagship step ({2 * DROPOUT_SITES} launches): "
+    say(f"[dropout]   per {net} step at B={batch} "
+        f"({2 * sum(n for _, _, n in calls)} launches): "
         f"kernel {kernel_step:.3f} ms (eager {eager_step:.3f} ms), bound "
         f"{total['bound_ms']:.3f} ms, plain {plain_step:.3f} ms, F.dropout "
         f"{lib_step:.3f} ms")
@@ -525,7 +584,9 @@ def phase_dropout(card):
             "library_ms": lib_step}
 
 
-def phase_attention(card, batch):
+def phase_attention(card, batch, calls=ATTN_CALLS, net="flagship"):
+    """The kernel against its plain version at the (N, C) shapes of one
+    ``net`` forward (``calls``) at ``batch``."""
     from psld_tpu_torch.ops import attention, attention_plain
 
     import torch.nn.functional as F
@@ -534,7 +595,7 @@ def phase_attention(card, batch):
     rows, errs = [], {}
     kernel_fwd = eager_fwd = plain_fwd = lib_fwd = 0.0
     total = {}
-    for n, c, calls in ATTN_CALLS:
+    for n, c, n_calls in calls:
         qkv32 = [torch.from_numpy(rng.standard_normal((batch, n, c)).astype(
             np.float32)).cuda() for _ in range(3)]
         scale = float(c) ** -0.5
@@ -552,27 +613,28 @@ def phase_attention(card, batch):
         q4, k4, v4 = (a[:, None] for a in (q, k, v))  # one head
         l_ms = device_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, scale=scale))
-        kernel_fwd += calls * k_ms
-        eager_fwd += calls * e_ms
-        plain_fwd += calls * p_ms
-        lib_fwd += calls * l_ms
+        kernel_fwd += n_calls * k_ms
+        eager_fwd += n_calls * e_ms
+        plain_fwd += n_calls * p_ms
+        lib_fwd += n_calls * l_ms
         flops = batch * 4 * n * n * c
         # q, k, v read, o written; bf16 inputs: the tensor cores' peak
-        add_bound(total, calls, 4 * q.numel() * q.element_size(), flops,
+        add_bound(total, n_calls, 4 * q.numel() * q.element_size(), flops,
                   BF16_TENSOR_OPS)
-        rows.append((n, c, calls, k_ms, e_ms, p_ms, l_ms,
+        rows.append((n, c, n_calls, k_ms, e_ms, p_ms, l_ms,
                      flops / (k_ms / 1e3) / 1e12))
-    say(f"[attention] CUDA kernel == plain at {len(ATTN_CALLS)} shapes, "
+    say(f"[attention] CUDA kernel == plain at {len(calls)} {net} shapes, "
         f"B={batch} (f32 tol 1e-5; bf16 tol 1e-2); max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     say(f"[attention] device times (CUDA-graph replay; eager = called one "
         f"by one): bf16, B={batch}, {card}")
-    for n, c, calls, k_ms, e_ms, p_ms, l_ms, tflops in rows:
-        say(f"[attention]   N={n:3d} C={c} x{calls}/fwd: kernel {k_ms:.4f} ms "
+    for n, c, n_calls, k_ms, e_ms, p_ms, l_ms, tflops in rows:
+        say(f"[attention]   N={n:3d} C={c} x{n_calls}/fwd: kernel "
+            f"{k_ms:.4f} ms "
             f"({tflops:.1f} TFLOP/s; eager {e_ms:.4f} ms), plain {p_ms:.4f} "
             f"ms, F.scaled_dot_product_attention {l_ms:.4f} ms")
-    say(f"[attention]   per flagship forward at B={batch} ({ATTN_PER_FWD} "
-        f"calls): kernel "
+    say(f"[attention]   per {net} forward at B={batch} "
+        f"({sum(n for _, _, n in calls)} calls): kernel "
         f"{kernel_fwd:.3f} ms (eager {eager_fwd:.3f} ms), bound "
         f"{total['bound_ms']:.3f} ms, plain {plain_fwd:.3f} ms, "
         f"F.scaled_dot_product_attention {lib_fwd:.3f} ms")
@@ -581,12 +643,103 @@ def phase_attention(card, batch):
             "bound_by": bound_by(total), **total, "library_ms": lib_fwd}
 
 
+def phase_fused_act(card):
+    """Both fused bias + leaky ReLU kernels against their plain versions,
+    bit for bit, in f32 and bf16, at ``FUSED_ACT_SHAPES``; autograd goes
+    through both. No path of the port calls the op (nor any model of the
+    JAX package), so this phase is all that runs it."""
+    from psld_tpu_torch.ops import (fused_leaky_relu,
+                                    fused_leaky_relu_backward,
+                                    fused_leaky_relu_backward_plain,
+                                    fused_leaky_relu_plain)
+
+    rng = np.random.default_rng(6)
+    t0 = time.perf_counter()
+    rows, n_cases, worst = [], 0, 0.0
+    sums = {d: dict.fromkeys(("ms", "eager_ms", "plain_ms"), 0.0)
+            for d in ("fwd", "bwd")}
+    totals = {"fwd": {}, "bwd": {}}
+    for shape in FUSED_ACT_SHAPES:
+        x32, g32 = (torch.from_numpy((rng.standard_normal(shape) * 3).astype(
+            np.float32)).cuda() for _ in range(2))
+        bias = torch.from_numpy(rng.standard_normal(shape[-1]).astype(
+            np.float32)).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dt), g32.to(dt)
+            what = f"fused_act {shape} {dt}"
+            got = fused_leaky_relu(x, bias)
+            want = fused_leaky_relu_plain(x, bias)
+            dx, db = fused_leaky_relu_backward(x, bias, g)
+            wdx, wdb = fused_leaky_relu_backward_plain(x, bias, g)
+            xg = x.detach().requires_grad_()
+            bg = bias.detach().requires_grad_()
+            adx, adb = torch.autograd.grad(fused_leaky_relu(xg, bg), (xg, bg),
+                                           g)
+            torch.cuda.synchronize()
+            worst = max(worst, max_err(got, want), max_err(dx, wdx))
+            check(got.dtype == dt and torch.equal(got, want),
+                  f"{what}: forward kernel != plain")
+            check(torch.equal(dx, wdx) and torch.equal(db, wdb),
+                  f"{what}: backward kernel != plain")
+            check(torch.equal(adx, dx) and torch.equal(adb, db),
+                  f"{what}: autograd != the backward kernel")
+            n_cases += 1
+        # time bf16: the kernels alone (dbias, a PyTorch sum, left out)
+        x, g = x32.bfloat16(), g32.bfloat16()
+        times = {}
+        for d, kern, plain in (
+                ("fwd", lambda: fused_leaky_relu(x, bias),
+                 lambda: fused_leaky_relu_plain(x, bias)),
+                ("bwd", lambda: fused_leaky_relu_backward(
+                    x, bias, g, need_dbias=False),
+                 lambda: fused_leaky_relu_backward_plain(
+                    x, bias, g, need_dbias=False))):
+            times[d] = (device_ms(kern), cuda_ms(kern), device_ms(plain))
+            for k, v in zip(("ms", "eager_ms", "plain_ms"), times[d]):
+                sums[d][k] += v
+            # forward: read x, write y; backward: read x and g, write dx;
+            # the bias once; ~3 f32 operations a value
+            n_bytes = ((2 if d == "fwd" else 3) * x.numel()
+                       + shape[-1]) * x.element_size()
+            add_bound(totals[d], 1, n_bytes, 3 * x.numel(), SCALAR_OPS)
+            times[d] += (bound(n_bytes, 3 * x.numel(), SCALAR_OPS)[0],)
+        rows.append((shape, times))
+    say(f"[fused_act] CUDA kernels (forward, backward) == plain bit for bit "
+        f"in {n_cases} cases (f32 and bf16, {len(FUSED_ACT_SHAPES)} shapes), "
+        f"autograd through both, in {time.perf_counter() - t0:.1f} s")
+    say(f"[fused_act] device times (CUDA-graph replay; eager = called one by "
+        f"one), bf16, against bytes over 3.35 TB/s; no single PyTorch call "
+        f"computes bias + leaky ReLU + gain, so there is no library time; "
+        f"{card}")
+    for shape, times in rows:
+        for d, (k_ms, e_ms, p_ms, b_ms) in times.items():
+            say(f"[fused_act]   {d} {shape}: kernel {k_ms:.4f} ms (eager "
+                f"{e_ms:.4f} ms), bound {b_ms:.4f} ms, plain {p_ms:.4f} ms")
+    out = {}
+    for d in ("fwd", "bwd"):
+        out[d] = {"max_abs_err": worst, **sums[d],
+                  "bound_by": bound_by(totals[d]), **totals[d],
+                  "library_ms": None}
+        say(f"[fused_act]   {d}, one call at each shape: kernel "
+            f"{out[d]['ms']:.4f} ms (eager {out[d]['eager_ms']:.4f} ms), "
+            f"bound {out[d]['bound_ms']:.4f} ms, plain "
+            f"{out[d]['plain_ms']:.4f} ms")
+    return out
+
+
 def _wrappers() -> dict:
     from psld_tpu_torch import ops
 
     return {"group_norm_act": ops.group_norm_act,
             "group_norm_act_bwd": ops.group_norm_act_backward,
-            "attention": ops.attention, "hash_dropout": ops.hash_dropout}
+            "attention": ops.attention, "hash_dropout": ops.hash_dropout,
+            "fused_leaky_relu": ops.fused_leaky_relu,
+            "fused_leaky_relu_bwd": ops.fused_leaky_relu_backward}
+
+
+def expected(**launches) -> dict:
+    """Launch counts of every kernel: those given, 0 for the rest."""
+    return {name: launches.get(name, 0) for name in _wrappers()}
 
 
 def reset_counts():
@@ -687,8 +840,19 @@ TRAIN_ARGS = [
     "+dataset.diffusion.model.score_fn.dropout_impl=hw",
     "+dataset.diffusion.training.bf16=True",
 ]
-STEP_COUNTS = {"group_norm_act": GN_PER_FWD, "group_norm_act_bwd": GN_PER_FWD,
-               "attention": ATTN_PER_FWD, "hash_dropout": 2 * DROPOUT_SITES}
+STEP_COUNTS = expected(group_norm_act=GN_PER_FWD,
+                       group_norm_act_bwd=GN_PER_FWD,
+                       attention=ATTN_PER_FWD,
+                       hash_dropout=2 * DROPOUT_SITES)
+CLF_STEP_COUNTS = expected(group_norm_act=CLF_GN_PER_FWD,
+                           group_norm_act_bwd=CLF_GN_PER_FWD,
+                           attention=CLF_ATTN_PER_FWD,
+                           hash_dropout=2 * CLF_DROPOUT_SITES)
+# one guided NFE: the score network's forward, the classifier's forward
+# and its backward into the input (attention's gradient is no kernel)
+GUIDED_NFE_COUNTS = expected(group_norm_act=GN_PER_FWD + CLF_GN_PER_FWD,
+                             group_norm_act_bwd=CLF_GN_PER_FWD,
+                             attention=ATTN_PER_FWD + CLF_ATTN_PER_FWD)
 
 
 def phase_train_check(card, weights):
@@ -761,6 +925,119 @@ def phase_train_check(card, weights):
         f"worst parameter gradient {worst:.2e} of its scale, {worst_key}; "
         f"tol 1e-3); one step launched {STEP_COUNTS}; phase "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def _mu_close(mu_g, mu_c, what: str):
+    """Every parameter's first Adam moment (the first step's lr is 0, so
+    it is (1 - beta_1) times the gradient) on the card against the CPU:
+    within 1e-3 of its scale, floored at 1e-4 of the largest; returns the
+    worst share and its key."""
+    top = max(float(v.abs().max()) for v in mu_c.values())
+    worst, worst_key = 0.0, ""
+    for k, want in mu_c.items():
+        if k.endswith(".W"):
+            check(not mu_g[k].any(), f"{what}: {k} has a gradient")
+            continue
+        ref = max(float(want.abs().max()), 1e-4 * top)
+        err = max_err(mu_g[k], want) / ref
+        if err > worst:
+            worst, worst_key = err, k
+    check(worst <= 1e-3, f"{what}: gradient of {worst_key} differs by "
+          f"{worst:.3e} of its scale (tol 1e-3)")
+    return worst, worst_key
+
+
+def phase_clf_check(card):
+    """One float32 step of the shipped classifier at B=2, hash dropout
+    0.1, on the card against the CPU with the same t, eps and seed words:
+    loss, top-1 and every parameter's gradient (1e-3 of its scale, as
+    ``train_check``); then one float32 guidance gradient (the gradient of
+    log p(y | x, t) into x, the classifier's weights frozen) on the card
+    against the CPU, within 1e-3 of its scale. Weights N(0, 1) * 0.02
+    from a numpy seed, the head's too."""
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.eval.generate import (_merged_eval_config,
+                                              make_score_fn)
+    from psld_tpu_torch.losses.score import PSLDTimeCELoss
+    from psld_tpu_torch.samplers import ClassCondEulerMaruyamaSampler
+    from psld_tpu_torch.train.loop import build_clf_model, build_sde
+    from psld_tpu_torch.train.state import init_state
+    from psld_tpu_torch.train.steps import make_clf_train_step
+
+    t0 = time.perf_counter()
+    cfg = bootstrap(FLAGSHIP_ARGS + CLF_ARGS).dataset
+    set_gn_bf16(False)
+    weights = flagship_weights(build_clf_model(cfg.clf, device="meta"),
+                               seed=7)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 32, 32, 3)).astype(
+        np.float32))
+    y = torch.tensor([3, 7])
+    t = torch.tensor([0.3, 0.7], dtype=torch.float64)
+    eps = torch.from_numpy(rng.standard_normal((2, 32, 32, 6)).astype(
+        np.float32))
+    seeds = [tuple(int(w) for w in row)
+             for row in rng.integers(0, 2 ** 32, (CLF_DROPOUT_SITES, 2))]
+    z = torch.from_numpy(rng.standard_normal((2, 32, 32, 6)).astype(
+        np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        net = build_clf_model(cfg.clf)
+        net.load_state_dict(weights, strict=True)
+        net.to(dev)
+        sde = build_sde(cfg.diffusion)
+        step, opt = make_clf_train_step(net, sde, PSLDTimeCELoss(cfg, sde),
+                                        cfg)
+        state = init_state(dict(net.named_parameters()), opt)
+        reset_counts()
+        state, m = step(state, x.to(dev), y.to(dev), t=t, eps=eps.to(dev),
+                        dropout_seeds=seeds)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = all_counts()
+            check(n == CLF_STEP_COUNTS, f"one classifier step launched {n}, "
+                  f"expected {CLF_STEP_COUNTS}")
+        mu = {k: v.cpu() for k, v in state.opt_state["mu"].items()}
+        # the guidance gradient, through the frozen classifier
+        net.eval().requires_grad_(False)
+        sampler = ClassCondEulerMaruyamaSampler(
+            _merged_eval_config(cfg), sde, None, clf_fn=make_score_fn(net),
+            y=5)
+        reset_counts()
+        with torch.no_grad():
+            grad = sampler._guidance(z.to(dev), 0.6).cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = all_counts()
+            want_n = expected(group_norm_act=CLF_GN_PER_FWD,
+                              group_norm_act_bwd=CLF_GN_PER_FWD,
+                              attention=CLF_ATTN_PER_FWD)
+            check(n == want_n, f"one guidance gradient launched {n}, "
+                  f"expected {want_n}")
+        out[dev] = (float(m["loss"]), float(m["top1"]), mu, grad)
+        del state, step, net
+    os.environ.pop("PSLD_GN_BF16")
+    (l_c, a_c, mu_c, g_c), (l_g, a_g, mu_g, g_g) = out["cpu"], out["cuda"]
+    check(abs(l_g - l_c) <= 1e-3 * abs(l_c),
+          f"clf_check: loss {l_g} on the card, {l_c} on the CPU")
+    check(a_g == a_c, f"clf_check: top-1 {a_g} on the card, {a_c} on the "
+          f"CPU")
+    worst, worst_key = _mu_close(mu_g, mu_c, "clf_check")
+    g_scale = float(g_c.abs().max())
+    g_err = max_err(g_g, g_c)
+    check(g_scale > 0 and bool(torch.isfinite(g_g).all())
+          and g_err <= 1e-3 * g_scale,
+          f"clf_check: guidance gradient differs by {g_err:.3e} (scale "
+          f"{g_scale:.3e}, tol 1e-3 of scale)")
+    say(f"[clf_check] classifier {sum(v.numel() for v in mu_c.values())} "
+        f"params, f32 step at B=2, hash dropout 0.1: card == CPU (loss "
+        f"{l_g:.6f} vs {l_c:.6f}; top-1 {a_g} vs {a_c}; worst parameter "
+        f"gradient {worst:.2e} of its scale, {worst_key}; tol 1e-3); one "
+        f"step launched {CLF_STEP_COUNTS}")
+    say(f"[clf_check] f32 guidance gradient at B=2: card == CPU (max abs "
+        f"err {g_err:.3e}, {g_err / g_scale:.2e} of its scale "
+        f"{g_scale:.3e}; tol 1e-3); phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
 
@@ -887,6 +1164,219 @@ def phase_sample(card, work, ckpt):
     return n
 
 
+def phase_train_clf(card, work):
+    """``cli.train_clf`` at the shipped classifier's width and batch (32),
+    bf16 compute on float32 master weights, hash dropout 0.1, on the
+    synthetic set's 512 images: one epoch of 16 steps, one sync at the
+    end; returns the checkpoint it wrote and the launch counts."""
+    from psld_tpu_torch.cli import train_clf as train_clf_cli
+    from psld_tpu_torch.train.checkpoint import latest_checkpoint
+
+    n_steps = 512 // CLF_TRAIN_BATCH
+    results = os.path.join(work, "train_clf")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, stats = train_clf_cli.main(FLAGSHIP_ARGS + CLF_ARGS + [
+        f"dataset.clf.training.results_dir={results}",
+        f"dataset.clf.training.batch_size={CLF_TRAIN_BATCH}",
+        "dataset.clf.training.epochs=1",
+        f"dataset.clf.training.log_step={n_steps}",
+        "+dataset.clf.training.bf16=True",
+        "+dataset.clf.training.device=cuda",
+    ])
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(stats) == n_steps and state.step == n_steps,
+          f"train_clf took {len(stats)} steps")
+    want = {k: v * n_steps for k, v in CLF_STEP_COUNTS.items()}
+    check(n == want, f"classifier training launched {n}, expected {want}")
+    losses = [r["loss"] for r in stats]
+    check(all(np.isfinite(v) for v in losses)
+          and all(0.0 <= r["top1"] <= 1.0 for r in stats),
+          f"train_clf: loss or top-1 out of range: {stats}")
+    check(all(bool(torch.isfinite(v).all()) for v in state.params.values()),
+          "train_clf: non-finite parameters")
+    ckpt = latest_checkpoint(os.path.join(results, "checkpoints"))
+    check(ckpt is not None and os.path.basename(ckpt).startswith("clf-")
+          and os.path.exists(ckpt + ".meta.json"),
+          "train_clf wrote no classifier checkpoint")
+    timed = [r["ms"] for r in stats[TRAIN_WARMUP:]]
+    ms_step = float(np.mean(timed))
+    img_s = CLF_TRAIN_BATCH / (ms_step / 1e3)
+    say(f"[train_clf] cli.train_clf: {n_steps} steps of the shipped "
+        f"classifier ({sum(v.numel() for v in state.params.values())} "
+        f"params) at batch {CLF_TRAIN_BATCH} (bf16 compute, f32 master "
+        f"weights, hash dropout 0.1, Adam+warmup, no clip, no EMA), "
+        f"synthetic data: {ms_step:.2f} ms/step over the last "
+        f"{len(timed)} (min {min(timed):.2f}, max {max(timed):.2f}), "
+        f"{img_s:.2f} img/s, peak {peak_gb:.2f} GB allocated; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; entry point {wall:.1f} s; "
+        f"{card}")
+    say(f"[train_clf] kernel launches in the run: {n}")
+    del state
+    torch.cuda.empty_cache()
+    return ckpt, n, {"ms_step": ms_step, "img_s": img_s, "peak_gb": peak_gb}
+
+
+def phase_guided(card, work, score_ckpt, clf_ckpt):
+    """``cli.class_cond_sample`` from the score checkpoint of ``train`` and
+    the classifier checkpoint of ``train_clf``: guided EM at batch 64,
+    bf16 networks, ``GUIDED_NFE`` NFE, ``label_to_sample=all`` over two
+    batches, so the two batches carry labels 0 and 1."""
+    from psld_tpu_torch.cli import class_cond_sample as guided_cli
+
+    out_dir = os.path.join(work, "guided")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    batches = guided_cli.main(FLAGSHIP_ARGS + CLF_ARGS + [
+        "dataset.diffusion.evaluation.sampler.name=cc_em_sde",
+        f"dataset.diffusion.evaluation.chkpt_path={score_ckpt}",
+        f"dataset.diffusion.evaluation.save_path={out_dir}",
+        f"dataset.diffusion.evaluation.batch_size={BATCH}",
+        f"dataset.diffusion.evaluation.n_samples={2 * BATCH}",
+        f"dataset.diffusion.evaluation.n_discrete_steps={GUIDED_NFE}",
+        "dataset.diffusion.evaluation.sample_from=source",
+        "+dataset.diffusion.evaluation.bf16=True",
+        "+dataset.diffusion.evaluation.device=cuda",
+        f"dataset.clf.evaluation.chkpt_path={clf_ckpt}",
+        "dataset.clf.evaluation.label_to_sample=all",
+    ])
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pngs = sorted(f for f in os.listdir(os.path.join(out_dir, "images"))
+                  if f.endswith(".png"))
+    check([(b["label"], b["samples"], b["nfe"]) for b in batches]
+          == [(0, BATCH, GUIDED_NFE), (1, BATCH, GUIDED_NFE)],
+          f"guided sampling drew {batches}")
+    check(all(b["nonfinite"] == 0 for b in batches),
+          "guided sampling: non-finite values")
+    check(len(pngs) == 2 * BATCH
+          and sum(f.startswith("output_tpuy0_") for f in pngs) == BATCH
+          and sum(f.startswith("output_tpuy1_") for f in pngs) == BATCH,
+          f"guided sampling wrote {len(pngs)} PNGs, not {BATCH} a label")
+    want = {k: v * GUIDED_NFE * len(batches)
+            for k, v in GUIDED_NFE_COUNTS.items()}
+    check(n == want, f"guided sampling launched {n}, expected {want}")
+    seconds = sum(b["seconds"] for b in batches)
+    ms_nfe = seconds / (GUIDED_NFE * len(batches)) * 1e3
+    per_batch = ", ".join(f"{b['seconds']:.2f}" for b in batches)
+    say(f"[guided] cli.class_cond_sample: {len(pngs)} PNGs, finite, two "
+        f"batches of {BATCH} (labels 0 and 1), {GUIDED_NFE}-NFE guided EM "
+        f"(bf16 score net and classifier, clf_temp 1, diffusion time): "
+        f"{ms_nfe:.2f} ms/NFE ({per_batch} s a batch; entry point "
+        f"{wall:.2f} s), peak {peak_gb:.2f} GB allocated; {card}")
+    say(f"[guided] kernel launches in the run: {n} ({GUIDED_NFE_COUNTS} an "
+        f"NFE)")
+    return n, {"ms_nfe": ms_nfe, "peak_gb": peak_gb}
+
+
+def phase_sscs_check(card, cfg, weights):
+    """A 3-NFE float32 SSCS trajectory (two split steps and the mean-only
+    denoise) of the flagship at B=2 on the card against the CPU, with the
+    same four injected draws: within 1e-4 of the sample's scale, as the
+    EM check of ``net``."""
+    from psld_tpu_torch.eval.generate import (build_score_model, build_sde,
+                                              make_score_fn)
+    from psld_tpu_torch.samplers import SSCSSampler
+    from psld_tpu_torch.samplers.base import make_timesteps
+
+    t0 = time.perf_counter()
+    sde = build_sde(cfg)
+    rng = np.random.default_rng(9)
+    z0 = torch.from_numpy(rng.standard_normal((2, 32, 32, 6)).astype(
+        np.float32))
+    noise = [torch.from_numpy(rng.standard_normal((2, 32, 32, 6)).astype(
+        np.float32)) for _ in range(4)]
+    outs = []
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            net = build_score_model(cfg).eval()
+            net.load_state_dict(weights, strict=True)
+            sampler = SSCSSampler(cfg, sde, make_score_fn(net.to(dev)))
+            outs.append(sampler.sample(
+                None, z0.to(dev), make_timesteps(2, 1e-3), 2, denoise=True,
+                eps=1e-3, noise=lambda k, x_, d=dev: noise[k].to(d)).cpu())
+            del net
+    scale = float(outs[0].abs().max())
+    err = max_err(outs[1], outs[0])
+    check(bool(torch.isfinite(outs[1]).all()) and err <= 1e-4 * scale,
+          f"SSCS: card vs CPU max abs error {err:.3e} (scale {scale:.3e})")
+    say(f"[sscs] 3-NFE f32 SSCS trajectory of the flagship: card == CPU (max "
+        f"abs err {err:.3e}, {err / scale:.2e} of scale {scale:.3e}; tol "
+        f"1e-4); phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def phase_sscs(card, work, ckpt):
+    """``cli.sample`` with SSCS-2M on the quadratic grid, ``SSCS_NFE`` NFE,
+    batch 64, bf16 network, from the checkpoint of ``train``."""
+    from psld_tpu_torch.cli import sample as sample_cli
+
+    out_dir = os.path.join(work, "sscs")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    batches = sample_cli.main(FLAGSHIP_ARGS + [
+        "dataset.diffusion.evaluation.sampler.name=sscs2m_sde",
+        "dataset.diffusion.evaluation.stride_type=quadratic",
+        f"dataset.diffusion.evaluation.chkpt_path={ckpt}",
+        f"dataset.diffusion.evaluation.save_path={out_dir}",
+        f"dataset.diffusion.evaluation.batch_size={BATCH}",
+        f"dataset.diffusion.evaluation.n_samples={BATCH}",
+        f"dataset.diffusion.evaluation.n_discrete_steps={SSCS_NFE}",
+        "dataset.diffusion.evaluation.sample_from=source",
+        "+dataset.diffusion.evaluation.bf16=True",
+        "+dataset.diffusion.evaluation.device=cuda",
+    ])
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pngs = [f for f in os.listdir(os.path.join(out_dir, "images"))
+            if f.endswith(".png")]
+    check(len(batches) == 1 and batches[0]["samples"] == BATCH
+          and len(pngs) == BATCH, f"sscs wrote {len(pngs)} PNGs")
+    row = batches[0]
+    check(row["nonfinite"] == 0, f"sscs: {row['nonfinite']} non-finite")
+    check(row["nfe"] == SSCS_NFE, f"sscs sampled with {row['nfe']} NFE")
+    want = expected(group_norm_act=GN_PER_FWD * SSCS_NFE,
+                    attention=ATTN_PER_FWD * SSCS_NFE)
+    check(n == want, f"SSCS-2M sampling launched {n}, expected {want}")
+    ms_nfe = row["seconds"] / SSCS_NFE * 1e3
+    img_s = BATCH / row["seconds"]
+    say(f"[sscs] cli.sample with sscs2m_sde, quadratic grid: {len(pngs)} "
+        f"PNGs, finite, batch {BATCH}, {SSCS_NFE} NFE (bf16 net): "
+        f"{ms_nfe:.2f} ms/NFE, {img_s:.3f} img/s at {SSCS_NFE} NFE "
+        f"(trajectory {row['seconds']:.2f} s, entry point {wall:.2f} s), "
+        f"peak {peak_gb:.2f} GB allocated; {card}")
+    say(f"[sscs] kernel launches in the run: {n}")
+    return n, {"ms_nfe": ms_nfe, "img_s": img_s}
+
+
+def combine(*timings) -> dict:
+    """The timings of one path that launches a kernel at the shapes of
+    two networks (guided sampling: the score network's and the
+    classifier's): times and bounds add, errors take the worst."""
+    out = {}
+    for t in timings:
+        for k, v in t.items():
+            if k in ("max_abs_err", "max_err_of_scale"):
+                out[k] = max(out.get(k, 0.0), v)
+            elif k == "bound_by":
+                out[k] = "bytes" if "bytes" in (out.get(k), v) else v
+            else:
+                out[k] = out.get(k, 0.0) + v
+    return out
+
+
+# the paths the script drives, each with the batch its kernels run at
+PATHS = {"sample": BATCH, "train": TRAIN_BATCH, "train_clf": CLF_TRAIN_BATCH,
+         "guided": BATCH, "sscs": BATCH}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -897,69 +1387,130 @@ def main() -> int:
 
     card = phase_device()
     phase_build()
-    # each kernel at the shapes of every path that launches it
-    gn = {"sample": phase_gn(card, BATCH),
-          "train": phase_gn(card, TRAIN_BATCH)}
-    gn_bwd = {"train": phase_gn_bwd(card)}
-    attn = {"sample": phase_attention(card, BATCH),
-            "train": phase_attention(card, TRAIN_BATCH)}
-    drop = {"train": phase_dropout(card)}
+    fused = phase_fused_act(card)
+    # each kernel at the shapes of every path that launches it: the
+    # flagship's at 64 (sample, sscs, guided) and 128 (train), the
+    # classifier's at 64 (guided) and 32 (train_clf)
+    gn = {"flagship64": phase_gn(card, BATCH),
+          "flagship128": phase_gn(card, TRAIN_BATCH),
+          "clf64": phase_gn(card, BATCH, CLF_GN_CALLS, "classifier"),
+          "clf32": phase_gn(card, CLF_TRAIN_BATCH, CLF_GN_CALLS,
+                            "classifier")}
+    gn_bwd = {"flagship128": phase_gn_bwd(card),
+              "clf64": phase_gn_bwd(card, BATCH, CLF_GN_CALLS, "classifier"),
+              "clf32": phase_gn_bwd(card, CLF_TRAIN_BATCH, CLF_GN_CALLS,
+                                    "classifier")}
+    attn = {"flagship64": phase_attention(card, BATCH),
+            "flagship128": phase_attention(card, TRAIN_BATCH),
+            "clf64": phase_attention(card, BATCH, CLF_ATTN_CALLS,
+                                     "classifier"),
+            "clf32": phase_attention(card, CLF_TRAIN_BATCH, CLF_ATTN_CALLS,
+                                     "classifier")}
+    drop = {"flagship128": phase_dropout(card),
+            "clf32": phase_dropout(card, CLF_TRAIN_BATCH, CLF_DROPOUT_CALLS,
+                                   "classifier")}
     cfg = bootstrap(FLAGSHIP_ARGS).dataset.diffusion
     weights, _ = phase_net(card, cfg)
+    phase_sscs_check(card, cfg, weights)
     phase_train_check(card, weights)
     del weights
+    phase_clf_check(card)
     work = os.path.join(REPO, "build", "smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    # each path is driven with the counts set to 0 just before it
     ckpt, n_train, _ = phase_train(card, work)
     n_sample = phase_sample(card, work, ckpt)
-    # each path was driven with the counts set to 0 just before it
-    on_path = {"train": n_train, "sample": n_sample}
-    for name, path in (("group_norm_act", "sample"), ("attention", "sample"),
-                       *((k, "train") for k in STEP_COUNTS)):
-        check(on_path[path][name] > 0,
-              f"the {path} path never launched the {name} kernel")
+    clf_ckpt, n_train_clf, _ = phase_train_clf(card, work)
+    n_guided, _ = phase_guided(card, work, ckpt, clf_ckpt)
+    n_sscs, _ = phase_sscs(card, work, ckpt)
+    on_path = {"sample": n_sample, "train": n_train,
+               "train_clf": n_train_clf, "guided": n_guided,
+               "sscs": n_sscs}
+    # what each path runs, at the shapes it runs it
+    times = {
+        "group_norm_act": {
+            "sample": gn["flagship64"], "train": gn["flagship128"],
+            "train_clf": gn["clf32"],
+            "guided": combine(gn["flagship64"], gn["clf64"]),
+            "sscs": gn["flagship64"]},
+        "group_norm_act_bwd": {
+            "train": gn_bwd["flagship128"], "train_clf": gn_bwd["clf32"],
+            "guided": gn_bwd["clf64"]},
+        "attention": {
+            "sample": attn["flagship64"], "train": attn["flagship128"],
+            "train_clf": attn["clf32"],
+            "guided": combine(attn["flagship64"], attn["clf64"]),
+            "sscs": attn["flagship64"]},
+        "hash_dropout": {"train": drop["flagship128"],
+                         "train_clf": drop["clf32"]},
+    }
+    for name, paths in times.items():
+        for path in paths:
+            check(on_path[path][name] > 0,
+                  f"the {path} path never launched the {name} kernel")
+    for name in ("fused_leaky_relu", "fused_leaky_relu_bwd"):
+        check(all(c[name] == 0 for c in on_path.values()),
+              f"a path launched {name}, which no model calls")
 
-    def row(name, route, source, replaces, times, basis):
+    def row(name, route, source, replaces, basis, timed=None):
         """One kernel's line. Its numbers are those at the shapes of the
-        path named by ``path`` (the sample path where the kernel runs on
-        both); ``by_path`` holds the same keys for every path that
-        launches the kernel, each at that path's batch."""
-        by_path = {p: {"launches": on_path[p][name], "batch": b, **times[p]}
-                   for p, b in (("sample", BATCH), ("train", TRAIN_BATCH))
-                   if p in times}
-        path = "sample" if "sample" in times else "train"
+        path named by ``path`` (the first that launches it, in the order
+        of ``PATHS``); ``by_path`` holds the same keys for every path that
+        launches the kernel, each at that path's shapes and batch.
+        ``timed`` is the line of a kernel no path launches: its own
+        phase's numbers, 0 launches, no path."""
+        if timed is not None:
+            return {"name": name, "route": route, "source": source,
+                    "replaces": replaces, "launches": 0, "path": None,
+                    **timed, "basis": basis, "by_path": {}}
+        per = times[name]
+        by_path = {p: {"launches": on_path[p][name], "batch": b, **per[p]}
+                   for p, b in PATHS.items() if p in per}
+        path = next(p for p in PATHS if p in per)
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces,
                 "launches": sum(c[name] for c in on_path.values()),
-                "path": path, **times[path], "basis": basis,
+                "path": path, **per[path], "basis": basis,
                 "by_path": by_path}
 
     fwd = ("bf16: device ms (CUDA-graph replay) summed over the calls of "
-           "one flagship forward at the path's batch, eager_ms the same "
-           "calls made one by one; max_abs_err of the bf16 kernel against "
-           "the plain version (GroupNorm: its gn_bf16 chain)")
+           "one network forward at the path's batch (guided: the score "
+           "network's and the classifier's), eager_ms the same calls made "
+           "one by one; max_abs_err of the bf16 kernel against the plain "
+           "version (GroupNorm: its gn_bf16 chain)")
+    fused_basis = ("bf16: device ms summed over one call at each of "
+                   f"{FUSED_ACT_SHAPES} (rows, C); no path of the port or "
+                   "model of the JAX package calls the op, so launches is 0 "
+                   "and its own phase drives it; the phase demands bit "
+                   "equality with the plain version in f32 and bf16")
     say(json.dumps({"kernels": [
         row("group_norm_act", "triton", "psld_tpu_torch/ops/group_norm.py",
-            "psld_tpu/ops/group_norm.py:67", gn, fwd),
+            "psld_tpu/ops/group_norm.py:67", fwd),
         row("group_norm_act_bwd", "triton",
             "psld_tpu_torch/ops/group_norm.py",
-            "psld_tpu/ops/group_norm.py:125", gn_bwd,
-            "bf16: device ms summed over the calls of one flagship backward "
+            "psld_tpu/ops/group_norm.py:125",
+            "bf16: device ms summed over the calls of one network backward "
             "at the path's batch; max_abs_err is the largest |kernel - "
             "plain| over dx, dscale and dbias against autograd through the "
-            "plain version's gn_bf16 chain (dscale sums 131,072 x 64 terms, "
-            "so it is large in absolute terms); max_err_of_scale is that "
-            "error over each gradient's largest magnitude, which the phase "
-            "holds under 3e-2"),
+            "plain version's gn_bf16 chain (dscale sums 131,072 x 64 terms "
+            "at B=128, so it is large in absolute terms); max_err_of_scale "
+            "is that error over each gradient's largest magnitude, which "
+            "the phase holds under 3e-2"),
         row("attention", "cuda", "psld_tpu_torch/csrc/attention.cu",
-            "psld_tpu/ops/attention.py:34", attn, fwd),
+            "psld_tpu/ops/attention.py:34", fwd),
         row("hash_dropout", "triton", "psld_tpu_torch/ops/dropout.py",
-            "psld_tpu/ops/dropout.py:96", drop,
-            f"bf16, rate 0.15: device ms summed over the "
-            f"{2 * DROPOUT_SITES} launches of one flagship training step "
-            "(forward and backward); max_abs_err measured over every "
-            "compared case, f32 and bf16 (the phase demands bit equality)"),
+            "psld_tpu/ops/dropout.py:96",
+            "bf16, rate 0.15 (the classifier trains at 0.1; the kernel "
+            "reads and writes every element at any rate): device ms summed "
+            "over the launches of one training step (forward and backward) "
+            "at the path's shapes; max_abs_err measured over every compared "
+            "case, f32 and bf16 (the phase demands bit equality)"),
+        row("fused_leaky_relu", "cuda", "psld_tpu_torch/csrc/fused_act.cu",
+            "psld_tpu/ops/fused_act.py:23", fused_basis, fused["fwd"]),
+        row("fused_leaky_relu_bwd", "cuda",
+            "psld_tpu_torch/csrc/fused_act.cu",
+            "psld_tpu/ops/fused_act.py:28", fused_basis, fused["bwd"]),
     ]}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -12,9 +12,11 @@ memory, so the NHWC view the hand-written kernels read is a free permute.
 
 Kernels: GroupNorm+act forward and backward in Triton
 (``ops/group_norm.py``), counter-hash dropout in Triton
-(``ops/dropout.py``) and single-head attention in CUDA C++
+(``ops/dropout.py``), single-head attention in CUDA C++
 (``csrc/attention.cu``, bound in ``ops/attention.py``; its gradient is an
-einsum chain, as in the JAX package). Each op is a
+einsum chain, as in the JAX package) and fused bias + leaky ReLU forward
+and backward in CUDA C++ (``csrc/fused_act.cu``, bound in
+``ops/fused_act.py``; no model calls it). Each op is a
 ``torch.autograd.Function`` on CUDA. On a CPU tensor each op runs its
 plain PyTorch version; on a CUDA tensor it launches the kernel or raises.
 """

@@ -1,4 +1,5 @@
-"""Unconditional sampling driver (``psld_tpu/eval/generate.py::sample``).
+"""Sampling (``psld_tpu/eval/generate.py``): unconditional
+``sample`` and classifier-guided ``class_cond_sample``.
 
 One device, one process: the sample count is drawn in batches of
 ``evaluation.batch_size``; batch ``k`` gets its own generator seeded from
@@ -12,6 +13,10 @@ package.
 ``evaluation.device`` (default ``cuda``) is where the network runs.
 ``evaluation.nfe_per_dispatch`` is accepted and has no effect: the port
 has no per-dispatch watchdog to split trajectories for.
+
+``class_cond_sample`` reads the classifier's checkpoint
+(``clf.evaluation.chkpt_path``) for its ``params``: the classifier's step
+never updates its EMA, so ``ema_params`` there are its initial weights.
 """
 
 from __future__ import annotations
@@ -28,8 +33,11 @@ import psld_tpu_torch.samplers  # noqa: F401  (registers the samplers)
 import psld_tpu_torch.sde  # noqa: F401  (registers the SDEs)
 from psld_tpu_torch.data.datasets import SDELatentDataset, batch_generator
 from psld_tpu_torch.eval.writers import SimpleImageWriter
+from psld_tpu_torch.config import ConfigDict
 from psld_tpu_torch.registry import get_module
 from psld_tpu_torch.samplers.base import make_timesteps
+from psld_tpu_torch.samplers.sde_samplers import \
+    ClassCondEulerMaruyamaSampler
 
 logger = logging.getLogger(__name__)
 
@@ -94,9 +102,12 @@ def _check_single_device(ecfg) -> None:
             "fan-out are not ported yet")
 
 
-def _run_sampler(config, sde, sampler, writer, latent, device) -> list:
+def _run_sampler(config, sde, sampler_at, writer, latent, device,
+                 prefix_at=None) -> list:
     """The batch loop: prior draw, trajectory, write; returns one dict of
-    stats per batch (samples written, NFE, seconds, non-finite values)."""
+    stats per batch (samples written, NFE, seconds, non-finite values).
+    ``sampler_at(k)`` is batch k's sampler; ``prefix_at(k)``, when given,
+    its file-name prefix."""
     ecfg = config.evaluation
     denoise = bool(ecfg.denoise)
     n_steps = int(ecfg.n_discrete_steps)
@@ -113,18 +124,33 @@ def _run_sampler(config, sde, sampler, writer, latent, device) -> list:
         t0 = time.perf_counter()
         gen = batch_generator(seed, batch_idx, device)
         z = latent.sample_batch(gen, per_step, device=device)
-        out = sampler.sample(gen, z, ts, n_eff, denoise=denoise, eps=eps)
+        out = sampler_at(batch_idx).sample(gen, z, ts, n_eff,
+                                           denoise=denoise, eps=eps)
         out = out[:take].float().cpu().numpy()
         stats = {"batch": batch_idx, "samples": take, "width": per_step,
                  "nfe": len(ts) - 1 + int(denoise),
                  "seconds": time.perf_counter() - t0,
                  "nonfinite": int(out.size - np.isfinite(out).sum())}
+        if prefix_at is not None:
+            writer.sample_prefix = prefix_at(batch_idx)
         writer.write_batch(out, rank=0, batch_idx=batch_idx)
         written += take
         batches.append(stats)
         logger.info("batch %(batch)d: %(samples)d samples, %(nfe)d NFE in "
                     "%(seconds).3f s, %(nonfinite)d non-finite values", stats)
     return batches
+
+
+def _writer(config, is_augmented: bool):
+    ecfg = config.evaluation
+    return SimpleImageWriter(
+        str(ecfg.save_path),
+        sample_prefix=str(ecfg.sample_prefix),
+        path_prefix=str(ecfg.path_prefix),
+        save_mode=str(ecfg.save_mode),
+        is_norm=bool(config.data.norm),
+        is_augmented=is_augmented,
+    )
 
 
 def sample(config, preloaded=None):
@@ -134,20 +160,104 @@ def sample(config, preloaded=None):
     ecfg = config.evaluation
     _check_single_device(ecfg)
     device = torch.device(str(ecfg.get("device", "cuda")))
+    sampler_cls = get_module("samplers", str(ecfg.sampler.name))
+    if issubclass(sampler_cls, ClassCondEulerMaruyamaSampler):
+        raise ValueError(f"evaluation.sampler.name={ecfg.sampler.name} is "
+                         "guided: use cli.class_cond_sample")
     sde = build_sde(config)
     net = preloaded if preloaded is not None else load_eval_state(config)
     net = net.eval().to(device)
-    sampler_cls = get_module("samplers", str(ecfg.sampler.name))
-    writer = SimpleImageWriter(
-        str(ecfg.save_path),
-        sample_prefix=str(ecfg.sample_prefix),
-        path_prefix=str(ecfg.path_prefix),
-        save_mode=str(ecfg.save_mode),
-        is_norm=bool(config.data.norm),
-        is_augmented=bool(config.model.sde.get("is_augmented", True)),
-    )
+    writer = _writer(config, bool(config.model.sde.get("is_augmented",
+                                                       True)))
     with torch.inference_mode():
         sampler = sampler_cls(config, sde,
                               make_score_fn(net, bf16=eval_bf16(config)))
-        return _run_sampler(config, sde, sampler, writer,
+        return _run_sampler(config, sde, lambda _: sampler, writer,
                             SDELatentDataset(sde, config), device)
+
+
+def load_clf_model(ccfg):
+    """The classifier with the ``params`` of ``clf.evaluation.chkpt_path``,
+    in eval mode on the CPU, its weights not requiring grad."""
+    net = get_module("clf_fn", str(ccfg.model.clf_fn.name)).from_config(ccfg)
+    ckpt = torch.load(str(ccfg.evaluation.chkpt_path), map_location="cpu",
+                      weights_only=True)
+    net.load_state_dict(ckpt["params"], strict=True)
+    return net.eval().requires_grad_(False)
+
+
+def _parse_label_spec(spec, n_cls: int) -> list:
+    """``label_to_sample``: one class, a comma list, or ``all``."""
+    s = str(spec)
+    if s == "all":
+        return list(range(n_cls))
+    if "," in s:
+        labels = [int(x) for x in s.split(",") if x != ""]
+    else:
+        labels = [int(s)]
+    bad = [y for y in labels if not 0 <= y < n_cls]
+    if bad:
+        # a label out of range would select no class: fail loudly
+        raise ValueError(
+            f"label_to_sample {bad} out of range for n_cls={n_cls}")
+    return labels
+
+
+def _merged_eval_config(config):
+    """The diffusion tree with the ``clf`` tree beside its keys: the
+    guided sampler reads ``clf.evaluation.*`` and the diffusion
+    evaluation tree."""
+    merged = ConfigDict(config.diffusion.to_dict())
+    merged["clf"] = ConfigDict(config.clf.to_dict())
+    return merged
+
+
+def class_cond_sample(config):
+    """Classifier-guided generation; ``config`` carries both the
+    ``diffusion`` and ``clf`` trees. With several labels
+    (``label_to_sample`` a list or ``all``) batch k samples label k (mod
+    the list) and writes under the prefix ``{sample_prefix}y{label}``.
+    The score network runs under ``no_grad``, and the guidance takes its
+    gradient into the input alone. Returns the per-batch stats of
+    ``_run_sampler``, each with its ``label``."""
+    dcfg = config.diffusion
+    ecfg = dcfg.evaluation
+    _check_single_device(ecfg)
+    device = torch.device(str(ecfg.get("device", "cuda")))
+    sampler_cls = get_module("samplers", str(ecfg.sampler.name))
+    if not issubclass(sampler_cls, ClassCondEulerMaruyamaSampler):
+        raise ValueError(f"class_cond_sample needs a guided sampler "
+                         f"(cc_em_sde), not {ecfg.sampler.name}")
+    labels = _parse_label_spec(config.clf.evaluation.label_to_sample,
+                               int(config.clf.model.clf_fn.n_cls))
+    sde = build_sde(dcfg)
+    net = load_eval_state(dcfg).to(device)
+    clf = load_clf_model(config.clf).to(device)
+    merged = _merged_eval_config(config)
+    bf16 = eval_bf16(merged)
+    score_fn = make_score_fn(net, bf16=bf16)
+    clf_fn = make_score_fn(clf, bf16=bf16)
+
+    n_batches = -(-int(ecfg.n_samples) // int(ecfg.batch_size))
+    if n_batches < len(labels):
+        logger.warning(
+            "label cycling is per batch: n_samples=%s fills only %d batches "
+            "for %d labels -- classes %s will NOT be sampled",
+            ecfg.n_samples, n_batches, len(labels), labels[n_batches:])
+
+    def label_at(i):
+        return labels[i % len(labels)]
+
+    samplers = {y: sampler_cls(merged, sde, score_fn, clf_fn=clf_fn, y=y)
+                for y in labels}
+    base_prefix = str(ecfg.sample_prefix)
+    prefix_at = (lambda i: f"{base_prefix}y{label_at(i)}") \
+        if len(labels) > 1 else None
+    with torch.no_grad():
+        batches = _run_sampler(dcfg, sde, lambda i: samplers[label_at(i)],
+                               _writer(dcfg, True),
+                               SDELatentDataset(sde, dcfg), device,
+                               prefix_at=prefix_at)
+    for row in batches:
+        row["label"] = label_at(row["batch"])
+    return batches

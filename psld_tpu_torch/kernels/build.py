@@ -5,7 +5,9 @@ A ``psld_tpu_torch/csrc/<name>.cu`` file is compiled by ``nvcc`` for
 and loaded with ``ctypes``. A library's file name carries a hash of its
 source and of the flags, so an edited source is rebuilt and a stale
 library never loads. The build directory is ``<repo>/build/kernels``,
-which ``.gitignore`` lists.
+which ``.gitignore`` lists. :func:`build_all` starts one nvcc per source
+at once, so a process that needs several libraries waits for the slowest
+build only.
 
 A failed build raises with nvcc's output; nothing falls back.
 """
@@ -38,25 +40,46 @@ def _nvcc() -> str:
                        "host with the CUDA toolkit")
 
 
-def build(src: str) -> str:
-    """Compile ``csrc/<src>`` unless its library is current; returns the
-    library's path."""
+def _library(src: str) -> str:
+    """The path of ``csrc/<src>``'s library for the current source and
+    flags."""
     with open(os.path.join(CSRC, src), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(src)[0]
-    path = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                          os.path.join(CSRC, src)],
-                         capture_output=True, text=True)
-    build_logs[src] = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{build_logs[src]}")
-    os.replace(tmp, path)
-    return path
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+
+
+def build_all(srcs) -> dict:
+    """Compile every ``csrc/<src>`` of ``srcs`` whose library is not
+    current, one nvcc process per source, all started together; returns
+    ``{src: library path}``. Raises with nvcc's output if one fails."""
+    paths = {src: _library(src) for src in srcs}
+    jobs = {}
+    for src, path in paths.items():
+        if os.path.exists(path):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        jobs[src] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for src, (tmp, proc) in jobs.items():
+        build_logs[src] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(src)
+        else:
+            os.replace(tmp, paths[src])
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(
+            f"{src}:\n{build_logs[src]}" for src in failed))
+    return paths
+
+
+def build(src: str) -> str:
+    """Compile ``csrc/<src>`` unless its library is current; returns the
+    library's path."""
+    return build_all([src])[src]
 
 
 def load(src: str) -> ctypes.CDLL:

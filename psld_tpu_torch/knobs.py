@@ -32,11 +32,17 @@ import os
 _gn_bf16: bool | None = None
 
 
+def _model_fn(config):
+    """``model.score_fn`` of a diffusion subtree, ``model.clf_fn`` of a
+    classifier subtree."""
+    return config.model.get("score_fn") or config.model.get("clf_fn")
+
+
 def configure(config) -> None:
-    """Latch the knobs from a diffusion config subtree; the last model
-    built wins."""
+    """Latch the knobs from a diffusion or classifier config subtree; the
+    last model built wins."""
     global _gn_bf16
-    value = config.model.score_fn.get("gn_bf16")
+    value = _model_fn(config).get("gn_bf16")
     if value is not None:
         _gn_bf16 = bool(value)
 
@@ -55,7 +61,7 @@ def resolved(config=None) -> dict:
 
     out = {"gn_bf16": gn_bf16()}
     if config is not None:
-        sf = config.model.score_fn
+        sf = _model_fn(config)
         out["dropout_impl"] = resolve_dropout_impl(
             str(sf.get("dropout_impl", "save_mask")))
     return out

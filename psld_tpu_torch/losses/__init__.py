@@ -1,1 +1,4 @@
-from psld_tpu_torch.losses.score import PSLDScoreLoss  # noqa: F401
+from psld_tpu_torch.losses.score import (  # noqa: F401
+    PSLDScoreLoss,
+    PSLDTimeCELoss,
+)

@@ -1,6 +1,7 @@
-"""Score-matching loss of PSLD (``psld_tpu/losses/score.py``).
+"""Score-matching loss of PSLD and the time-conditional cross-entropy of
+its guidance classifier (``psld_tpu/losses/score.py``).
 
-The criterion is built from (config, sde) and called with explicit
+A criterion is built from (config, sde) and called with explicit
 tensors. ``score_fn`` is any ``(z, t) -> eps_pred`` callable. The random
 draws (the momentum ``m0`` of DSM, the noise ``eps``) come from ``rng``,
 an object with ``normal(shape)`` such as
@@ -75,3 +76,39 @@ class PSLDScoreLoss:
                              f"target {tuple(target.shape)}")
         diff = target - eps_pred
         return _reduce(diff * diff, self.reduce_strategy)
+
+
+@register_module(category="losses", name="tce_loss")
+class PSLDTimeCELoss:
+    """Time-conditional cross-entropy of the guidance classifier: the
+    clean image is perturbed to time t with the score model's kernel and
+    the classifier names its class. ``config`` holds both the
+    ``diffusion`` and the ``clf`` trees; the mode and the reduction are
+    the diffusion training's."""
+
+    def __init__(self, config, sde):
+        dcfg = config.diffusion.training
+        if dcfg.mode not in ("hsm", "dsm"):
+            raise ValueError(f"diffusion.training.mode {dcfg.mode!r}")
+        if not isinstance(sde, get_module("sde", "psld")):
+            raise TypeError("tce_loss needs the PSLD SDE")
+        self.sde = sde
+        self.mode = dcfg.mode
+        self.reduce_strategy = "mean" if dcfg.loss.reduce_mean else "sum"
+
+    def __call__(self, x_0, y, t, clf_fn, rng=None, eps=None, m0=None):
+        """``(loss, top1)`` for NHWC float32 ``x_0``, integer labels ``y``
+        [B] and float64 ``t`` [B]. Draw order as for
+        :class:`PSLDScoreLoss`: m0 (DSM only), then eps."""
+        m_0, mm_0 = _sample_momentum(self.sde, x_0, self.mode, rng, m0)
+        if eps is None:
+            eps = rng.normal(x_0.shape[:-1] + (2 * x_0.shape[-1],))
+        u_t, _, _ = self.sde.perturb_data(x_0, m_0, 0.0, mm_0, t,
+                                          eps.to(x_0.dtype))
+        logits = clf_fn(u_t.float(),
+                        t.to(device=u_t.device, dtype=torch.float32))
+        y = y.to(device=logits.device, dtype=torch.int64)
+        log_probs = torch.log_softmax(logits, dim=-1)
+        nll = -log_probs.gather(1, y[:, None])[:, 0]
+        top1 = (logits.argmax(dim=-1) == y).float().mean()
+        return _reduce(nll, self.reduce_strategy), top1

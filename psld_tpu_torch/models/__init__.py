@@ -1,1 +1,4 @@
-from psld_tpu_torch.models.ncsnpp import NCSNpp  # noqa: F401
+from psld_tpu_torch.models.ncsnpp import (  # noqa: F401
+    NCSNpp,
+    NCSNppClassifier,
+)

@@ -215,8 +215,8 @@ class Dense(nn.Linear):
     """flax ``nn.Dense`` on the last axis, with dtype promotion."""
 
     def __init__(self, in_features: int, out_features: int,
-                 init_scale: float = 1.0):
-        super().__init__(in_features, out_features)
+                 init_scale: float = 1.0, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.init_scale = init_scale
 
     def forward(self, x):

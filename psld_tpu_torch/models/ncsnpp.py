@@ -1,4 +1,5 @@
-"""NCSN++ score U-Net (``psld_tpu/models/ncsnpp.py::NCSNpp``).
+"""NCSN++ score U-Net and its noise-conditional classifier
+(``psld_tpu/models/ncsnpp.py::NCSNpp``, ``NCSNppClassifier``).
 
 ``forward`` takes NHWC ``x`` and returns NHWC, as the JAX module does;
 inside, activations are NCHW-logical in ``channels_last`` memory, so both
@@ -36,37 +37,56 @@ from psld_tpu_torch.registry import register_module
 SQRT2 = layers.SQRT2
 
 
+def _kwargs_of(fn, image_size: int) -> dict:
+    """Constructor kwargs of the shared trunk from a ``score_fn`` or
+    ``clf_fn`` config node."""
+    return dict(
+        image_size=int(image_size),
+        in_ch=int(fn.in_ch),
+        nonlinearity=str(fn.nonlinearity),
+        nf=int(fn.nf),
+        ch_mult=tuple(fn.ch_mult),
+        num_res_blocks=int(fn.num_res_blocks),
+        attn_resolutions=tuple(fn.attn_resolutions),
+        dropout=float(fn.dropout),
+        resamp_with_conv=bool(fn.resamp_with_conv),
+        noise_cond=bool(fn.noise_cond),
+        fir=bool(fn.fir),
+        fir_kernel=tuple(fn.fir_kernel),
+        skip_rescale=bool(fn.skip_rescale),
+        resblock_type=str(fn.resblock_type).lower(),
+        progressive=str(fn.progressive).lower(),
+        progressive_input=str(fn.progressive_input).lower(),
+        progressive_combine=str(fn.progressive_combine).lower(),
+        embedding_type=str(fn.embedding_type).lower(),
+        init_scale=float(fn.init_scale),
+        fourier_scale=float(fn.fourier_scale),
+        remat=bool(fn.get("remat", False)),
+        scan_blocks=bool(fn.get("scan_blocks", False)),
+        dropout_impl=str(fn.get("dropout_impl", "save_mask")),
+    )
+
+
 def _model_kwargs(config) -> dict:
     """Constructor kwargs from a diffusion config tree
     (``model.score_fn`` + ``data.image_size``); also latches the knobs."""
     knobs.configure(config)
     sf = config.model.score_fn
-    return dict(
-        image_size=int(config.data.image_size),
-        in_ch=int(sf.in_ch),
-        out_ch=int(sf.get("out_ch", sf.in_ch)),
-        nonlinearity=str(sf.nonlinearity),
-        nf=int(sf.nf),
-        ch_mult=tuple(sf.ch_mult),
-        num_res_blocks=int(sf.num_res_blocks),
-        attn_resolutions=tuple(sf.attn_resolutions),
-        dropout=float(sf.dropout),
-        resamp_with_conv=bool(sf.resamp_with_conv),
-        noise_cond=bool(sf.noise_cond),
-        fir=bool(sf.fir),
-        fir_kernel=tuple(sf.fir_kernel),
-        skip_rescale=bool(sf.skip_rescale),
-        resblock_type=str(sf.resblock_type).lower(),
-        progressive=str(sf.progressive).lower(),
-        progressive_input=str(sf.progressive_input).lower(),
-        progressive_combine=str(sf.progressive_combine).lower(),
-        embedding_type=str(sf.embedding_type).lower(),
-        init_scale=float(sf.init_scale),
-        fourier_scale=float(sf.fourier_scale),
-        remat=bool(sf.get("remat", False)),
-        scan_blocks=bool(sf.get("scan_blocks", False)),
-        dropout_impl=str(sf.get("dropout_impl", "save_mask")),
-    )
+    kwargs = _kwargs_of(sf, config.data.image_size)
+    kwargs["out_ch"] = int(sf.get("out_ch", sf.in_ch))
+    return kwargs
+
+
+def _model_kwargs_clf(config) -> dict:
+    """Constructor kwargs from a classifier config tree (``model.clf_fn``
+    + ``data.image_size``); also latches the knobs. ``n_cls: ???`` raises
+    until it is set."""
+    knobs.configure(config)
+    cf = config.model.clf_fn
+    kwargs = _kwargs_of(cf, config.data.image_size)
+    kwargs["out_ch"] = int(cf.in_ch)
+    kwargs["n_cls"] = int(cf.n_cls)
+    return kwargs
 
 
 class _Next:
@@ -133,6 +153,17 @@ class _NCSNBase(nn.Module):
         self.embedding_type = embedding_type
         self.fourier_scale = fourier_scale
         self._counts: Counter = Counter()
+
+    @property
+    def dropout_sites(self) -> int:
+        """Dropout sites of one train-mode forward: one per resblock."""
+        return sum(1 for name, _ in self.named_children()
+                   if name.startswith(self.block_kind + "_"))
+
+    def _dropout(self, train, dropout_seeds, generator):
+        return layers.DropoutSites(self.dropout, self.dropout_impl,
+                                   dropout_seeds, generator) \
+            if train else None
 
     @property
     def all_resolutions(self):
@@ -314,12 +345,6 @@ class NCSNpp(_NCSNBase):
     def from_config(cls, config) -> "NCSNpp":
         return cls(**_model_kwargs(config))
 
-    @property
-    def dropout_sites(self) -> int:
-        """Dropout sites of one train-mode forward: one per resblock."""
-        return sum(1 for name, _ in self.named_children()
-                   if name.startswith(self.block_kind + "_"))
-
     def forward(self, x, time_cond, train: bool = False, dropout_seeds=None,
                 generator=None):
         """NHWC ``x`` (B, H, W, in_ch), noise level ``time_cond`` (B,) ->
@@ -327,9 +352,7 @@ class NCSNpp(_NCSNBase):
         ``dropout_seeds`` holds one tuple of uint32 words per site for the
         hash implementations, ``generator`` draws the masks of the
         others."""
-        drop = layers.DropoutSites(self.dropout, self.dropout_impl,
-                                   dropout_seeds, generator) \
-            if train else None
+        drop = self._dropout(train, dropout_seeds, generator)
         nxt = _Next(self)
         n_levels = len(self.ch_mult)
         h = x.permute(0, 3, 1, 2)
@@ -370,3 +393,44 @@ class NCSNpp(_NCSNBase):
             conv = nxt("Conv")
             h = conv(nxt("GroupNormAct")(h))
         return h.permute(0, 2, 3, 1)
+
+
+@register_module(category="clf_fn", name="ncsnpp_clf")
+class NCSNppClassifier(_NCSNBase):
+    """Noise-conditional classifier: the NCSN++ encoder trunk with its
+    middle block, flattened, then a bias-free ``Dense(n_cls)``.
+
+    The flatten is NHWC's, as in the JAX package (features ordered H, W,
+    C), so the NCHW-logical activation is permuted before it: flattening
+    it as it stands would order them C, H, W and scramble a converted
+    head. ``forward`` returns float logits (B, n_cls)."""
+
+    def __init__(self, n_cls: int = 10, **kwargs):
+        super().__init__(**kwargs)
+        self.n_cls = int(n_cls)
+        self._build_time_embedding()
+        hs_c = self._build_encoder()
+        res = self.all_resolutions[-1]
+        self._add(layers.Dense(hs_c[-1] * res * res, self.n_cls, bias=False))
+        self.to(memory_format=torch.channels_last)
+
+    @classmethod
+    def from_config(cls, config) -> "NCSNppClassifier":
+        return cls(**_model_kwargs_clf(config))
+
+    def forward(self, x, time_cond, train: bool = False, dropout_seeds=None,
+                generator=None):
+        """NHWC ``x`` (B, H, W, in_ch), noise level ``time_cond`` (B,) ->
+        logits (B, n_cls); ``train`` and the dropout arguments as for
+        :class:`NCSNpp`."""
+        drop = self._dropout(train, dropout_seeds, generator)
+        nxt = _Next(self)
+        h = x.permute(0, 3, 1, 2)
+        temb = self._time_embedding(time_cond, nxt)
+        if temb is not None and temb.dtype != h.dtype:
+            temb = temb.to(h.dtype)
+        h, _ = self._encoder(h, temb, nxt, drop)
+        if drop is not None:
+            drop.close()
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        return nxt("Dense")(h)

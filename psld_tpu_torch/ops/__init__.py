@@ -7,6 +7,12 @@ from psld_tpu_torch.ops.dropout import (  # noqa: F401
     hash_dropout,
     hash_dropout_plain,
 )
+from psld_tpu_torch.ops.fused_act import (  # noqa: F401
+    fused_leaky_relu,
+    fused_leaky_relu_backward,
+    fused_leaky_relu_backward_plain,
+    fused_leaky_relu_plain,
+)
 from psld_tpu_torch.ops.group_norm import (  # noqa: F401
     group_norm_act,
     group_norm_act_backward,

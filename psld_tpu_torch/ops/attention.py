@@ -35,19 +35,26 @@ def attention_plain(q, k, v, scale: float):
     return torch.einsum("bqk,bkc->bqc", w, v.float()).to(q.dtype)
 
 
-def attention_backward(q, k, v, scale: float, g):
+def attention_backward(q, k, v, scale: float, g,
+                       need=(True, True, True)):
     """(dq, dk, dv) of :func:`attention_plain` at cotangent ``g``: P is
     recomputed, then dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dP *
     P)), dQ = dS K * scale, dK = dS^T Q * scale, all in float32, cast to
-    the inputs' dtype at the end."""
+    the inputs' dtype at the end. A gradient whose ``need`` entry is
+    False is not computed and comes back as None."""
     q32, k32, v32, g32 = q.float(), k.float(), v.float(), g.float()
     p = torch.softmax(torch.einsum("bqc,bkc->bqk", q32, k32) * scale, dim=-1)
-    dv = torch.einsum("bqk,bqc->bkc", p, g32)
-    dp = torch.einsum("bqc,bkc->bqk", g32, v32)
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dq = torch.einsum("bqk,bkc->bqc", ds, k32) * scale
-    dk = torch.einsum("bqk,bqc->bkc", ds, q32) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dq = dk = dv = None
+    if need[2]:
+        dv = torch.einsum("bqk,bqc->bkc", p, g32).to(v.dtype)
+    if need[0] or need[1]:
+        dp = torch.einsum("bqc,bkc->bqk", g32, v32)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        if need[0]:
+            dq = (torch.einsum("bqk,bkc->bqc", ds, k32) * scale).to(q.dtype)
+        if need[1]:
+            dk = (torch.einsum("bqk,bqc->bkc", ds, q32) * scale).to(k.dtype)
+    return dq, dk, dv
 
 
 def _lib():
@@ -86,7 +93,8 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (*attention_backward(*ctx.saved_tensors, ctx.scale, g), None)
+        return (*attention_backward(*ctx.saved_tensors, ctx.scale, g,
+                                    need=ctx.needs_input_grad[:3]), None)
 
 
 def attention(q, k, v, scale: float):

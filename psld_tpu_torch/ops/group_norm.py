@@ -318,9 +318,13 @@ def group_norm_act_backward_plain(x, scale, bias, g, num_groups: int,
 
 
 def group_norm_act_backward(x, scale, bias, g, num_groups: int,
-                            eps: float = 1e-6, act: str = "none"):
+                            eps: float = 1e-6, act: str = "none",
+                            need_params: bool = True):
     """The cotangent ``g`` of ``group_norm_act(x, scale, bias)`` pulled
-    back to (dx, dscale, dbias), in the dtypes of x, scale and bias.
+    back to (dx, dscale, dbias), in the dtypes of x, scale and bias;
+    ``need_params=False`` (a gradient into the input alone, as classifier
+    guidance takes) gives (dx, None, None) and skips the sum over the
+    batch.
 
     A CPU tensor runs :func:`group_norm_act_backward_plain`. A CUDA tensor
     launches the Triton backward kernel
@@ -329,8 +333,9 @@ def group_norm_act_backward(x, scale, bias, g, num_groups: int,
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
-        return group_norm_act_backward_plain(x, scale, bias, g, num_groups,
-                                             eps, act)
+        dx, dscale, dbias = group_norm_act_backward_plain(
+            x, scale, bias, g, num_groups, eps, act)
+        return (dx, dscale, dbias) if need_params else (dx, None, None)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_act_backward: no path for device "
                          f"{x.device}")
@@ -353,6 +358,8 @@ def group_norm_act_backward(x, scale, bias, g, num_groups: int,
             float(h * w * geo["CG"]), float(eps), ACT=_ACT_CODE[act],
             num_warps=8 if h * w >= 1024 else 4, **geo)
     group_norm_act_backward.launches += 1
+    if not need_params:
+        return dx, None, None
     dscale, dbias = part.sum(1)
     return dx, dscale.to(scale.dtype), dbias.to(bias.dtype)
 
@@ -373,8 +380,9 @@ class _GroupNormAct(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        grads = group_norm_act_backward(*ctx.saved_tensors, g.contiguous(),
-                                        *ctx.args)
+        grads = group_norm_act_backward(
+            *ctx.saved_tensors, g.contiguous(), *ctx.args,
+            need_params=any(ctx.needs_input_grad[1:3]))
         return (*grads, None, None, None)
 
 

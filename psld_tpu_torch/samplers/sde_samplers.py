@@ -1,10 +1,16 @@
-"""Reverse-SDE Euler--Maruyama sampler
-(``psld_tpu/samplers/sde_samplers.py::EulerMaruyamaSampler``).
+"""Reverse-SDE samplers (``psld_tpu/samplers/sde_samplers.py``):
+Euler--Maruyama, classifier-guided EM, and the symmetric splitting
+samplers SSCS and SSCS-2M.
 
 Randomness comes from an explicit ``torch.Generator`` on the batch's
-device. ``noise(i, x)``, when given, supplies the i-th step's standard
-normal draw instead; the parity tests hand in the JAX key stream's draws
-through it.
+device. ``noise(k, x)``, when given, supplies the k-th standard normal
+draw of the trajectory instead; the parity tests hand in the JAX key
+stream's draws through it. EM draws once per noisy grid row (k = the
+row), SSCS and SSCS-2M twice per step (k = 2 * step + j for the j-th
+analytical half-step).
+
+The time grid and every SDE coefficient stay float64 until the edge of
+the image tensor. No corrector is ported: the entry points refuse one.
 """
 
 from __future__ import annotations
@@ -13,16 +19,26 @@ import torch
 
 from psld_tpu_torch.registry import register_module
 from psld_tpu_torch.samplers.base import Sampler
+from psld_tpu_torch.sde.psld import join_xm, split_xm
+from psld_tpu_torch.utils.numerics import to_edge
+
+
+def _in_dtype(dt: float, like: torch.Tensor) -> torch.Tensor:
+    """A host float64 step rounded to ``like``'s dtype, as the JAX package
+    casts ``dt`` before use."""
+    return torch.tensor(dt, dtype=torch.float64).to(like.dtype)
 
 
 def _em_update(sde, score_fn, x, t: float, dt: float, noise=None,
-               flag: float = 1.0):
+               flag: float = 1.0, guidance=None):
     """One Euler--Maruyama step at host-side float64 ``t``/``dt``.
-    ``noise=None`` gives the mean-only step. ``dt`` is rounded to
-    ``x.dtype`` before use, as in the JAX package."""
+    ``noise=None`` gives the mean-only step; ``guidance(x)``, when given,
+    adds ``g^2 * guidance(x)`` to the reverse drift."""
     tv = sde.timestep_vector(t, x.shape[0], x.device)
     f, g = sde.reverse_sde(x, tv, score_fn)
-    dt_c = torch.tensor(dt, dtype=torch.float64).to(x.dtype)
+    if guidance is not None:
+        f = f + g * g * guidance(x).to(x.dtype)
+    dt_c = _in_dtype(dt, x)
     x_mean = x + f * dt_c
     if noise is None:
         return x_mean, x_mean
@@ -39,8 +55,19 @@ def _step_grid(sde, ts: torch.Tensor, denoise: bool, eps: float):
     return rows
 
 
+def _normal(generator, noise, k: int, x):
+    """The k-th draw of a trajectory: injected, or from ``generator``."""
+    if noise is not None:
+        return noise(k, x)
+    return torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                       device=x.device)
+
+
 @register_module(category="samplers", name="em_sde")
 class EulerMaruyamaSampler(Sampler):
+    def _step(self, x, t, dt, z, flag):
+        return _em_update(self.sde, self.score_fn, x, t, dt, z, flag)[0]
+
     def sample(self, generator, batch, ts, n_discrete_steps, denoise=True,
                eps=1e-3, noise=None):
         """Run the reverse SDE from the prior draw ``batch`` (NHWC)."""
@@ -48,10 +75,168 @@ class EulerMaruyamaSampler(Sampler):
         x = batch
         for i, (t, dt, flag) in enumerate(_step_grid(self.sde, ts, denoise,
                                                      eps)):
-            z = None
-            if flag:
-                z = noise(i, x) if noise is not None else torch.randn(
-                    x.shape, generator=generator, dtype=x.dtype,
-                    device=x.device)
-            x, _ = _em_update(self.sde, self.score_fn, x, t, dt, z, flag)
+            z = _normal(generator, noise, i, x) if flag else None
+            x = self._step(x, t, dt, z, flag)
         return x
+
+
+def clf_time_convention(config) -> str:
+    """The time the classifier is conditioned on during guided sampling
+    (``evaluation.sampler.clf_time_convention``): ``diffusion`` (default)
+    gives it ``T - t``, the time it was trained on; ``reference`` gives
+    it the raw sampler time ``t``, as the reference implementation's
+    guided sampler does."""
+    sampler_cfg = config.evaluation.get("sampler") or {}
+    conv = str(sampler_cfg.get("clf_time_convention", "diffusion"))
+    if conv not in ("diffusion", "reference"):
+        raise ValueError(
+            "evaluation.sampler.clf_time_convention must be 'diffusion' or "
+            f"'reference'; got {conv!r}")
+    return conv
+
+
+@register_module(category="samplers", name="cc_em_sde")
+class ClassCondEulerMaruyamaSampler(EulerMaruyamaSampler):
+    """EM with classifier guidance: the reverse drift gains ``g^2 *
+    clf_temp * grad_x log softmax(clf(x, t_clf))[y]``, and the final
+    denoise row is a full guided step that keeps the mean.
+
+    ``clf_fn(x, t) -> logits`` is the classifier bound to its weights,
+    which should not require grad: the gradient goes into the input only.
+    The score network runs under the caller's ``no_grad``; the guidance
+    takes its gradient under ``enable_grad`` on a detached copy of the
+    state, so the sampler must not run under ``torch.inference_mode``,
+    whose tensors can never require grad."""
+
+    def __init__(self, config, sde, score_fn, clf_fn, y=None):
+        super().__init__(config, sde, score_fn)
+        self.clf_fn = clf_fn
+        self.y = int(config.clf.evaluation.label_to_sample if y is None
+                     else y)
+        self.clf_temp = float(config.clf.evaluation.clf_temp)
+        self.clf_time_convention = clf_time_convention(config)
+
+    def _guidance(self, x, t_clf: float):
+        """``clf_temp`` times the gradient of the summed log-probability of
+        class ``y`` with respect to ``x``."""
+        if torch.is_inference_mode_enabled():
+            raise RuntimeError("classifier guidance takes a gradient: run "
+                               "it under no_grad, not inference_mode")
+        with torch.enable_grad():
+            xg = x.detach().float().requires_grad_()
+            tv = torch.full((x.shape[0],), float(t_clf), dtype=torch.float32,
+                            device=x.device)
+            logp = torch.log_softmax(self.clf_fn(xg, tv).float(), dim=-1)
+            (grad,) = torch.autograd.grad(logp[:, self.y].sum(), xg)
+        return grad * self.clf_temp
+
+    def _step(self, x, t, dt, z, flag):
+        t_clf = t if self.clf_time_convention == "reference" \
+            else self.sde.T - t
+        return _em_update(self.sde, self.score_fn, x, t, dt, z, flag,
+                          guidance=lambda xx: self._guidance(xx, t_clf))[0]
+
+
+@register_module(category="samplers", name="sscs_sde")
+class SSCSSampler(Sampler):
+    """Symmetric Splitting CLD Sampler for PSLD: analytical OU half-step,
+    Euler score step, analytical OU half-step, with the closed forms of
+    :meth:`psld_tpu_torch.sde.psld.PSLD.sscs_transition`; then, with
+    ``denoise``, one mean-only EM step at ``T - eps``. Both half-steps of
+    an interval are taken at its start time ``t``, as in the JAX
+    package."""
+
+    def _coeffs(self, u, t: float, dt: float):
+        """The half-step's mean map and covariance at sampler time ``t``
+        over ``dt``, float64 [B] each."""
+        tv = self.sde.timestep_vector(t, u.shape[0], u.device)
+        return self.sde.sscs_transition(tv, dt)
+
+    @staticmethod
+    def _map(u, c11, c12, c21, c22):
+        """``[[c11, c12], [c21, c22]]`` applied to (x, m), the float64
+        coefficients cast at the edge."""
+        x, m = split_xm(u)
+        c11, c12, c21, c22 = (to_edge(c, x) for c in (c11, c12, c21, c22))
+        return join_xm(c11 * x + c12 * m, c21 * x + c22 * m)
+
+    def analytical_dynamics(self, u, t: float, dt: float, eps):
+        """Mean map plus the covariance factor times the draw ``eps``."""
+        mean_map, var = self._coeffs(u, t, dt)
+        return self._map(u, *mean_map) + self._map(
+            eps, *self.sde.get_coeff(var))
+
+    def score_term(self, u, t: float):
+        """Drift of the split score sub-flow, at diffusion time ``T - t``:
+        ``[gamma beta (score_x + x), M nu beta (score_m + m / M)]``."""
+        sde = self.sde
+        tv = sde.timestep_vector(sde.T - t, u.shape[0], u.device)
+        beta = to_edge(sde.beta_t(tv), u)
+        x, m = split_xm(u)
+        eps_pred = self.score_fn(u.float(), tv.float())
+        score = sde.get_score(eps_pred, 0.0, sde.mm_0, tv).to(u.dtype)
+        score_x, score_m = split_xm(score)
+        return join_xm(sde.gamma * beta * (score_x + x),
+                       sde.m * sde.nu * beta * (score_m + sde.m_inv * m))
+
+    def euler_score_dynamics(self, u, t: float, dt: float):
+        return u + _in_dtype(dt, u) * self.score_term(u, t)
+
+    def predictor_update_fn(self, u, t: float, dt: float, eps1, eps2):
+        u = self.analytical_dynamics(u, t, dt / 2, eps1)
+        u = self.euler_score_dynamics(u, t, dt)
+        return self.analytical_dynamics(u, t, dt / 2, eps2)
+
+    def _finalize(self, u, denoise: bool, eps: float):
+        if not denoise:
+            return u
+        return _em_update(self.sde, self.score_fn, u, self.sde.T - eps, eps)[0]
+
+    def sample(self, generator, batch, ts, n_discrete_steps, denoise=True,
+               eps=1e-3, noise=None):
+        del n_discrete_steps  # len(ts) - 1
+        ts = ts.tolist()
+        u = batch
+        for i, (t, t_next) in enumerate(zip(ts[:-1], ts[1:])):
+            eps1 = _normal(generator, noise, 2 * i, u)
+            eps2 = _normal(generator, noise, 2 * i + 1, u)
+            u = self.predictor_update_fn(u, t, t_next - t, eps1, eps2)
+        return self._finalize(u, denoise, eps)
+
+
+@register_module(category="samplers", name="sscs2m_sde")
+class SSCS2MSampler(SSCSSampler):
+    """Second-order multistep SSCS (an extension of the JAX package with no
+    reference counterpart): the score stage of each interval is an
+    exponential Adams--Bashforth-2 step. The previous interval's score
+    term is carried to the current frame through the analytical OU mean
+    maps and combined with weights ``(1 + rho/2, -rho/2)``, ``rho = dt_k /
+    dt_{k-1}``. The OU half-steps and their draws are SSCS's, and the
+    first interval, which has no history, is exactly one SSCS step."""
+
+    def _linear_mean(self, v, t: float, dt: float):
+        """The reverse-time OU mean map over [t, t+dt] applied to ``v``:
+        ``analytical_dynamics`` without the draw."""
+        return self._map(v, *self._coeffs(v, t, dt)[0])
+
+    def sample(self, generator, batch, ts, n_discrete_steps, denoise=True,
+               eps=1e-3, noise=None):
+        del n_discrete_steps  # len(ts) - 1
+        ts = ts.tolist()
+        u, prev, dt_prev = batch, None, None
+        for i, (t, t_next) in enumerate(zip(ts[:-1], ts[1:])):
+            dt = t_next - t
+            u = self.analytical_dynamics(u, t, dt / 2,
+                                         _normal(generator, noise, 2 * i, u))
+            nterm = self.score_term(u, t)
+            if prev is None:
+                d = nterm
+            else:
+                prev = self._linear_mean(prev, t, dt / 2)
+                rho = float(_in_dtype(dt / dt_prev, u))
+                d = nterm + (rho / 2.0) * (nterm - prev)
+            u = u + _in_dtype(dt, u) * d
+            prev, dt_prev = self._linear_mean(nterm, t, dt / 2), dt
+            u = self.analytical_dynamics(
+                u, t, dt / 2, _normal(generator, noise, 2 * i + 1, u))
+        return self._finalize(u, denoise, eps)

@@ -9,8 +9,7 @@ covariance ``E Sigma_0 E^T + D I0 + S I1 + Q I2``.
 Time vectors are float64 tensors; every coefficient stays float64 until
 :func:`~psld_tpu_torch.utils.numerics.to_edge` casts it to the image
 tensor's dtype and device, as ``_mean`` and ``get_score`` do in the JAX
-package. ``sscs_transition`` and the likelihood pieces come with the SSCS
-and evaluation slices.
+package. The likelihood pieces come with the evaluation slice.
 """
 
 from __future__ import annotations
@@ -130,6 +129,25 @@ class PSLD(SDE):
 
     def _cov(self, xx_0, mm_0, t):
         return self._cov_from_s(xx_0, mm_0, self.b_t(t))
+
+    def sscs_transition(self, t, dt):
+        """Mean map and covariance of the reverse-time linear sub-flow over
+        [t, t+dt] in sampler time (the SSCS analytical half-step).
+
+        Without the score step's linear terms the reverse drift is ``dz/dtau
+        = 1/2 beta(T - tau) Abar z`` with ``Abar`` = A with its skew part
+        negated: the forward integrals apply with ``s = b(T - t) - b(T - t
+        - dt) > 0`` and the xm entries negated. ``t`` is a float64 [B]
+        vector, ``dt`` a float; every entry stays float64, and the
+        ``eps`` guard sits on the diagonal."""
+        s = self.b_t(self.T - t) - self.b_t(self.T - (t + dt))
+        decay = torch.exp(-self._lam * s)
+        m11 = decay * (1.0 + self._a * s)
+        m12 = -decay * (self._b * s)
+        m21 = -decay * (self._c * s)
+        m22 = decay * (1.0 - self._a * s)
+        xx, xm, mm = self._cov_inhom(s)
+        return (m11, m12, m21, m22), (xx + self.eps, -xm, mm + self.eps)
 
     def get_coeff(self, var):
         """Triangular factor of the 2x2 kernel covariance: lower, the

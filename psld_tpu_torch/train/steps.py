@@ -1,7 +1,10 @@
-"""The training step (``psld_tpu/train/steps.py``).
+"""The training steps of the score model and of its guidance classifier
+(``psld_tpu/train/steps.py``).
 
-One step: t ~ U[train_eps, T] in float64 -> loss -> gradients -> global-norm
-clip -> Adam(+warmup) -> EMA. PyTorch runs it eagerly; nothing is compiled.
+One score step: t ~ U[train_eps, T] in float64 -> loss -> gradients ->
+global-norm clip -> Adam(+warmup) -> EMA. A classifier step: t -> loss and
+top-1 -> gradients -> Adam(+warmup), no clip, no EMA. PyTorch runs them
+eagerly; nothing is compiled.
 
 ``training.bf16`` follows the JAX package: float32 master weights; the
 forward runs on bfloat16 casts of them and a bfloat16 input and returns
@@ -75,6 +78,69 @@ def _at(values, i: int, accum: int):
     return values[i] if accum > 1 else values
 
 
+class _Compute:
+    """The parameters a forward runs on, and the way back of their
+    gradients. Without ``bf16`` they are the float32 parameters
+    themselves. With it they are bfloat16 leaf copies, made once and
+    refreshed by one multi-tensor copy a step, and their bfloat16
+    gradients are cast up to float32 by another."""
+
+    def __init__(self, net, bf16: bool):
+        self.net = net
+        self.bf16 = bf16
+        self.half: dict = {}
+        self.hashed = dropout_is_hashed(net.dropout_impl) \
+            and 0.0 < net.dropout < 1.0
+
+    def params(self, params):
+        if not self.bf16:
+            return params
+        if self.half.keys() != params.keys():
+            self.half.clear()
+            self.half.update({k: torch.empty_like(v, dtype=torch.bfloat16)
+                              .requires_grad_(v.requires_grad)
+                              for k, v in params.items()})
+        with torch.no_grad():
+            torch._foreach_copy_(list(self.half.values()),
+                                 list(params.values()))
+        return self.half
+
+    def forward_fn(self, p, rng, seeds):
+        """``(z, t) -> float32 output`` of a train-mode forward on ``p``.
+        Called by a criterion after it has drawn m0 and eps, so the
+        dropout seed words are the step's last draw."""
+        def fn(z, tt):
+            words = seeds
+            if words is None and self.hashed:
+                words = rng.seed_words(self.net.dropout_sites)
+            z = z.to(torch.bfloat16) if self.bf16 else z
+            out = torch.func.functional_call(
+                self.net, p, (z, tt), dict(
+                    train=True, dropout_seeds=words,
+                    generator=None if rng is None else rng.dev))
+            return out.float()
+
+        return fn
+
+    def grads(self, loss, p) -> list:
+        """float32 gradients of ``loss`` for the trainable entries of
+        ``p``, in their order."""
+        leaves = [v for v in p.values() if v.requires_grad]
+        grads = torch.autograd.grad(loss, leaves)
+        if self.bf16:  # the cast's gradient: up to float32, in one pass
+            low, grads = grads, [torch.empty_like(g, dtype=torch.float32)
+                                 for g in grads]
+            torch._foreach_copy_(grads, low)
+        return list(grads)
+
+
+def _full(grads: list, params) -> dict:
+    """The trainable gradients keyed as ``params``, zeros elsewhere."""
+    trainable = iter(grads)
+    return {k: next(trainable) if v.requires_grad else torch.zeros_like(v)
+            for k, v in params.items()}
+
+
 def make_train_step(net, sde, criterion, config) -> tuple[Callable, object]:
     """Build the score-model train step.
 
@@ -91,55 +157,17 @@ def make_train_step(net, sde, criterion, config) -> tuple[Callable, object]:
     tau = float(tcfg.ema_decay)
     use_ema = bool(tcfg.use_ema)
     accum = int(tcfg.get("grad_accum", 1))
-    bf16 = bool(tcfg.get("bf16", False))
     optimizer = make_optimizer(tcfg.optimizer)
-    hashed = dropout_is_hashed(net.dropout_impl) and 0.0 < net.dropout < 1.0
-
-    half: dict = {}  # bfloat16 leaf copies of the parameters, made once
-
-    def compute_params(params):
-        """The parameters the forward runs on: themselves, or under
-        ``bf16`` their bfloat16 copies, refreshed in one pass."""
-        if not bf16:
-            return params
-        if half.keys() != params.keys():
-            half.clear()
-            half.update({k: torch.empty_like(v, dtype=torch.bfloat16)
-                         .requires_grad_(v.requires_grad)
-                         for k, v in params.items()})
-        with torch.no_grad():
-            torch._foreach_copy_(list(half.values()), list(params.values()))
-        return half
-
-    def loss_fn(p, batch, t, rng, eps, m0, seeds):
-        def score_fn(z, tt):
-            # the criterion has drawn m0 and eps by now: the seed words
-            # come last
-            words = seeds
-            if words is None and hashed:
-                words = rng.seed_words(net.dropout_sites)
-            z = z.to(torch.bfloat16) if bf16 else z
-            out = torch.func.functional_call(
-                net, p, (z, tt), dict(train=True, dropout_seeds=words,
-                                      generator=None if rng is None
-                                      else rng.dev))
-            return out.float()
-
-        return criterion(batch, t, score_fn, rng, eps=eps, m0=m0)
+    compute = _Compute(net, bool(tcfg.get("bf16", False)))
 
     def micro_grads(state, batch, rng, t, eps, m0, seeds):
         if t is None:
             t = sample_times(rng, batch.shape[0], train_eps, sde.T)
         t = t.to(batch.device)
-        p = compute_params(state.params)
-        leaves = [v for v in p.values() if v.requires_grad]
-        loss = loss_fn(p, batch, t, rng, eps, m0, seeds)
-        grads = torch.autograd.grad(loss, leaves)
-        if bf16:  # the cast's gradient: up to float32, in one pass
-            low, grads = grads, [torch.empty_like(g, dtype=torch.float32)
-                                 for g in grads]
-            torch._foreach_copy_(grads, low)
-        return loss.detach().float(), grads
+        p = compute.params(state.params)
+        loss = criterion(batch, t, compute.forward_fn(p, rng, seeds), rng,
+                         eps=eps, m0=m0)
+        return loss.detach().float(), compute.grads(loss, p)
 
     def step(state: TrainState, batch, rng=None, *, t=None, eps=None,
              m0=None, dropout_seeds=None):
@@ -151,7 +179,7 @@ def make_train_step(net, sde, criterion, config) -> tuple[Callable, object]:
                     _at(eps, i, accum), _at(m0, i, accum),
                     _at(dropout_seeds, i, accum))
                 if grads is None:
-                    loss, grads = loss_i, list(g_i)
+                    loss, grads = loss_i, g_i
                 else:
                     loss = loss + loss_i
                     torch._foreach_add_(grads, g_i)
@@ -160,13 +188,10 @@ def make_train_step(net, sde, criterion, config) -> tuple[Callable, object]:
         else:
             loss, grads = micro_grads(state, batch, rng, t, eps, m0,
                                       dropout_seeds)
-            grads = list(grads)
         grad_norm = global_norm(grads)
-        trainable = iter(grads)
-        full = {k: next(trainable) if v.requires_grad else torch.zeros_like(v)
-                for k, v in state.params.items()}
         with torch.no_grad():
-            optimizer.update_(full, state.opt_state, state.params, grad_norm)
+            optimizer.update_(_full(grads, state.params), state.opt_state,
+                              state.params, grad_norm)
             if use_ema:
                 ema_update_(state.ema_params, state.params, tau)
             else:
@@ -174,5 +199,43 @@ def make_train_step(net, sde, criterion, config) -> tuple[Callable, object]:
                     state.ema_params[k].copy_(v)
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm}
+
+    return step, optimizer
+
+
+def make_clf_train_step(net, sde, criterion, config) -> tuple[Callable,
+                                                              object]:
+    """Build the classifier's train step. ``config`` holds the
+    ``diffusion`` and ``clf`` trees.
+
+    Returns ``(step, optimizer)`` with ``step(state, x, y, rng, *, t=None,
+    eps=None, m0=None, dropout_seeds=None) -> (state, metrics)``: NHWC
+    float32 images ``x`` and integer labels ``y`` on the state's device.
+    ``clf.training.train_eps`` and ``clf.training.bf16`` fall back to the
+    diffusion training's. The optimizer is ``clf.training.optimizer``,
+    whose config has no ``grad_clip``: nothing is clipped. There is no
+    EMA: ``ema_params`` stay as they were. ``metrics`` holds ``loss`` and
+    ``top1`` as 0-dim tensors on the device."""
+    ccfg, dcfg = config.clf.training, config.diffusion.training
+    train_eps = float(ccfg.get("train_eps", dcfg.train_eps))
+    optimizer = make_optimizer(ccfg.optimizer)
+    compute = _Compute(net, bool(ccfg.get("bf16", dcfg.get("bf16", False))))
+
+    def step(state: TrainState, x, y, rng=None, *, t=None, eps=None,
+             m0=None, dropout_seeds=None):
+        if t is None:
+            t = sample_times(rng, x.shape[0], train_eps, sde.T)
+        t = t.to(x.device)
+        p = compute.params(state.params)
+        loss, top1 = criterion(x, y, t,
+                               compute.forward_fn(p, rng, dropout_seeds),
+                               rng, eps=eps, m0=m0)
+        grads = compute.grads(loss, p)
+        norm = global_norm(grads) if optimizer.grad_clip else None
+        with torch.no_grad():
+            optimizer.update_(_full(grads, state.params), state.opt_state,
+                              state.params, norm)
+        state.step += 1
+        return state, {"loss": loss.detach().float(), "top1": top1}
 
     return step, optimizer

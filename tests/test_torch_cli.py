@@ -1,5 +1,6 @@
-"""The port's sampling entry point, its image files, and what it imports
-(CPU)."""
+"""The port's entry points (sampling, SSCS-2M sampling, classifier
+training, guided sampling), their files and log lines, and what they
+import (CPU)."""
 
 import os
 import subprocess
@@ -12,7 +13,11 @@ from PIL import Image
 
 from psld_tpu.eval.writers import SimpleImageWriter as JWriter
 from psld_tpu.utils.images import to_uint8 as j_to_uint8
+from psld_tpu_torch.cli import class_cond_sample as guided_cli
 from psld_tpu_torch.cli import sample as sample_cli
+from psld_tpu_torch.cli import train_clf as train_clf_cli
+from psld_tpu_torch.cli import train_sde as train_sde_cli
+from psld_tpu_torch.train.checkpoint import latest_checkpoint
 from psld_tpu_torch.eval.writers import SimpleImageWriter
 from psld_tpu_torch.utils.images import save_as_images
 from test_torch_ncsnpp import tiny_pair
@@ -35,11 +40,21 @@ TINY_ARGS = [
 ]
 
 
+@pytest.fixture
+def one_thread():
+    """The entry points run at tiny shapes here, where PyTorch's
+    intra-op threads only contend with the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _names(d):
     return sorted(os.path.splitext(f)[0] for f in os.listdir(d))
 
 
-def test_sample_cli_writes_the_jax_writers_files(tmp_path):
+def test_sample_cli_writes_the_jax_writers_files(tmp_path, one_thread):
     """``cli.sample.main`` on a ``.pt`` checkpoint of converted weights:
     5 samples in batches of 2 (the tail batch is drawn full-width and
     sliced), written under the names the JAX package's writer gives."""
@@ -110,22 +125,36 @@ def test_writer_keeps_only_the_x_half(tmp_path):
 
 _IMPORT_ALL = """
 import pkgutil, sys, tempfile
+import torch
+torch.set_num_threads(1)  # tiny shapes: threads only contend with others
 import psld_tpu_torch
 for m in pkgutil.walk_packages(psld_tpu_torch.__path__, "psld_tpu_torch."):
     __import__(m.name)
 from psld_tpu_torch.cli._common import bootstrap
-from psld_tpu_torch.cli import sample, train_sde
+from psld_tpu_torch.cli import class_cond_sample, sample, train_clf, train_sde
 from psld_tpu_torch.train.checkpoint import latest_checkpoint
 bootstrap(["+dataset=cifar10/cifar10_psld"])
-tiny = {tiny!r}
+tiny, clf, guided = {tiny!r}, {clf!r}, {guided!r}
 with tempfile.TemporaryDirectory() as d:
     state, stats = train_sde.main(tiny + [
         "dataset.diffusion.training.results_dir=" + d + "/results"])
+    score = latest_checkpoint(d + "/results/checkpoints")
     batches = sample.main(tiny + [
-        "dataset.diffusion.evaluation.chkpt_path="
-        + latest_checkpoint(d + "/results/checkpoints"),
+        "dataset.diffusion.evaluation.chkpt_path=" + score,
         "dataset.diffusion.evaluation.save_path=" + d + "/out"])
-print("RAN", state.step, sum(b["samples"] for b in batches))
+    batches += sample.main(tiny + [
+        "dataset.diffusion.evaluation.sampler.name=sscs2m_sde",
+        "dataset.diffusion.evaluation.stride_type=quadratic",
+        "dataset.diffusion.evaluation.chkpt_path=" + score,
+        "dataset.diffusion.evaluation.save_path=" + d + "/sscs"])
+    clf_state, _ = train_clf.main(tiny + clf + [
+        "dataset.clf.training.results_dir=" + d + "/clf"])
+    batches += class_cond_sample.main(tiny + clf + guided + [
+        "dataset.diffusion.evaluation.chkpt_path=" + score,
+        "dataset.clf.evaluation.chkpt_path="
+        + latest_checkpoint(d + "/clf/checkpoints"),
+        "dataset.diffusion.evaluation.save_path=" + d + "/guided"])
+print("RAN", state.step, clf_state.step, sum(b["samples"] for b in batches))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "psld_tpu", "triton"))
@@ -149,18 +178,38 @@ _TINY_RUN = ["+dataset=cifar10/cifar10_psld",
              "dataset.diffusion.evaluation.n_discrete_steps=3",
              "dataset.diffusion.evaluation.sample_from=source",
              "+dataset.diffusion.evaluation.device=cpu"]
+# the shipped classifier's options at 8x8 and nf 8: 2 steps of batch 256
+_CLF_RUN = ["dataset.clf.data.root=/unused",
+            "dataset.clf.data.name=synthetic",
+            "dataset.clf.data.image_size=8",
+            "dataset.clf.model.clf_fn.n_cls=10",
+            "dataset.clf.model.clf_fn.nf=8",
+            "dataset.clf.model.clf_fn.ch_mult=[1,2]",
+            "dataset.clf.model.clf_fn.num_res_blocks=1",
+            "dataset.clf.model.clf_fn.attn_resolutions=[4]",
+            "+dataset.clf.model.clf_fn.dropout_impl=hw",
+            "dataset.clf.training.batch_size=256",
+            "dataset.clf.training.epochs=1",
+            "+dataset.clf.training.device=cpu"]
+# guided EM, two labels over two batches of 2
+_GUIDED_RUN = ["dataset.diffusion.evaluation.sampler.name=cc_em_sde",
+               "dataset.diffusion.evaluation.n_samples=4",
+               "dataset.clf.evaluation.label_to_sample=1,4"]
 
 
 def test_importing_the_port_pulls_in_no_jax():
     """Every module of the port imported in a fresh process, a config
-    composed by ``bootstrap``, and a tiny ``cli.train_sde`` and
-    ``cli.sample`` run leave no module named ``psld_tpu`` or
-    ``psld_tpu.*``, nothing of JAX and no Triton in ``sys.modules``."""
+    composed by ``bootstrap``, and a tiny run of each entry point
+    (``cli.train_sde``, ``cli.sample`` with EM and with SSCS-2M,
+    ``cli.train_clf``, ``cli.class_cond_sample``) leave no module named
+    ``psld_tpu`` or ``psld_tpu.*``, nothing of JAX and no Triton in
+    ``sys.modules``."""
     r = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL.format(tiny=_TINY_RUN)], cwd=REPO,
+        [sys.executable, "-c", _IMPORT_ALL.format(
+            tiny=_TINY_RUN, clf=_CLF_RUN, guided=_GUIDED_RUN)], cwd=REPO,
         capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert "RAN 2 2" in r.stdout, r.stdout
+    assert "RAN 2 2 8" in r.stdout, r.stdout
     assert "IMPORTED []" in r.stdout, r.stdout
 
 
@@ -178,3 +227,73 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
         out, _ = r.communicate(timeout=120)
         assert r.returncode != 0
         assert '"ok": true' not in out
+
+
+def _pngs(d):
+    return sorted(f for f in os.listdir(d / "images") if f.endswith(".png"))
+
+
+def test_train_clf_then_guided_and_sscs2m_sampling(tmp_path, caplog,
+                                                   one_thread):
+    """A tiny ``cli.train_clf`` on synthetic labelled data writes a
+    classifier checkpoint and its sidecar; ``cli.class_cond_sample`` loads
+    it beside a score checkpoint and writes each batch under its label's
+    prefix; ``cli.sample`` with SSCS-2M writes its images. Both trainers
+    name the TPU-only keys they were given in one log line."""
+    caplog.set_level("INFO")
+    state, stats = train_sde_cli.main(_TINY_RUN + [
+        f"dataset.diffusion.training.results_dir={tmp_path}/score",
+        "+dataset.diffusion.training.steps_per_dispatch=4",
+        "+dataset.diffusion.training.profile_dir=/unused"])
+    score = latest_checkpoint(f"{tmp_path}/score/checkpoints")
+    clf_state, clf_stats = train_clf_cli.main(_TINY_RUN + _CLF_RUN + [
+        f"dataset.clf.training.results_dir={tmp_path}/clf",
+        "+dataset.clf.training.prefetch=2",
+        "+dataset.clf.training.optimizer.flatten=true"])
+    lines = [r.getMessage() for r in caplog.records
+             if "accepted and ignored" in r.getMessage()]
+    assert lines == [
+        "accepted and ignored (TPU-only, no effect in the port): "
+        "training.profile_dir=/unused, training.steps_per_dispatch=4",
+        "accepted and ignored (TPU-only, no effect in the port): "
+        "clf.training.prefetch=2, clf.training.optimizer.flatten=True"]
+    assert clf_state.step == 2 and len(clf_stats) == 2
+    assert all(np.isfinite(r["loss"]) and 0 <= r["top1"] <= 1
+               for r in clf_stats)
+    clf = latest_checkpoint(f"{tmp_path}/clf/checkpoints")
+    assert os.path.basename(clf).startswith("clf-psld-epoch=0000-loss=")
+    assert os.path.exists(clf + ".meta.json")
+    saved = torch.load(clf, weights_only=True)
+    assert saved["step"] == 2 and "Dense_2.weight" in saved["params"]
+
+    batches = guided_cli.main(_TINY_RUN + _CLF_RUN + _GUIDED_RUN + [
+        f"dataset.diffusion.evaluation.chkpt_path={score}",
+        f"dataset.clf.evaluation.chkpt_path={clf}",
+        f"dataset.diffusion.evaluation.save_path={tmp_path}/guided"])
+    assert [(b["label"], b["samples"], b["nonfinite"]) for b in batches] \
+        == [(1, 2, 0), (4, 2, 0)]
+    assert _pngs(tmp_path / "guided") == [
+        "output_tpuy1_0_0_0.png", "output_tpuy1_0_0_1.png",
+        "output_tpuy4_0_1_0.png", "output_tpuy4_0_1_1.png"]
+
+    batches = sample_cli.main(_TINY_RUN + [
+        "dataset.diffusion.evaluation.sampler.name=sscs2m_sde",
+        "dataset.diffusion.evaluation.stride_type=quadratic",
+        f"dataset.diffusion.evaluation.chkpt_path={score}",
+        f"dataset.diffusion.evaluation.save_path={tmp_path}/sscs"])
+    assert [(b["samples"], b["nfe"], b["nonfinite"]) for b in batches] \
+        == [(2, 3, 0)]
+    assert len(_pngs(tmp_path / "sscs")) == 2
+
+
+@pytest.mark.parametrize("entry,sampler", [("guided", "em_sde"),
+                                           ("sample", "cc_em_sde")])
+def test_guided_and_unguided_entry_points_refuse_each_others_sampler(
+        entry, sampler):
+    argv = _TINY_RUN + _CLF_RUN + [
+        f"dataset.diffusion.evaluation.sampler.name={sampler}",
+        "dataset.diffusion.evaluation.chkpt_path=/unused",
+        "dataset.clf.evaluation.chkpt_path=/unused"]
+    main = guided_cli.main if entry == "guided" else sample_cli.main
+    with pytest.raises(ValueError, match="guided"):
+        main(argv)

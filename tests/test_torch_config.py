@@ -5,7 +5,8 @@ The port composes its configs with its own copy of the composer
 (``psld_tpu_torch/configs``). These tests hold every composed tree equal
 to the JAX package's, so the two copies cannot drift, hold what the port
 makes of every shipped PSLD config (its score network's constructor
-arguments, the network itself, the SDE) to what the JAX package makes of
+arguments, the network itself, the SDE, and where the config has a
+``clf`` tree the classifier's arguments) to what the JAX package makes of
 the same config, and check that the configs of SDEs the port does not
 have yet are refused.
 
@@ -23,13 +24,15 @@ import torch
 from psld_tpu import knobs as jknobs
 from psld_tpu import config as jconfig
 from psld_tpu.models.ncsnpp import _model_kwargs as j_model_kwargs
+from psld_tpu.models.ncsnpp import _model_kwargs_clf as j_model_kwargs_clf
 from psld_tpu.sde.psld import PSLD as JPSLD
 from psld_tpu_torch import config as tconfig
 from psld_tpu_torch import knobs
 from psld_tpu_torch.cli import sample as sample_cli
 from psld_tpu_torch.config import compose
 from psld_tpu_torch.eval.generate import build_score_model, build_sde
-from psld_tpu_torch.models.ncsnpp import _model_kwargs
+from psld_tpu_torch.models.ncsnpp import _model_kwargs, _model_kwargs_clf
+from psld_tpu_torch.train.loop import build_clf_model
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "psld_tpu", "configs", "dataset")
@@ -162,3 +165,33 @@ def test_unknown_dropout_impl_is_refused():
             layers.resolve_dropout_impl(bad)
         with pytest.raises(ValueError, match="dropout_impl"):
             layers.dropout_is_hashed(bad)
+
+
+CLF_GROUPS = [g for g in PSLD_GROUPS
+              if "clf" in tconfig.compose([f"+dataset={g}"]).dataset]
+
+
+def test_classifier_configs_are_covered():
+    assert "cifar10/cifar10_psld" in CLF_GROUPS
+
+
+@pytest.mark.parametrize("group", CLF_GROUPS)
+def test_classifier_of_config_matches_jax(group, latched_knobs):
+    """The classifier's constructor arguments equal the JAX package's,
+    ``n_cls: ???`` raises in both until it is set, and at the shipped
+    CIFAR-10 width the classifier (built on the meta device) has
+    15,262,848 parameters and a bias-free head."""
+    bare = compose([f"+dataset={group}",
+                    "dataset.clf.data.root=/unused"]).dataset.clf
+    for kwargs_of in (_model_kwargs_clf, j_model_kwargs_clf):
+        with pytest.raises((tconfig.MissingMandatoryValue,
+                            jconfig.MissingMandatoryValue)):
+            kwargs_of(bare)
+    ccfg = compose([f"+dataset={group}", "dataset.clf.data.root=/unused",
+                    "dataset.clf.model.clf_fn.n_cls=10"]).dataset.clf
+    assert _model_kwargs_clf(ccfg) == j_model_kwargs_clf(ccfg)
+    with torch.device("meta"):
+        net = build_clf_model(ccfg, device="meta")
+    assert net.Dense_2.bias is None
+    if group == "cifar10/cifar10_psld":
+        assert sum(p.numel() for p in net.parameters()) == 15_262_848

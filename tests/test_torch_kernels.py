@@ -4,16 +4,19 @@
 flagship's shapes; these tests cover the edges it does not reach: ragged
 pixel tiles, widths that are not powers of two (C=320 is the AFHQ width),
 one group per program, N and C at their limits, odd sizes and offsets for
-the dropout hash, finite differences for the GroupNorm backward, and the
-inputs the wrappers refuse. They need a
+the dropout hash, finite differences for the GroupNorm backward, the
+guidance classifier's shapes (GroupNorm at H*W = 16, attention over N =
+16 tokens) and a gradient into the input alone, rows and channels of the
+fused bias + leaky ReLU that fit no vector width, and the inputs the
+wrappers refuse. They need a
 CUDA device (the CUDA source is built for sm_90a) and skip without one:
 
     python -m pytest -m cuda --noconftest tests/test_torch_kernels.py
 
 Tolerances: f32 1e-5 (the same f32 arithmetic, summed in another order);
 bf16 1e-2 (one rounding of equal f32 values to the output dtype, which
-may fall on either side of a rounding boundary). The dropout kernel is
-held bit for bit.
+may fall on either side of a rounding boundary). The dropout and fused
+bias + leaky ReLU kernels are held bit for bit.
 """
 
 import numpy as np
@@ -81,7 +84,8 @@ def test_group_norm_act_kernel_refuses_what_it_does_not_take(card):
 
 @pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
 @pytest.mark.parametrize("shape", [(3, 16, 40), (2, 100, 136), (1, 256, 512),
-                                   (2, 1, 8), (5, 65, 64)])
+                                   (2, 1, 8), (5, 65, 64),
+                                   (64, 16, 256)])  # the classifier's middle
 def test_attention_kernel_matches_plain(card, shape, dtype):
     q, k, v = (rand(shape, s, dtype, card) for s in (3, 4, 5))
     scale = float(shape[-1]) ** -0.5
@@ -106,6 +110,8 @@ def test_attention_kernel_refuses_what_it_does_not_take(card):
 
 GN_BWD_SHAPES = [
     ((3, 5, 7, 40), 10),     # ragged pixel tile, 20-channel slices
+    ((2, 4, 4, 256), 32),    # the classifier's 4x4 level: H*W = 16
+    ((2, 16, 16, 128), 32),  # the classifier's C = 128 at H*W = 256
     ((2, 16, 16, 320), 32),  # the AFHQ width: 10-channel groups
     ((1, 8, 8, 256), 32),    # B=1, H*W=64
     ((2, 3, 3, 1024), 32),   # one 32-channel group per program
@@ -222,3 +228,86 @@ def test_hash_dropout_kernel_backward_and_layouts(card):
         ops.hash_dropout(x.detach().permute(0, 2, 1, 3), [5, 6], 0.5)
     with pytest.raises(ValueError):
         ops.hash_dropout(x.detach().double(), [5, 6], 0.5)
+
+
+def test_gradient_into_the_input_alone_goes_through_the_kernels(card):
+    """Classifier guidance differentiates with respect to the input only:
+    the weights do not require grad. GroupNorm's backward kernel still
+    runs (and skips the sums over the batch), attention's gradient chain
+    runs, and dx matches the plain version's autograd."""
+    x = rand((2, 4, 4, 256), 0, torch.float32, card, 2.0, 0.5)
+    scale = rand((256,), 1, torch.float32, card, 0.1, 1.0)
+    bias = rand((256,), 2, torch.float32, card, 0.1)
+    w = rand((256, 3 * 256), 3, torch.float32, card, 0.05)
+    ct = rand((2, 16, 256), 4, torch.float32, card)
+
+    def f(xx, gn, attn):
+        h = gn(xx, scale, bias, 32, 1e-6, "swish").reshape(2, 16, 256)
+        q, k, v = (h @ w).split(256, dim=-1)
+        return attn(q.contiguous(), k.contiguous(), v.contiguous(),
+                    256 ** -0.5)
+
+    n_b, n_a = ops.group_norm_act_backward.launches, ops.attention.launches
+    xg = x.clone().requires_grad_()
+    (got,) = torch.autograd.grad(f(xg, ops.group_norm_act, ops.attention),
+                                 xg, ct)
+    assert ops.group_norm_act_backward.launches == n_b + 1
+    assert ops.attention.launches == n_a + 1
+    xp = x.clone().requires_grad_()
+    (want,) = torch.autograd.grad(
+        f(xp, ops.group_norm_act_plain, ops.attention_plain), xp, ct)
+    torch.cuda.synchronize()
+    ref = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * ref
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("shape", [(1000, 6), (3, 5, 7, 3), (513, 8),
+                                   (2, 4, 4, 512), (1, 1), (7, 1000)])
+def test_fused_leaky_relu_kernels_match_plain_bit_for_bit(card, shape,
+                                                          dtype):
+    x = rand(shape, 0, dtype, card, scale=3.0)
+    bias = rand(shape[-1:], 1, torch.float32, card)
+    g = rand(shape, 2, dtype, card)
+    n_f, n_b = ops.fused_leaky_relu.launches, \
+        ops.fused_leaky_relu_backward.launches
+    got = ops.fused_leaky_relu(x, bias)
+    dx, db = ops.fused_leaky_relu_backward(x, bias, g)
+    assert ops.fused_leaky_relu.launches == n_f + 1
+    assert ops.fused_leaky_relu_backward.launches == n_b + 1
+    want = ops.fused_leaky_relu_plain(x, bias)
+    wdx, wdb = ops.fused_leaky_relu_backward_plain(x, bias, g)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(dx, wdx)
+    assert db.dtype == torch.float32 and torch.equal(db, wdb)
+
+
+def test_fused_leaky_relu_unaligned_and_autograd(card):
+    """A view that starts off a 16-byte boundary takes the one-element
+    path; autograd launches the backward kernel and skips dbias when the
+    bias needs no gradient."""
+    base = rand((1 + 64 * 16,), 0, torch.bfloat16, card)
+    x = base[1:].view(64, 16)
+    assert x.data_ptr() % 16
+    bias = rand((16,), 1, torch.float32, card)
+    assert torch.equal(ops.fused_leaky_relu(x, bias),
+                       ops.fused_leaky_relu_plain(x, bias))
+    xg = x.detach().clone().requires_grad_()
+    n_b = ops.fused_leaky_relu_backward.launches
+    ct = rand((64, 16), 2, torch.bfloat16, card)
+    (dx,) = torch.autograd.grad(ops.fused_leaky_relu(xg, bias), xg, ct)
+    assert ops.fused_leaky_relu_backward.launches == n_b + 1
+    assert torch.equal(dx, ops.fused_leaky_relu_backward_plain(
+        x, bias, ct)[0])
+
+
+def test_fused_leaky_relu_kernel_refuses_what_it_does_not_take(card):
+    x = rand((4, 8), 0, torch.float32, card)
+    b = torch.zeros(8, device=card)
+    for bad_x, bad_b in ((x.double(), b), (x.half(), b), (x.t(), b),
+                         (x, b[:4]), (x, b.cpu())):
+        with pytest.raises(ValueError):
+            ops.fused_leaky_relu(bad_x, bad_b)
+    with pytest.raises(ValueError):
+        ops.fused_leaky_relu_backward(x, b, x.bfloat16())
