@@ -17,9 +17,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    the (H*W, C) shapes of a flagship forward at batch 64 (sample, sscs and
    guided paths) and 128 (train), and of a classifier forward at 64
    (guided) and 32 (train_clf), H*W = 16 included.
-5. gn_bwd: the Triton GroupNorm+act backward kernel (dx, dscale, dbias)
-   against autograd through the plain version, at the flagship's shapes
-   at batch 128 and the classifier's at 64 and 32.
+5. gn_bwd: the CUDA C++ GroupNorm+act backward kernel (dx, dscale,
+   dbias) against autograd through the plain version, at the flagship's
+   shapes at batch 128 and the classifier's at 64 and 32.
 6. attention: the CUDA C++ attention kernel against its plain version at
    the attention shapes of the same four (network, batch) pairs, N = 16
    tokens included.
@@ -276,7 +276,7 @@ def phase_build():
     from psld_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    srcs = ["attention.cu", "fused_act.cu"]
+    srcs = ["attention.cu", "fused_act.cu", "group_norm_bwd.cu"]
     build.build_all(srcs)  # one nvcc per source, started together
     for src in srcs:
         build.load(src)
@@ -471,9 +471,10 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship"):
         n_bytes = (3 * x.numel() + 4 * c) * x.element_size()
         add_bound(total, n_calls, n_bytes, 30 * x.numel(), SCALAR_OPS)
         rows.append((hw, c, n_calls, k_ms, e_ms, p_ms, l_ms,
-                     n_bytes / 1e9 / (k_ms / 1e3)))
+                     n_bytes / 1e12 / (k_ms / 1e3),
+                     30 * x.numel() / 1e12 / (k_ms / 1e3)))
     os.environ.pop("PSLD_GN_BF16")
-    say(f"[gn_bwd] Triton backward kernel == autograd through plain at all "
+    say(f"[gn_bwd] CUDA C++ backward kernel == autograd through plain at all "
         f"{len(calls)} {net} shapes, B={batch} (of each gradient's scale: "
         f"f32 "
         f"tol 1e-4; bf16 tol 2e-2; bf16+gn_bf16 tol 3e-2) in "
@@ -483,9 +484,10 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship"):
         + ", ".join(f"{k} {v:.3e}" for k, v in abs_errs.items()))
     say(f"[gn_bwd] device times (CUDA-graph replay; eager = called one by "
         f"one): bf16 swish, B={batch}, {card}")
-    for hw, c, n_calls, k_ms, e_ms, p_ms, l_ms, gbps in rows:
+    for hw, c, n_calls, k_ms, e_ms, p_ms, l_ms, tbps, tflops in rows:
         say(f"[gn_bwd]   HW={hw:5d} C={c:3d} x{n_calls:2d}/bwd: kernel "
-            f"{k_ms:.4f} ms ({gbps:.0f} GB/s of x, g, dx; eager {e_ms:.4f} "
+            f"{k_ms:.4f} ms ({tbps:.3f} TB/s of x, g, dx; {tflops:.2f} "
+            f"TFLOP/s f32 at ~30 a value; eager {e_ms:.4f} "
             f"ms), plain autograd {p_ms:.4f} ms, F.group_norm+F.silu "
             f"backward {l_ms:.4f} ms")
     say(f"[gn_bwd]   per {net} backward at B={batch} "
@@ -622,16 +624,18 @@ def phase_attention(card, batch, calls=ATTN_CALLS, net="flagship"):
         add_bound(total, n_calls, 4 * q.numel() * q.element_size(), flops,
                   BF16_TENSOR_OPS)
         rows.append((n, c, n_calls, k_ms, e_ms, p_ms, l_ms,
-                     flops / (k_ms / 1e3) / 1e12))
+                     flops / (k_ms / 1e3) / 1e12,
+                     4 * q.numel() * q.element_size() / 1e12 / (k_ms / 1e3)))
     say(f"[attention] CUDA kernel == plain at {len(calls)} {net} shapes, "
         f"B={batch} (f32 tol 1e-5; bf16 tol 1e-2); max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     say(f"[attention] device times (CUDA-graph replay; eager = called one "
         f"by one): bf16, B={batch}, {card}")
-    for n, c, n_calls, k_ms, e_ms, p_ms, l_ms, tflops in rows:
+    for n, c, n_calls, k_ms, e_ms, p_ms, l_ms, tflops, tbps in rows:
         say(f"[attention]   N={n:3d} C={c} x{n_calls}/fwd: kernel "
             f"{k_ms:.4f} ms "
-            f"({tflops:.1f} TFLOP/s; eager {e_ms:.4f} ms), plain {p_ms:.4f} "
+            f"({tflops:.1f} TFLOP/s of 4*N*N*C a batch element, {tbps:.3f} "
+            f"TB/s of q, k, v, o; eager {e_ms:.4f} ms), plain {p_ms:.4f} "
             f"ms, F.scaled_dot_product_attention {l_ms:.4f} ms")
     say(f"[attention]   per {net} forward at B={batch} "
         f"({sum(n for _, _, n in calls)} calls): kernel "
@@ -1453,17 +1457,21 @@ def main() -> int:
         check(all(c[name] == 0 for c in on_path.values()),
               f"a path launched {name}, which no model calls")
 
-    def row(name, route, source, replaces, basis, timed=None):
+    def row(name, route, source, replaces, basis, timed=None,
+            redesigned_in=None):
         """One kernel's line. Its numbers are those at the shapes of the
         path named by ``path`` (the first that launches it, in the order
         of ``PATHS``); ``by_path`` holds the same keys for every path that
         launches the kernel, each at that path's shapes and batch.
         ``timed`` is the line of a kernel no path launches: its own
-        phase's numbers, 0 launches, no path."""
+        phase's numbers, 0 launches, no path. ``redesigned_in`` names the
+        change that replaced the kernel's first design."""
+        more = {} if redesigned_in is None else {
+            "redesigned_in": redesigned_in}
         if timed is not None:
             return {"name": name, "route": route, "source": source,
                     "replaces": replaces, "launches": 0, "path": None,
-                    **timed, "basis": basis, "by_path": {}}
+                    **timed, "basis": basis, "by_path": {}, **more}
         per = times[name]
         by_path = {p: {"launches": on_path[p][name], "batch": b, **per[p]}
                    for p, b in PATHS.items() if p in per}
@@ -1472,7 +1480,7 @@ def main() -> int:
                 "replaces": replaces,
                 "launches": sum(c[name] for c in on_path.values()),
                 "path": path, **per[path], "basis": basis,
-                "by_path": by_path}
+                "by_path": by_path, **more}
 
     fwd = ("bf16: device ms (CUDA-graph replay) summed over the calls of "
            "one network forward at the path's batch (guided: the score "
@@ -1487,8 +1495,8 @@ def main() -> int:
     say(json.dumps({"kernels": [
         row("group_norm_act", "triton", "psld_tpu_torch/ops/group_norm.py",
             "psld_tpu/ops/group_norm.py:67", fwd),
-        row("group_norm_act_bwd", "triton",
-            "psld_tpu_torch/ops/group_norm.py",
+        row("group_norm_act_bwd", "cuda",
+            "psld_tpu_torch/csrc/group_norm_bwd.cu",
             "psld_tpu/ops/group_norm.py:125",
             "bf16: device ms summed over the calls of one network backward "
             "at the path's batch; max_abs_err is the largest |kernel - "
@@ -1496,9 +1504,9 @@ def main() -> int:
             "plain version's gn_bf16 chain (dscale sums 131,072 x 64 terms "
             "at B=128, so it is large in absolute terms); max_err_of_scale "
             "is that error over each gradient's largest magnitude, which "
-            "the phase holds under 3e-2"),
+            "the phase holds under 3e-2", redesigned_in=5),
         row("attention", "cuda", "psld_tpu_torch/csrc/attention.cu",
-            "psld_tpu/ops/attention.py:34", fwd),
+            "psld_tpu/ops/attention.py:34", fwd, redesigned_in=5),
         row("hash_dropout", "triton", "psld_tpu_torch/ops/dropout.py",
             "psld_tpu/ops/dropout.py:96",
             "bf16, rate 0.15 (the classifier trains at 0.1; the kernel "

@@ -1,0 +1,119 @@
+// Asynchronous copies and tensor-core products for the port's Hopper
+// kernels (sm_90a): cp.async from device to shared memory with a zero
+// fill and its commit groups, and the bf16 warpgroup product wgmma
+// (m64n64k16, float32 accumulators) with B, and A or not, from shared
+// memory tiles in the 128-byte swizzle.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace psld {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device to shared memory, bypassing L1; zeros where
+// ``valid`` is false (``src`` is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory matrix descriptor of a tile whose rows are 128 bytes
+// with their 16-byte pieces XOR-swizzled by (row % 8), the tile starting
+// on a 1024-byte boundary: 8-row groups 1024 bytes apart (SBO), 128-byte
+// swizzle. A K-major operand advances along K by 32 bytes a k16 step
+// inside its 128-byte rows; an MN-major one by 16 rows.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// make the generic proxy's shared-memory writes (cp.async, st.shared)
+// visible to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across a
+// wgmma fence or wait
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define PSLD_D32                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}"
+#define PSLD_D32_OPERANDS(d)                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// d (64 x 64) += A (64 x 16, K-major, shared) * B (16 x 64, K-major,
+// shared), one warpgroup
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PSLD_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : PSLD_D32_OPERANDS(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 64) += A (64 x 16, registers: a warp's 16 rows as the
+// m16n8k16 A fragment) * B (16 x 64, MN-major, shared), one warpgroup
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PSLD_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : PSLD_D32_OPERANDS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef PSLD_D32
+#undef PSLD_D32_OPERANDS
+
+// two floats as a bf16 pair, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+}  // namespace psld

@@ -3,8 +3,10 @@
 A ``psld_tpu_torch/csrc/<name>.cu`` file is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at first use,
 and loaded with ``ctypes``. A library's file name carries a hash of its
-source and of the flags, so an edited source is rebuilt and a stale
-library never loads. The build directory is ``<repo>/build/kernels``,
+source, of the local headers it includes (``#include "<name>.cuh"``
+from ``csrc/``) and of the flags, so an edited source or header is
+rebuilt and a stale library never loads. No kernel needs `libcuda` at
+link time, so nothing links beyond the CUDA runtime. The build directory is ``<repo>/build/kernels``,
 which ``.gitignore`` lists. :func:`build_all` starts one nvcc per source
 at once, so a process that needs several libraries waits for the slowest
 build only.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -40,11 +43,29 @@ def _nvcc() -> str:
                        "host with the CUDA toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(src: str, seen=None) -> list:
+    """``csrc/<src>`` and every local header it includes, transitively,
+    each once, in the order first met."""
+    seen = [] if seen is None else seen
+    if src not in seen:
+        seen.append(src)
+        with open(os.path.join(CSRC, src), "rb") as f:
+            for inc in _LOCAL_INCLUDE.findall(f.read()):
+                if os.path.exists(os.path.join(CSRC, inc.decode())):
+                    _sources(inc.decode(), seen)
+    return seen
+
+
 def _library(src: str) -> str:
-    """The path of ``csrc/<src>``'s library for the current source and
-    flags."""
-    with open(os.path.join(CSRC, src), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The path of ``csrc/<src>``'s library for the current source, its
+    local headers and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _sources(src):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(src)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 

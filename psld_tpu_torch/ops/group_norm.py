@@ -1,5 +1,5 @@
-"""GroupNorm -> activation: Triton kernels for Hopper, forward and
-backward, and their plain PyTorch versions.
+"""GroupNorm -> activation for Hopper: a Triton forward kernel, a CUDA
+C++ backward kernel, and their plain PyTorch versions.
 
 The forward replaces ``psld_tpu/ops/group_norm.py::_gn_kernel`` (launched
 by ``_pallas_gn``), the NHWC GroupNorm(G) + affine + act fused into one
@@ -9,10 +9,10 @@ the jnp chain; here it is a kernel of its own, because autograd through
 the plain chain would re-read and re-write the activation a dozen times,
 125 times a training step.
 
-What bounds it on the H100: device-memory bytes, and at the small
-flagship shapes the host's cost of a launch. There is no matrix work; per
-element it is a few FLOPs against one read for the moments, one read and
-one write for the normalize pass. The design:
+What bounds the forward on the H100: device-memory bytes, and at the
+small flagship shapes the host's cost of a launch. There is no matrix
+work; per element it is a few FLOPs against one read for the moments,
+one read and one write for the normalize pass. The design:
 
 - Grid: the TPU kernel walks one batch element per grid step, which would
   give 64 blocks for 132 SMs, and a 32x32x512 bf16 slice (1 MB) fits no
@@ -31,20 +31,23 @@ one write for the normalize pass. The design:
   the plain version follows ``group_norm_act_reference`` with its bf16
   rounding points.
 
-The backward kernel computes the exact gradient of that f32 chain. With
-``xh = (x - mean) * rstd``, ``z = xh * scale + bias``, ``y = act(z)``:
-``dz = g * act'(z)``, ``dbias = sum dz``, ``dscale = sum dz * xh``,
-``dxh = dz * scale``, ``dx = rstd * (dxh - mean_g(dxh) - xh *
-mean_g(dxh * xh))``. It is bound by bytes too (read x and g, write dx)
-and reuses the forward's geometry: one program per batch element and
-slice of whole groups, which walks its pixels three times: moments (they
-are recomputed, so the autograd Function saves x, scale and bias and
-nothing else), then the per-channel sums of dz and dz * xh, which give
-both the parameter gradients and the two group means, then dx. The
-second and third walks find the slice in L2. ``dscale`` and ``dbias`` sum
-over the batch, across programs: each program writes its (batch element,
-channel) partials into a (2, B, C) float32 buffer, and one small sum over
-B follows, so the order of that sum is fixed. A group whose variance was
+The backward is a CUDA C++ kernel, ``csrc/group_norm_bwd.cu``, which
+computes the exact gradient of that f32 chain. With ``xh = (x - mean) *
+rstd``, ``z = xh * scale + bias``, ``y = act(z)``: ``dz = g * act'(z)``,
+``dbias = sum dz``, ``dscale = sum dz * xh``, ``dxh = dz * scale``, ``dx =
+rstd * (dxh - mean_g(dxh) - xh * mean_g(dxh * xh))``. The moments are
+recomputed from x, so the autograd Function saves x, scale and bias and
+nothing else. It is bound by bytes (read x and g, write dx), and its
+design reads each of them from device memory once: a block (or a
+thread block cluster) holds one batch element's slice of whole groups in
+shared memory and runs its three passes from there (the source note
+says how). The slice, the cluster, the threads and the rows a block
+holds come from :func:`plan_backward`, on the host. ``dscale`` and
+``dbias`` sum over the batch inside the same launch: the kernel writes
+(channel, batch element) partials into a (2, C, B) float32 buffer, and
+the last block of a slice to finish, counted with integers, adds them in
+a fixed order. A per-(device, stream) buffer of those counts is zeroed
+once and left at zero by every launch. A group whose variance was
 clamped at 0 gets no gradient through the variance. Activation slopes at
 the kink follow ``jax.nn``: relu 0 at 0, leaky relu 1 at 0, elu
 ``exp(z)`` for z <= 0.
@@ -52,12 +55,14 @@ the kink follow ``jax.nn``: relu 0 at 0, leaky relu 1 at 0, elu
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 import torch.nn.functional as F
 
 from psld_tpu_torch import knobs
+from psld_tpu_torch.kernels import build
 
 _ACTS = {
     "none": lambda x: x,
@@ -96,8 +101,8 @@ _KERNEL = None
 
 
 def _kernel():
-    """Define the Triton kernels (forward, backward) at first launch:
-    ``triton`` exists only where there is a card."""
+    """Define the Triton forward kernel at first launch: ``triton``
+    exists only where there is a card."""
     global _KERNEL
     if _KERNEL is not None:
         return _KERNEL
@@ -159,99 +164,7 @@ def _kernel():
                 y = tl.where(y >= 0, y, 0.2 * y)
             tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    @triton.jit
-    def _dz(g, z, ACT: tl.constexpr):
-        # g * act'(z)
-        if ACT == 1:
-            sig = 1.0 / (1.0 + tl.exp(-z))
-            g = g * (sig * (1.0 + z * (1.0 - sig)))
-        elif ACT == 2:
-            g = tl.where(z > 0, g, 0.0)
-        elif ACT == 3:
-            g = tl.where(z > 0, g, g * tl.exp(z))
-        elif ACT == 4:
-            g = tl.where(z >= 0, g, 0.2 * g)
-        return g
-
-    @triton.jit
-    def _gn_bwd(x_ptr, g_ptr, dx_ptr, scale_ptr, bias_ptr, part_ptr, BC,
-                HW, C, n, eps,
-                CG: tl.constexpr, SLICE: tl.constexpr, ACT: tl.constexpr,
-                BLOCK_HW: tl.constexpr, BLOCK_C: tl.constexpr,
-                BLOCK_G: tl.constexpr):
-        # program (s, b) as in the forward
-        lc = tl.arange(0, BLOCK_C)
-        cmask = lc < SLICE
-        cols = tl.program_id(0) * SLICE + lc
-        b = tl.program_id(1)
-        base = b.to(tl.int64) * HW * C
-        hw_ar = tl.arange(0, BLOCK_HW)
-        # walk 1: the forward's moments
-        acc1 = tl.zeros((BLOCK_HW, BLOCK_C), tl.float32)
-        acc2 = tl.zeros((BLOCK_HW, BLOCK_C), tl.float32)
-        for r0 in range(0, HW, BLOCK_HW):
-            rows = r0 + hw_ar
-            mask = (rows[:, None] < HW) & cmask[None, :]
-            x = tl.load(x_ptr + base + rows[:, None] * C + cols[None, :],
-                        mask=mask, other=0.0).to(tl.float32)
-            acc1 += x
-            acc2 += x * x
-        s1 = tl.sum(acc1, axis=0)
-        s2 = tl.sum(acc2, axis=0)
-        sel = ((lc[None, :] // CG) == tl.arange(0, BLOCK_G)[:, None]) \
-            & cmask[None, :]
-        mean_g = tl.sum(tl.where(sel, s1[None, :], 0.0), axis=1) / n
-        raw_g = tl.sum(tl.where(sel, s2[None, :], 0.0), axis=1) / n \
-            - mean_g * mean_g
-        rstd_g = 1.0 / tl.sqrt_rn(tl.maximum(raw_g, 0.0) + eps)
-        # 0 where the variance was clamped: no gradient through it
-        live_g = tl.where(raw_g >= 0.0, 1.0, 0.0)
-        mean = tl.sum(tl.where(sel, mean_g[:, None], 0.0), axis=0)
-        rstd = tl.sum(tl.where(sel, rstd_g[:, None], 0.0), axis=0)
-        scale = tl.load(scale_ptr + cols, mask=cmask, other=0.0).to(
-            tl.float32)
-        bias = tl.load(bias_ptr + cols, mask=cmask, other=0.0).to(
-            tl.float32)
-        # walk 2: per-channel sums of dz and dz * xh
-        acc1 = tl.zeros((BLOCK_HW, BLOCK_C), tl.float32)
-        acc2 = tl.zeros((BLOCK_HW, BLOCK_C), tl.float32)
-        for r0 in range(0, HW, BLOCK_HW):
-            rows = r0 + hw_ar
-            mask = (rows[:, None] < HW) & cmask[None, :]
-            offs = base + rows[:, None] * C + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            xh = (x - mean[None, :]) * rstd[None, :]
-            dz = _dz(g, xh * scale[None, :] + bias[None, :], ACT)
-            acc1 += dz
-            acc2 += dz * xh
-        dbias = tl.sum(acc1, axis=0)
-        dscale = tl.sum(acc2, axis=0)
-        # partials (2, B, C): dscale, then dbias
-        tl.store(part_ptr + b * C + cols, dscale, mask=cmask)
-        tl.store(part_ptr + BC + b * C + cols, dbias, mask=cmask)
-        # group means of dxh and dxh * xh, back on the channels
-        m1_g = tl.sum(tl.where(sel, (dbias * scale)[None, :], 0.0),
-                      axis=1) / n
-        m2_g = tl.sum(tl.where(sel, (dscale * scale)[None, :], 0.0),
-                      axis=1) / n * live_g
-        m1 = tl.sum(tl.where(sel, m1_g[:, None], 0.0), axis=0)
-        m2 = tl.sum(tl.where(sel, m2_g[:, None], 0.0), axis=0)
-        # walk 3: dx
-        for r0 in range(0, HW, BLOCK_HW):
-            rows = r0 + hw_ar
-            mask = (rows[:, None] < HW) & cmask[None, :]
-            offs = base + rows[:, None] * C + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            xh = (x - mean[None, :]) * rstd[None, :]
-            dz = _dz(g, xh * scale[None, :] + bias[None, :], ACT)
-            dx = rstd[None, :] * (dz * scale[None, :] - m1[None, :]
-                                  - xh * m2[None, :])
-            tl.store(dx_ptr + offs, dx.to(dx_ptr.dtype.element_ty),
-                     mask=mask)
-
-    _KERNEL = (_gn_fwd, _gn_bwd)
+    _KERNEL = _gn_fwd
     return _KERNEL
 
 
@@ -278,17 +191,114 @@ def _geometry(hw: int, c: int, num_groups: int) -> dict:
                 BLOCK_C=block_c, BLOCK_G=_pow2(gpp))
 
 
+# the backward kernel's blocks (csrc/group_norm_bwd.cu): the shared
+# memory a block may have, the most blocks of a cluster
+_BWD_SMEM_MAX = 232_448
+_BWD_CLUSTERS = (1, 2, 4, 8)
+# shared memory a block aims at, so that three blocks share an SM
+_BWD_SMEM_TARGET = _BWD_SMEM_MAX // 3
+# a slice's row, at most: one 128-byte line of an NHWC row
+_BWD_ROW_BYTES = 128
+# a block of at most this many elements of x runs 128 threads, else 256
+_BWD_SMALL_TILE = 4096
+
+
+def _bwd_smem(resident: int, slice_: int, elem: int, threads: int) -> int:
+    """Bytes of shared memory of a backward block of ``threads`` threads
+    holding ``resident`` pixel rows of a ``slice_``-channel slice: x and
+    g, then float32 scratch (``smem_bytes`` in the CUDA source computes
+    the same)."""
+    rows = threads // (slice_ // 4)
+    return 2 * resident * slice_ * elem + 4 * (2 * rows * slice_
+                                               + 11 * slice_)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_backward(hw: int, c: int, num_groups: int, dtype) -> dict:
+    """The backward kernel's geometry for (H*W, C, G, dtype): ``slice``
+    channels (whole groups, a divisor of C, a multiple of 16 bytes) a
+    cluster of ``cluster`` blocks of ``threads`` threads owns, each block
+    holding ``resident`` of its pixel rows in shared memory (``smem``
+    bytes).
+
+    The smallest cluster comes first (a cluster's barriers cost more than
+    a narrower slice), then the widest slice up to one 128-byte line of a
+    row whose pixels fit in a third of an SM's shared memory; failing
+    that, the narrowest slice over the largest cluster holds what fits
+    and the kernel reads the rest of its rows from device memory. Raises
+    ValueError where no slice of whole groups is a multiple of 16
+    bytes."""
+    if c % num_groups:
+        raise ValueError(f"C={c} is no multiple of G={num_groups}")
+    elem = torch.empty((), dtype=dtype).element_size()
+    cg = c // num_groups
+    slices = [k * cg for k in range(num_groups, 0, -1)
+              if num_groups % k == 0 and k * cg * elem % 16 == 0
+              and k * cg <= 512]
+    if not slices:
+        raise ValueError(
+            f"group_norm_act_backward kernel: no slice of whole "
+            f"{cg}-channel groups of C={c} is a multiple of 16 bytes in "
+            f"{dtype}")
+
+    def plan(s, cl, resident):
+        threads = 128 if resident * s <= _BWD_SMALL_TILE else 256
+        return dict(slice=s, cluster=cl, resident=resident, threads=threads,
+                    smem=_bwd_smem(resident, s, elem, threads))
+
+    narrow = [s for s in slices if s * elem <= _BWD_ROW_BYTES] or slices[-1:]
+    for cl in _BWD_CLUSTERS:
+        rows = -(-hw // cl)
+        for s in narrow:
+            if plan(s, cl, rows)["smem"] <= _BWD_SMEM_TARGET:
+                return plan(s, cl, rows)
+    s, cl = slices[-1], _BWD_CLUSTERS[-1]
+    resident = (_BWD_SMEM_MAX - _bwd_smem(0, s, elem, 256)) // (2 * s * elem)
+    return plan(s, cl, min(-(-hw // cl), resident))
+
+
 def _launch(x, scale, bias, num_groups: int, eps: float, act: str):
     b, h, w, c = x.shape
     geo = dict(_geometry(h * w, c, num_groups))
     y = torch.empty_like(x)
-    _kernel()[0][(geo.pop("slices"), b)](
+    _kernel()[(geo.pop("slices"), b)](
         x, y, scale, bias, h * w, c, float(h * w * geo["CG"]), float(eps),
         ACT=_ACT_CODE[act], num_warps=4, **geo)
     return y
 
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_BF16 = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _bwd_lib():
+    lib = build.load("group_norm_bwd.cu")
+    fn = lib.psld_gn_bwd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [
+            ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+# the backward kernel's per-slice counts of finished batch elements, one
+# zeroed buffer per (device, stream): every launch leaves it at 0 again,
+# so a CUDA graph may replay launches that use it, on that stream
+_DONE: dict = {}
+
+
+def _done_counts(device):
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    if key not in _DONE:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "group_norm_act_backward: call it once on this stream "
+                "before capturing it into a CUDA graph")
+        _DONE[key] = torch.zeros(256, dtype=torch.int32, device=device)
+    return _DONE[key]
 
 
 def _check_kernel_args(what: str, x, scale, bias, num_groups: int) -> None:
@@ -327,7 +337,7 @@ def group_norm_act_backward(x, scale, bias, g, num_groups: int,
     batch.
 
     A CPU tensor runs :func:`group_norm_act_backward_plain`. A CUDA tensor
-    launches the Triton backward kernel
+    launches the CUDA C++ backward kernel
     (``group_norm_act_backward.launches`` counts the launches) or raises on
     what the kernel does not take."""
     if act not in _ACTS:
@@ -346,22 +356,37 @@ def group_norm_act_backward(x, scale, bias, g, num_groups: int,
         raise ValueError("group_norm_act_backward kernel: the cotangent "
                          "must be contiguous NHWC of x's shape, dtype and "
                          "device")
+    for p in (scale, bias):
+        if p.dtype not in _KERNEL_DTYPES:
+            raise ValueError("group_norm_act_backward kernel: scale and bias "
+                             "must be f32 or bf16")
+    if x.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("group_norm_act_backward kernel needs x and the "
+                         "cotangent on 16-byte boundaries")
     b, h, w, c = x.shape
-    geo = dict(_geometry(h * w, c, num_groups))
+    plan = plan_backward(h * w, c, num_groups, x.dtype)
     dx = torch.empty_like(x)
-    part = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+    if need_params:
+        part = torch.empty((2, c, b), dtype=torch.float32, device=x.device)
+        dscale = torch.empty_like(scale)
+        dbias = torch.empty_like(bias)
+        done = _done_counts(x.device)
+    lib = _bwd_lib()
     with torch.cuda.device(x.device):
-        # 8 warps hide the three walks' latency at 1,024 pixels; at 256
-        # and fewer a program's tile is too small to feed them
-        _kernel()[1][(geo.pop("slices"), b)](
-            x, g, dx, scale, bias, part, b * c, h * w, c,
-            float(h * w * geo["CG"]), float(eps), ACT=_ACT_CODE[act],
-            num_warps=8 if h * w >= 1024 else 4, **geo)
+        err = lib.psld_gn_bwd(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), scale.data_ptr(),
+            _BF16[scale.dtype], bias.data_ptr(), _BF16[bias.dtype],
+            *((part.data_ptr(), done.data_ptr(), dscale.data_ptr(),
+               dbias.data_ptr()) if need_params else (None,) * 4),
+            b, h * w, c, c // num_groups, plan["slice"], plan["cluster"],
+            plan["resident"], plan["threads"], _ACT_CODE[act], float(eps),
+            int(need_params), _BF16[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "group_norm_act_backward kernel launch")
     group_norm_act_backward.launches += 1
     if not need_params:
         return dx, None, None
-    dscale, dbias = part.sum(1)
-    return dx, dscale.to(scale.dtype), dbias.to(bias.dtype)
+    return dx, dscale, dbias
 
 
 group_norm_act_backward.launches = 0

@@ -1,7 +1,7 @@
 """Where a training step of the port's flagship goes, on one NVIDIA GPU.
 
     python3 scripts/torch_profile_train.py [--batch 128] [--steps 3]
-        [--events-only] [--no-graph]
+        [--events-only] [--no-graph] [--sample-forward 64]
 
 Builds the flagship CIFAR-10 NCSN++ of ``chip_smoke.py`` (random init from
 a seed), takes warm-up steps at the training point (bf16 compute on float32
@@ -24,6 +24,9 @@ data, then:
    replay is the device's work alone, the eager step adds the host's
    launches, and 1 - replay / eager is the device's idle share of an
    eager step.
+4. with ``--sample-forward B``: one bf16 forward of the same network at
+   batch B, as the samplers call it (no gradient), replayed from one CUDA
+   graph against the same forward called eagerly.
 
 Prints the card's name and power limit beside the numbers. Needs a CUDA
 device.
@@ -47,9 +50,10 @@ from chip_smoke import FLAGSHIP_ARGS, TRAIN_ARGS  # noqa: E402
 
 KINDS = [  # (label, substrings of the kernel's name), first match wins
     ("GroupNorm forward kernel (Triton)", ("_gn_fwd",)),
-    ("GroupNorm backward kernel (Triton)", ("_gn_bwd",)),
+    ("GroupNorm backward kernel (CUDA C++)", ("gn_bwd_kernel",)),
     ("hash dropout kernel (Triton)", ("_hash_dropout",)),
-    ("attention kernel (CUDA C++)", ("psld_attention", "attention_fwd")),
+    ("attention kernel (CUDA C++)", ("attention_bf16_kernel",
+                                     "attention_f32_kernel")),
     ("convolutions (cuDNN, incl. layout transforms)",
      ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad", "nhwc", "nchw",
       "sm90_xmma", "cutlass_cudnn")),
@@ -77,6 +81,8 @@ def main() -> int:
                     help="skip the profiler trace and the graph replay")
     ap.add_argument("--no-graph", action="store_true",
                     help="skip the graph replay")
+    ap.add_argument("--sample-forward", type=int, default=0, metavar="B",
+                    help="also replay one bf16 forward at batch B")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -231,40 +237,65 @@ def main() -> int:
     def fixed():
         return step(state, x, None, t=t, eps=eps, dropout_seeds=seeds)
 
-    def eager_ms(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fixed()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / n
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fixed()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
-        fixed()
-    graph.replay()
-    torch.cuda.synchronize()
     n = max(args.steps, 5)
-    readings = []
-    for _ in range(3):  # eager, replay, eager, replay, ...
-        e_ms = eager_ms(n)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            graph.replay()
-        torch.cuda.synchronize()
-        readings.append((e_ms, (time.perf_counter() - t0) * 1e3 / n))
-    for e_ms, r_ms in readings:
+    for e_ms, r_ms in replay_against_eager(fixed, n):
         say(f"  one step, {n} calls each: eager {e_ms:.2f} ms, replayed from "
             f"one CUDA graph {r_ms:.2f} ms, idle share of the eager step "
             f"{1 - r_ms / e_ms:.4f}")
     say(f"  finite after the replays: "
         f"{all(bool(torch.isfinite(v).all()) for v in state.params.values())}")
+    if args.sample_forward:
+        sample_forward(cfg, args.sample_forward, card, say)
     return 0
+
+
+def replay_against_eager(fn, n: int):
+    """[(eager ms, replayed ms)] of ``fn``, three readings in turns (eager,
+    replay, eager, replay, ...): ``n`` eager calls timed by the host
+    around a sync, and the same call captured once into a CUDA graph and
+    replayed ``n`` times."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    readings = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        e_ms = (time.perf_counter() - t0) * 1e3 / n
+        t0 = time.perf_counter()
+        for _ in range(n):
+            graph.replay()
+        torch.cuda.synchronize()
+        readings.append((e_ms, (time.perf_counter() - t0) * 1e3 / n))
+    return readings
+
+
+def sample_forward(cfg, batch: int, card: str, say) -> None:
+    """One bf16 forward of the flagship as the samplers call it, replayed
+    against eager."""
+    from psld_tpu_torch.eval.generate import build_score_model, make_score_fn
+
+    net = build_score_model(cfg).eval().cuda()
+    score = make_score_fn(net, bf16=True)
+    z = torch.randn(batch, 32, 32, 6, device="cuda")
+    t = torch.full((batch,), 0.5, device="cuda")
+    with torch.inference_mode():
+        readings = replay_against_eager(lambda: score(z, t), 10)
+    say(f"sampling forward at batch {batch}, bf16; {card}")
+    for e_ms, r_ms in readings:
+        say(f"  one forward, 10 calls each: eager {e_ms:.2f} ms, replayed "
+            f"from one CUDA graph {r_ms:.2f} ms, idle share of the eager "
+            f"forward {1 - r_ms / e_ms:.4f}")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,10 @@ pixel tiles, widths that are not powers of two (C=320 is the AFHQ width),
 one group per program, N and C at their limits, odd sizes and offsets for
 the dropout hash, finite differences for the GroupNorm backward, the
 guidance classifier's shapes (GroupNorm at H*W = 16, attention over N =
-16 tokens) and a gradient into the input alone, rows and channels of the
+16 tokens) and a gradient into the input alone, attention at token
+counts that fill no key tile and widths that are no multiple of 16, the
+GroupNorm backward over a cluster of blocks at H*W = 1024, one capture
+and replay of each redesigned kernel in a CUDA graph, rows and channels of the
 fused bias + leaky ReLU that fit no vector width, and the inputs the
 wrappers refuse. They need a
 CUDA device (the CUDA source is built for sm_90a) and skip without one:
@@ -96,6 +99,21 @@ def test_attention_kernel_matches_plain(card, shape, dtype):
     assert_close(got, ops.attention_plain(q, k, v, scale), TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("c", [8, 24, 136, 320, 512])
+@pytest.mark.parametrize("n", [1, 16, 65, 100, 255, 256])
+def test_attention_kernel_ragged_tokens_and_widths(card, n, c, dtype):
+    """Token counts that fill no key tile (keys past N must score -inf,
+    not 0) and widths that are no multiple of 16 (zero channels pad the
+    tensor-core k-steps)."""
+    shape = (2, n, c)
+    q, k, v = (rand(shape, s, dtype, card, scale=2.0) for s in (6, 7, 8))
+    scale = float(c) ** -0.5
+    got = ops.attention(q, k, v, scale)
+    assert got.dtype == dtype and got.shape == shape
+    assert_close(got, ops.attention_plain(q, k, v, scale), TOL[dtype])
+
+
 def test_attention_kernel_refuses_what_it_does_not_take(card):
     def qkv(shape, dtype=torch.float32):
         return [rand(shape, 0, dtype, card)] * 3
@@ -116,6 +134,8 @@ GN_BWD_SHAPES = [
     ((1, 8, 8, 256), 32),    # B=1, H*W=64
     ((2, 3, 3, 1024), 32),   # one 32-channel group per program
     ((1, 1, 1, 64), 16),     # a single pixel: every variance is 0
+    ((2, 32, 32, 256), 32),  # H*W = 1024 over a cluster of blocks
+    ((2, 32, 32, 320), 32),  # the AFHQ width at H*W = 1024
 ]
 
 
@@ -147,6 +167,64 @@ def test_group_norm_act_backward_kernel_matches_plain(card, shape, groups,
             ref = float(w.float().abs().max()) + 1e-6
             err = float((a.float() - w.float()).abs().max())
             assert err <= tol * ref, (act, err, ref)
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
+def test_group_norm_act_backward_kernel_input_gradient_alone(card, dtype):
+    """need_params=False (classifier guidance) gives dx alone, equal to
+    the full call's dx."""
+    shape = (3, 32, 32, 128)
+    x = rand(shape, 0, dtype, card, scale=2.0, shift=0.5)
+    g = rand(shape, 3, dtype, card)
+    scale = rand((128,), 1, dtype, card, 0.1, 1.0)
+    bias = rand((128,), 2, dtype, card, 0.1)
+    n = ops.group_norm_act_backward.launches
+    dx, ds, db = ops.group_norm_act_backward(x, scale, bias, g, 32, 1e-6,
+                                             "swish", need_params=False)
+    assert ops.group_norm_act_backward.launches == n + 1
+    assert ds is None and db is None
+    full = ops.group_norm_act_backward(x, scale, bias, g, 32, 1e-6, "swish")
+    want = ops.group_norm_act_backward_plain(x, scale, bias, g, 32, 1e-6,
+                                             "swish")
+    torch.cuda.synchronize()
+    assert torch.equal(dx, full[0])
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    ref = float(want[0].float().abs().max())
+    assert float((dx.float() - want[0].float()).abs().max()) <= tol * ref
+
+
+def _graph_replay(fn):
+    """fn()'s outputs from one capture into a CUDA graph and a replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # builds and loads outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def test_attention_kernel_replays_from_a_cuda_graph(card):
+    q, k, v = (rand((4, 256, 256), s, torch.bfloat16, card) for s in (0, 1, 2))
+    got = _graph_replay(lambda: ops.attention(q, k, v, 0.0625))
+    assert torch.equal(got, ops.attention(q, k, v, 0.0625))
+
+
+def test_group_norm_act_backward_kernel_replays_from_a_cuda_graph(card):
+    shape = (4, 32, 32, 256)
+    x = rand(shape, 0, torch.bfloat16, card, 2.0, 0.5)
+    g = rand(shape, 1, torch.bfloat16, card)
+    scale = rand((256,), 2, torch.bfloat16, card, 0.1, 1.0)
+    bias = rand((256,), 3, torch.bfloat16, card, 0.1)
+    got = _graph_replay(lambda: ops.group_norm_act_backward(
+        x, scale, bias, g, 32, 1e-6, "swish"))
+    want = ops.group_norm_act_backward(x, scale, bias, g, 32, 1e-6, "swish")
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
 
 
 def test_group_norm_act_autograd_goes_through_both_kernels(card):
