@@ -1,8 +1,8 @@
 // Asynchronous copies and tensor-core products for the port's Hopper
 // kernels (sm_90a): cp.async from device to shared memory with a zero
-// fill and its commit groups, and the bf16 warpgroup product wgmma
+// fill and its commit groups, the bf16 warpgroup product wgmma
 // (m64n64k16, float32 accumulators) with B, and A or not, from shared
-// memory tiles in the 128-byte swizzle.
+// memory tiles in the 128-byte swizzle, and bf16 pair arithmetic.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -109,6 +109,34 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
 
 #undef PSLD_D32
 #undef PSLD_D32_OPERANDS
+
+// bf16 pairs (two bf16 in 32 bits): a + b, a - b, a * b, each rounded
+// once to nearest even, as a bf16 operation computed in f32 and rounded
+// is; the .rn modifier keeps ptxas from contracting a product and a sum
+// into one fma
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// a bf16 pair as two floats, the low half first
+__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
+  return make_float2(__uint_as_float(w << 16),
+                     __uint_as_float(w & 0xFFFF0000u));
+}
 
 // two floats as a bf16 pair, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

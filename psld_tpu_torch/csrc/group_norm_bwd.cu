@@ -9,7 +9,31 @@
 // in f32, with the moments recomputed from x (single pass, variance
 // clamped at 0, rsqrt(var + eps)); a group whose variance was clamped
 // gets no gradient through the variance. Activation slopes at the kink
-// follow jax.nn: relu 0 at 0, leaky relu 1 at 0, elu exp(z) for z <= 0.
+// follow PyTorch's, as autograd through the port's plain version takes
+// them: relu 0 and leaky relu 0.2 at z = 0 (jax.nn's leaky relu takes 1
+// there; under gn_bf16, where z is a bf16 value, some 2e-4 of the
+// elements of a normal input land exactly on 0), elu exp(z) for z <= 0.
+//
+// Under gn_bf16 with bf16 x (CHAIN) it is the gradient of the forward's
+// bf16 chain, as psld_tpu's _gn_bwd pulls back through
+// group_norm_act_reference: with mb, rb, sb, bb the bf16 roundings of
+// mean, rstd, scale and bias, d = bf16(x - mb), xh = bf16(d * rb), z =
+// bf16(bf16(xh * sb) + bb), and act'(z) of that z. The cotangents are
+// rounded to bf16 where autograd through the port's plain chain rounds
+// them: dz = bf16(g * act'(z)), each term bf16(dz * xh) of dscale, dxh =
+// bf16(dz * sb), dd = bf16(dxh * rb), the group sums -sum(dd) (of mb) and
+// sum(dxh * d) (of rb), dscale and dbias, the f32 pull-back through the
+// moments, A + B * x with A = (-sum(dd) - 2 mean dvar) / n, B = 2 dvar /
+// n, dvar = -rstd^3 sum(dxh * d) / 2, and dx = bf16(dd + bf16(A + B * x)).
+// Kept in f32: the two group sums themselves, taken as rb * sum(dz * sb)
+// and sum(dz * xh * sb) / rb from the per-channel sums the f32 chain
+// already has (each term of the plain version's sums is rounded to bf16
+// first; its error, 2^-9 of a term, is not carried), and the slopes, from
+// the special-function unit's exponential as in the f32 chain. The chain
+// runs in bf16 pair arithmetic (one rounding of each exact result, as
+// PyTorch's f32-then-round gives); ptxas (sm_90a, nvcc 12.8) gives its
+// instantiations 80 registers, as the f32 chain's, no spills: the same
+// three blocks of 256 threads an SM and the same plan.
 //
 // What bounds it on the H100: device-memory bytes. Per element it is ~30
 // f32 operations against one read of x, one of g and one write of dx; at
@@ -99,6 +123,10 @@ struct Piece<__nv_bfloat16> {
   }
 };
 
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // g * act'(z); 0 none, 1 swish, 2 relu, 3 elu, 4 leaky relu (0.2). The
 // exponential and the reciprocal take the special-function unit's
 // approximations (2 ulp), as the Triton kernel before this one did:
@@ -113,9 +141,25 @@ __device__ __forceinline__ float dz_of(float g, float z) {
   } else if (ACT == 3) {
     return z > 0.f ? g : g * __expf(z);
   } else if (ACT == 4) {
-    return z >= 0.f ? g : 0.2f * g;
+    return z > 0.f ? g : 0.2f * g;
   }
   return g;
+}
+
+// the bf16 chain of a pair of channels in bf16 pair arithmetic, each
+// operation rounded once as PyTorch's bf16 operations are: xh =
+// bf16(bf16(x - mb) * rb), z = bf16(bf16(xh * sb) + bb), dz = bf16(g *
+// act'(z))
+template <int ACT>
+__device__ __forceinline__ void chain_pair(uint32_t x, uint32_t g,
+                                           uint32_t mu, uint32_t rs,
+                                           uint32_t sc, uint32_t bi,
+                                           uint32_t& xh, uint32_t& dz) {
+  xh = psld::mul_bf16x2(psld::sub_bf16x2(x, mu), rs);
+  const float2 z =
+      psld::unpack_bf16(psld::add_bf16x2(psld::mul_bf16x2(xh, sc), bi));
+  const float2 gf = psld::unpack_bf16(g);
+  dz = psld::pack_bf16(dz_of<ACT>(gf.x, z.x), dz_of<ACT>(gf.y, z.y));
 }
 
 __device__ __forceinline__ float load_param(const void* p, int bf16, int i) {
@@ -134,7 +178,7 @@ __host__ __device__ constexpr size_t smem_bytes(int res, int s, int elem,
 
 // block (cluster q of slice q / batch b = blockIdx.y, rank r): the r-th
 // run of the pixels of batch element b's slice; NT threads
-template <typename T, int ACT, int NT>
+template <typename T, int ACT, bool CHAIN, int NT>
 __global__ void __launch_bounds__(NT, 768 / NT)
 gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
               T* __restrict__ dx, const void* __restrict__ scale,
@@ -187,22 +231,25 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
     psld::cp_async_commit();
   }
   for (int i = tid; i < s; i += NT) {
-    prm[i] = load_param(scale, scale_bf16, s0 + i);
-    prm[s + i] = load_param(bias, bias_bf16, s0 + i);
+    const float sc = load_param(scale, scale_bf16, s0 + i);
+    const float bi = load_param(bias, bias_bf16, s0 + i);
+    prm[i] = CHAIN ? bf16r(sc) : sc;
+    prm[s + i] = CHAIN ? bf16r(bi) : bi;
   }
 
   // row ``row``'s piece of a tensor: a resident row from shared memory,
   // the others (only where a run outgrows shared memory) from device
   // memory
+  auto word = [&](const T* sm, const T* gm, int row, auto resident) {
+    if constexpr (decltype(resident)::value)
+      return *reinterpret_cast<const Word*>(sm + (size_t)row * s + j * V);
+    else
+      return __ldg(
+          reinterpret_cast<const Word*>(gm + (size_t)row * c + j * V));
+  };
   auto piece = [&](const T* sm, const T* gm, int row, float* f,
                    auto resident) {
-    if constexpr (decltype(resident)::value)
-      Piece<T>::unpack(
-          *reinterpret_cast<const Word*>(sm + (size_t)row * s + j * V), f);
-    else
-      Piece<T>::unpack(
-          __ldg(reinterpret_cast<const Word*>(gm + (size_t)row * c + j * V)),
-          f);
+    Piece<T>::unpack(word(sm, gm, row, resident), f);
   };
   // body(row, resident) over this thread's rows: the resident ones, then
   // the rest, each loop free of the other's test
@@ -282,9 +329,17 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
       m1 += tot[q];
       m2 += tot[s + q];
     }
-    const float mean = m1 / n, raw = m2 / n - mean * mean;
+    // the moments as the forward kernel takes them (a sum times 1 / n,
+    // as PyTorch's mean), so the bf16 chain rounds the same mean and rstd
+    const float inv_n = 1.f / n;
+    const float mean = CHAIN ? m1 * inv_n : m1 / n;
+    const float raw =
+        CHAIN ? __fsub_rn(m2 * inv_n, __fmul_rn(mean, mean))
+              : m2 / n - mean * mean;
     prm[2 * s + i] = mean;
-    prm[3 * s + i] = 1.f / sqrtf(fmaxf(raw, 0.f) + eps);
+    // the bf16 chain's rstd as the forward and the plain version take it
+    prm[3 * s + i] = CHAIN ? rsqrtf(fmaxf(raw, 0.f) + eps)
+                           : 1.f / sqrtf(fmaxf(raw, 0.f) + eps);
     prm[4 * s + i] = raw >= 0.f ? 1.f : 0.f;
   }
   psld::cp_async_wait<0>();
@@ -296,19 +351,49 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
     const int ch = j * V + v;
     sc[v] = prm[ch]; bi[v] = prm[s + ch];
     mu[v] = prm[2 * s + ch]; rs[v] = prm[3 * s + ch];
+    if (CHAIN) {
+      mu[v] = bf16r(mu[v]);
+      rs[v] = bf16r(rs[v]);
+    }
     a1[v] = a2[v] = 0.f;
   }
-
-  // ---- pass 2: sums of dz and dz * xh
-  walk([&](int row, auto resident) {
-    piece(xs, xb, row, f, resident);
-    piece(gs, gb, row, h, resident);
+  // the bf16 chain's operands as pairs (bf16 values already: the
+  // conversions are exact)
+  uint32_t mu2[2], rs2[2], sc2[2], bi2[2];
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const float xh = (f[v] - mu[v]) * rs[v];
-      const float dz = dz_of<ACT>(h[v], xh * sc[v] + bi[v]);
-      a1[v] += dz;
-      a2[v] += dz * xh;
+  for (int p = 0; p < 2; ++p) {
+    mu2[p] = psld::pack_bf16(mu[2 * p], mu[2 * p + 1]);
+    rs2[p] = psld::pack_bf16(rs[2 * p], rs[2 * p + 1]);
+    sc2[p] = psld::pack_bf16(sc[2 * p], sc[2 * p + 1]);
+    bi2[p] = psld::pack_bf16(bi[2 * p], bi[2 * p + 1]);
+  }
+
+  // ---- pass 2: sums of dz and dz * xh (under CHAIN, of bf16(dz * xh))
+  walk([&](int row, auto resident) {
+    if constexpr (CHAIN) {
+      const Word xw = word(xs, xb, row, resident);
+      const Word gw = word(gs, gb, row, resident);
+      const uint32_t xp[2] = {xw.x, xw.y}, gp[2] = {gw.x, gw.y};
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t xh, dz;
+        chain_pair<ACT>(xp[p], gp[p], mu2[p], rs2[p], sc2[p], bi2[p], xh,
+                        dz);
+        const float2 d = psld::unpack_bf16(dz);
+        const float2 e = psld::unpack_bf16(psld::mul_bf16x2(dz, xh));
+        a1[2 * p] += d.x; a1[2 * p + 1] += d.y;
+        a2[2 * p] += e.x; a2[2 * p + 1] += e.y;
+      }
+    } else {
+      piece(xs, xb, row, f, resident);
+      piece(gs, gb, row, h, resident);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float xh = (f[v] - mu[v]) * rs[v];
+        const float dz = dz_of<ACT>(h[v], xh * sc[v] + bi[v]);
+        a1[v] += dz;
+        a2[v] += dz * xh;
+      }
     }
   });
   block_sums(a1, a2, xch2);  // red is free: cluster_sums synchronised
@@ -327,7 +412,8 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
     }
   }
   // group means of dz * scale and dz * scale * xh, on the channels, into
-  // xch1 (no peer reads it past the last barrier)
+  // xch1 (no peer reads it past the last barrier); under CHAIN the
+  // pull-back's A and B
   for (int i = tid; i < s; i += NT) {
     const int g0 = i / cgrp * cgrp;
     float m1 = 0.f, m2 = 0.f;
@@ -335,8 +421,18 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
       m1 += tot[q] * prm[q];
       m2 += tot[s + q] * prm[q];
     }
-    xch1[i] = m1 / n;
-    xch1[s + i] = m2 / n * prm[4 * s + i];
+    if (CHAIN) {
+      const float mean = prm[2 * s + i], rstd = prm[3 * s + i];
+      const float rb = bf16r(rstd);
+      const float sum_dd = bf16r(rb * m1), sum_dxh_d = bf16r(m2 / rb);
+      const float dvar =
+          -0.5f * sum_dxh_d * rstd * rstd * rstd * prm[4 * s + i];
+      xch1[i] = (-sum_dd - 2.f * mean * dvar) / n;
+      xch1[s + i] = 2.f * dvar / n;
+    } else {
+      xch1[i] = m1 / n;
+      xch1[s + i] = m2 / n * prm[4 * s + i];
+    }
   }
   __syncthreads();  // also orders the partials before the fence below
   int* last = reinterpret_cast<int*>(red);  // free after block_sums
@@ -353,17 +449,40 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
 
   // ---- pass 3: dx
   walk([&](int row, auto resident) {
-    piece(xs, xb, row, f, resident);
-    piece(gs, gb, row, h, resident);
-    float o[V];
+    Word out;
+    if constexpr (CHAIN) {
+      // dx = bf16(dd + bf16(A + B * x)), dd = bf16(bf16(dz * sb) * rb)
+      const Word xw = word(xs, xb, row, resident);
+      const Word gw = word(gs, gb, row, resident);
+      const uint32_t xp[2] = {xw.x, xw.y}, gp[2] = {gw.x, gw.y};
+      uint32_t o[2];
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const float xh = (f[v] - mu[v]) * rs[v];
-      const float dz = dz_of<ACT>(h[v], xh * sc[v] + bi[v]);
-      o[v] = rs[v] * (dz * sc[v] - m1c[v] - xh * m2c[v]);
+      for (int p = 0; p < 2; ++p) {
+        uint32_t xh, dz;
+        chain_pair<ACT>(xp[p], gp[p], mu2[p], rs2[p], sc2[p], bi2[p], xh,
+                        dz);
+        const uint32_t dd =
+            psld::mul_bf16x2(psld::mul_bf16x2(dz, sc2[p]), rs2[p]);
+        const float2 xf = psld::unpack_bf16(xp[p]);
+        o[p] = psld::add_bf16x2(
+            dd, psld::pack_bf16(fmaf(m2c[2 * p], xf.x, m1c[2 * p]),
+                                fmaf(m2c[2 * p + 1], xf.y, m1c[2 * p + 1])));
+      }
+      out.x = o[0];
+      out.y = o[1];
+    } else {
+      piece(xs, xb, row, f, resident);
+      piece(gs, gb, row, h, resident);
+      float o[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float xh = (f[v] - mu[v]) * rs[v];
+        const float dz = dz_of<ACT>(h[v], xh * sc[v] + bi[v]);
+        o[v] = rs[v] * (dz * sc[v] - m1c[v] - xh * m2c[v]);
+      }
+      out = Piece<T>::pack(o);
     }
-    *reinterpret_cast<Word*>(db + (size_t)row * c + j * V) =
-        Piece<T>::pack(o);
+    *reinterpret_cast<Word*>(db + (size_t)row * c + j * V) = out;
   });
   if (counts) {
     __syncthreads();
@@ -408,8 +527,8 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
           void* out = o < s ? dscale : dbias;
           if (o < s ? scale_bf16 : bias_bf16)
             static_cast<__nv_bfloat16*>(out)[ch] = __float2bfloat16_rn(acc);
-          else
-            static_cast<float*>(out)[ch] = acc;
+          else  // under CHAIN autograd rounds the sum to bf16 first
+            static_cast<float*>(out)[ch] = CHAIN ? bf16r(acc) : acc;
         }
       }
       if (tid == 0) done[s0 / s] = 0;
@@ -419,13 +538,13 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
   if (ncl > 1) cluster.sync();
 }
 
-template <typename T, int ACT, int NT>
+template <typename T, int ACT, bool CHAIN, int NT>
 int launch(const void* x, const void* g, void* dx, const void* scale,
            int scale_bf16, const void* bias, int bias_bf16, float* part,
            int* done, void* dscale, void* dbias, int b, int hw, int c,
            int cgrp, int s, int cl, int res, float eps, int need_params,
            cudaStream_t stream) {
-  auto kernel = gn_bwd_kernel<T, ACT, NT>;
+  auto kernel = gn_bwd_kernel<T, ACT, CHAIN, NT>;
   const size_t smem = smem_bytes(res, s, sizeof(T), NT);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -453,14 +572,14 @@ int launch(const void* x, const void* g, void* dx, const void* scale,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NT, typename... Args>
+template <typename T, bool CHAIN, int NT, typename... Args>
 int dispatch(int act, Args... args) {
   switch (act) {
-    case 0: return launch<T, 0, NT>(args...);
-    case 1: return launch<T, 1, NT>(args...);
-    case 2: return launch<T, 2, NT>(args...);
-    case 3: return launch<T, 3, NT>(args...);
-    case 4: return launch<T, 4, NT>(args...);
+    case 0: return launch<T, 0, CHAIN, NT>(args...);
+    case 1: return launch<T, 1, CHAIN, NT>(args...);
+    case 2: return launch<T, 2, CHAIN, NT>(args...);
+    case 3: return launch<T, 3, CHAIN, NT>(args...);
+    case 4: return launch<T, 4, CHAIN, NT>(args...);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -474,17 +593,19 @@ extern "C" {
 // the (2, C, B) f32 partials buffer ``part`` and the per-slice counts
 // ``done`` (C / slice ints, 0 before a launch and after it).
 // dtype: 0 = float32, 1 = bfloat16 (x, g, dx); scale_bf16 / bias_bf16:
-// the parameters' type. slice (channels, whole groups), cluster (blocks
-// of one slice), resident (pixel rows a block stages) and threads (128 or
-// 256, a block) come from the host planner. Returns a cudaError_t.
+// the parameters' type; chain: 1 = the gradient of the gn_bf16 chain
+// (bfloat16 only). slice (channels, whole groups), cluster (blocks of one
+// slice), resident (pixel rows a block stages) and threads (128 or 256, a
+// block) come from the host planner. Returns a cudaError_t.
 int psld_gn_bwd(const void* x, const void* g, void* dx, const void* scale,
                 int scale_bf16, const void* bias, int bias_bf16, void* part,
                 void* done, void* dscale, void* dbias, int b, int hw, int c,
                 int cgrp, int slice, int cluster, int resident, int threads,
-                int act, float eps, int need_params, int dtype,
+                int act, int chain, float eps, int need_params, int dtype,
                 void* stream) {
   const int elem = dtype == 1 ? 2 : 4;
-  if ((dtype != 0 && dtype != 1) || (threads != 128 && threads != 256) ||
+  if ((dtype != 0 && dtype != 1) || (chain && dtype != 1) ||
+      (threads != 128 && threads != 256) ||
       b < 1 || b > 65535 || hw < 1 || cgrp < 1 || slice < cgrp ||
       slice % cgrp || c % slice || (slice * elem) % 16 ||
       slice > 4 * threads || cluster < 1 || cluster > MAX_CLUSTER ||
@@ -495,26 +616,18 @@ int psld_gn_bwd(const void* x, const void* g, void* dx, const void* scale,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pt = static_cast<float*>(part);
   int* dn = static_cast<int*>(done);
-  if (dtype == 0 && threads == 128)
-    return dispatch<float, 128>(act, x, g, dx, scale, scale_bf16, bias,
-                                bias_bf16, pt, dn, dscale, dbias, b, hw, c,
-                                cgrp, slice, cluster, resident, eps,
-                                need_params, st);
-  if (dtype == 0)
-    return dispatch<float, 256>(act, x, g, dx, scale, scale_bf16, bias,
-                                bias_bf16, pt, dn, dscale, dbias, b, hw, c,
-                                cgrp, slice, cluster, resident, eps,
-                                need_params, st);
-  if (threads == 128)
-    return dispatch<__nv_bfloat16, 128>(act, x, g, dx, scale, scale_bf16,
-                                        bias, bias_bf16, pt, dn, dscale,
-                                        dbias, b, hw, c, cgrp, slice,
-                                        cluster, resident, eps, need_params,
-                                        st);
-  return dispatch<__nv_bfloat16, 256>(act, x, g, dx, scale, scale_bf16, bias,
-                                      bias_bf16, pt, dn, dscale, dbias, b,
-                                      hw, c, cgrp, slice, cluster, resident,
-                                      eps, need_params, st);
+#define PSLD_LAUNCH(T, CH, NT)                                              \
+  return dispatch<T, CH, NT>(act, x, g, dx, scale, scale_bf16, bias,        \
+                             bias_bf16, pt, dn, dscale, dbias, b, hw, c,    \
+                             cgrp, slice, cluster, resident, eps,           \
+                             need_params, st)
+  if (dtype == 0 && threads == 128) PSLD_LAUNCH(float, false, 128);
+  if (dtype == 0) PSLD_LAUNCH(float, false, 256);
+  if (chain && threads == 128) PSLD_LAUNCH(__nv_bfloat16, true, 128);
+  if (chain) PSLD_LAUNCH(__nv_bfloat16, true, 256);
+  if (threads == 128) PSLD_LAUNCH(__nv_bfloat16, false, 128);
+  PSLD_LAUNCH(__nv_bfloat16, false, 256);
+#undef PSLD_LAUNCH
 }
 
 const char* psld_cuda_error_string(int err) {

@@ -1,0 +1,641 @@
+// GroupNorm + activation, forward, for Hopper (sm_90a).
+//
+// Replaces psld_tpu/ops/group_norm.py::_gn_kernel (launched by _pallas_gn):
+// NHWC GroupNorm(G) + affine + act, y = act((x - mean) * rstd * scale +
+// bias), with single-pass f32 moments, the variance clamped at 0 and
+// rsqrt(var + eps); mean as the sum times 1 / n, as PyTorch's mean takes
+// it. Two chains:
+//   - the f32 chain (the TPU kernel's): everything in f32, one rounding to
+//     the output dtype;
+//   - under gn_bf16 with bf16 x (CHAIN), the chain of the port's plain
+//     version and of psld_tpu's group_norm_act_reference: mean and rstd
+//     rounded to bf16, then (x - mean), * rstd, * scale, + bias each
+//     rounded to bf16 (bf16 pair arithmetic, one rounding of the exact
+//     result, as PyTorch's bf16 operations computed in f32 give), then the
+//     activation in f32, rounded once. Sums in another order can move a
+//     group's mean or rstd across a bf16 rounding boundary, so a group may
+//     differ from the plain version by one bf16 step (none did at the
+//     smoke's shapes).
+// The host reads the knob at every call and passes the chain as a flag.
+//
+// What bounds it on the H100: device-memory bytes. Per element it is ~12
+// f32 operations against one read of x and one write of y; at (64, 32,
+// 32, 256) bf16 that is 67 MB, 20 us at 3.35 TB/s.
+//
+// Design: every byte of x is read from device memory once and y is
+// written once. A block of 128 or 256 threads (a cluster of 1 to 8 such
+// blocks where one block's third of an SM's shared memory cannot hold the
+// pixels) owns one work item: one batch element's slice of S channels,
+// whole groups, S * sizeof(T) a multiple of 16 bytes and at most one
+// 128-byte line of an NHWC row where a slice of whole groups allows. The
+// host planner (ops/group_norm.py::plan_forward) picks S, the cluster,
+// the threads and the resident rows from (H*W, C, G, dtype, batch): three
+// blocks share an SM, slices a multiple of 32 bytes (whole sectors) come
+// first, and 64-byte slices where 128-byte ones would leave fewer than
+// 512 work items. A thread owns one 16-byte piece of the row (8 bf16 or 4
+// f32 channels) and the rows r, r + R, ... of its run: it stages exactly
+// the pieces it will reduce and normalize with 16-byte cp.async in four
+// commit groups, and adds the f32 sums of x and x^2 of each group as soon
+// as it has landed, while the later ones are still in flight. A thread
+// reads back only what it copied, so the staging needs no barrier. The
+// sums are folded over the rows of a warp with shuffles, over the warps
+// of the block in shared memory, over the blocks of a cluster through
+// distributed shared memory in rank order (so the result is
+// deterministic), then into groups. The normalize pass reads the pieces
+// back from shared memory and writes y with 16-byte stores. Where a run
+// is longer than shared memory holds (H*W of 16,384 and more at some
+// widths), the rows past the resident ones are read from device memory in
+// both passes.
+//
+// Maps of up to 64 pixels take gn_fwd_warp_kernel instead: a warp owns a
+// work item and holds its pieces in registers, so its chain of loads,
+// sums and stores has no barrier; at these shapes the chain is latency,
+// not bytes.
+//
+// Tried on the card and dropped (PERF.md, section 6): blocks that
+// walk several work items with a second buffer (a fifth to a half
+// slower), holding part of a run and re-reading the rest (slower at
+// every share), clusters splitting a 1024-pixel run (slower than a block
+// alone), unrolling the row loops 1 to 4 times (within 3%).
+//
+// What holds it back (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's [gn]
+// rows): at H*W = 1024 a launch is 1.3 waves of three blocks an SM, and
+// a block stages, reduces, then writes, so the first wave loads, then
+// stores, with little overlap between the two: 60-79% of the bytes bound
+// there. At H*W of 256 and below every block runs at once and the chain
+// of one block's loads, barriers and stores is the time.
+//
+// ptxas (sm_90a, nvcc 12.8): the block kernels 56-72 registers, the warp
+// kernel 64-117, no spills, no stack. Shared memory is dynamic, the run
+// plus 4 * (2 * NT / 32 * S + 8 * S) bytes: 68,608 for 1024 pixels of 32
+// bf16 channels in 256 threads, so three blocks share an SM.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "async_copy.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int MAX_SMEM = 232448;   // shared memory a block may have
+constexpr int MAX_CLUSTER = 8;     // portable cluster size
+constexpr int CHUNKS = 4;          // commit groups of a thread's staging
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// 16 bytes of T as N floats, and back
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(const uint4& u, float* f) {
+    f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+  }
+  __device__ static uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(const uint4& u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  __device__ static uint4 pack(const float* f) {
+    return make_uint4(psld::pack_bf16(f[0], f[1]), psld::pack_bf16(f[2], f[3]),
+                      psld::pack_bf16(f[4], f[5]), psld::pack_bf16(f[6], f[7]));
+  }
+};
+
+// 0 none, 1 swish, 2 relu, 3 elu, 4 leaky relu (0.2), in f32 as PyTorch's
+// CUDA kernels compute them, except that swish takes the special-function
+// unit's exponential and reciprocal (2 ulp): the exact ones would cost
+// more instructions than the rest of the element's work, and an error of
+// a few f32 ulp moves a bf16 rounding only rarely
+template <int ACT>
+__device__ __forceinline__ float act_of(float z) {
+  if (ACT == 1) return __fdividef(z, 1.f + __expf(-z));
+  if (ACT == 2) return z > 0.f ? z : 0.f;
+  if (ACT == 3) return z > 0.f ? z : expm1f(z);
+  if (ACT == 4) return z > 0.f ? z : z * 0.2f;
+  return z;
+}
+
+__device__ __forceinline__ float load_param(const void* p, int bf16, int i) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+              : static_cast<const float*>(p)[i];
+}
+
+// the gn_bf16 chain on a pair of channels in bf16 pair arithmetic, each
+// operation rounded once as PyTorch's bf16 operations (computed in f32,
+// rounded to bf16) are; then the activation in f32, rounded once
+template <int ACT>
+__device__ __forceinline__ uint32_t chain_pair(uint32_t x, uint32_t mu,
+                                               uint32_t rs, uint32_t sc,
+                                               uint32_t bi) {
+  const uint32_t z = psld::add_bf16x2(
+      psld::mul_bf16x2(psld::mul_bf16x2(psld::sub_bf16x2(x, mu), rs), sc),
+      bi);
+  if (ACT == 0) return z;
+  const float2 f = psld::unpack_bf16(z);
+  return psld::pack_bf16(act_of<ACT>(f.x), act_of<ACT>(f.y));
+}
+
+// normalize + affine + act of one 16-byte piece (NV channels of T) from
+// the channels' f32 scale, bias, mean and rstd (bf16 values already under
+// CHAIN): the f32 chain as one fma a channel, z = x * (rstd * scale) +
+// (bias - mean * rstd * scale); the bf16 chain in bf16 pairs
+template <typename T, bool CHAIN>
+struct Affine {
+  static constexpr int NV = Vec<T>::N;
+  float ka[NV], kb[NV];
+  uint32_t mu[NV / 2], rs[NV / 2], sc[NV / 2], bi[NV / 2];
+
+  __device__ Affine(const float* scale, const float* bias, const float* mean,
+                    const float* rstd) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      ka[v] = rstd[v] * scale[v];
+      kb[v] = bias[v] - mean[v] * ka[v];
+    }
+#pragma unroll
+    for (int p = 0; p < NV / 2; ++p) {
+      // the conversions are exact under CHAIN
+      sc[p] = psld::pack_bf16(scale[2 * p], scale[2 * p + 1]);
+      bi[p] = psld::pack_bf16(bias[2 * p], bias[2 * p + 1]);
+      mu[p] = psld::pack_bf16(mean[2 * p], mean[2 * p + 1]);
+      rs[p] = psld::pack_bf16(rstd[2 * p], rstd[2 * p + 1]);
+    }
+  }
+
+  template <int ACT>
+  __device__ uint4 apply(const uint4& u) const {
+    if constexpr (CHAIN) {
+      return make_uint4(chain_pair<ACT>(u.x, mu[0], rs[0], sc[0], bi[0]),
+                        chain_pair<ACT>(u.y, mu[1], rs[1], sc[1], bi[1]),
+                        chain_pair<ACT>(u.z, mu[2], rs[2], sc[2], bi[2]),
+                        chain_pair<ACT>(u.w, mu[3], rs[3], sc[3], bi[3]));
+    } else {
+      float f[NV], o[NV];
+      Vec<T>::unpack(u, f);
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        o[v] = act_of<ACT>(fmaf(f[v], ka[v], kb[v]));
+      return Vec<T>::pack(o);
+    }
+  }
+};
+
+// wait until at most n (< CHUNKS) of this thread's commit groups are in
+// flight
+__device__ __forceinline__ void wait_groups(int n) {
+  switch (n) {
+    case 0: psld::cp_async_wait<0>(); break;
+    case 1: psld::cp_async_wait<1>(); break;
+    case 2: psld::cp_async_wait<2>(); break;
+    default: psld::cp_async_wait<3>(); break;
+  }
+}
+
+// bytes of shared memory for ``res`` resident rows of an S-channel slice
+// in a block of nt threads: x, then f32 scratch (the host planner computes
+// the same)
+__host__ __device__ constexpr size_t smem_bytes(int res, int s, int elem,
+                                                int nt) {
+  return (size_t)res * s * elem +
+         sizeof(float) * (2 * (size_t)(nt / 32) * s + 8 * (size_t)s);
+}
+
+// block (cluster q of item q = (batch element q / slices, slice q %
+// slices), rank r): the r-th run of the item's pixel rows; NT threads
+template <typename T, int ACT, bool CHAIN, int NT>
+__global__ void __launch_bounds__(NT, 768 / NT)
+gn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
+              const void* __restrict__ scale, int scale_bf16,
+              const void* __restrict__ bias, int bias_bf16, int hw, int c,
+              int cgrp, int s, int res_rows, float eps) {
+  using V = Vec<T>;
+  constexpr int NV = V::N;    // channels of a 16-byte piece
+  constexpr int NW = NT / 32;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ncl = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int slices = c / s, item = blockIdx.x / ncl;
+  const int s0 = (item % slices) * s;
+  const int per = (hw + ncl - 1) / ncl;
+  const int p0 = min(hw, rank * per);
+  const int rows = min(hw, p0 + per) - p0;
+  const int res = min(rows, res_rows);
+  // a row's pieces take cols lanes of cp, the next power of two: the rows
+  // a warp holds side by side then share their lanes' channels
+  const int cols = s / NV;
+  int cp = 1;
+  while (cp < cols) cp *= 2;
+  const int R = NT / cp;
+  const int tid = threadIdx.x, j = tid % cp, r = tid / cp, warp = tid / 32;
+  const bool active = j < cols;
+  const size_t base = ((size_t)(item / slices) * hw + p0) * c + s0 + j * NV;
+  const T* xb = x + base;
+  T* yb = y + base;
+
+  extern __shared__ uint4 smem_u4[];
+  T* xs = reinterpret_cast<T*>(smem_u4) + j * NV;
+  float* red = reinterpret_cast<float*>(
+      reinterpret_cast<T*>(smem_u4) + (size_t)res_rows * s);  // [2][NW][s]
+  float* blk = red + 2 * NW * s;  // [2][s]: this block's sums of x, x^2
+  float* tot = blk + 2 * s;       // [2][s]: the cluster's totals
+  float* prm = tot + 2 * s;       // [4][s]: scale, bias, mean, rstd
+
+  // this thread's resident rows r, r + R, ... < res: ``mine`` of them,
+  // staged in CHUNKS commit groups; then its rows past res, read from
+  // device memory
+  const int mine = active && r < res ? (res - r + R - 1) / R : 0;
+  const int tail0 = r + mine * R;
+#pragma unroll 1
+  for (int k = 0; k < CHUNKS; ++k) {
+    for (int i = k * mine / CHUNKS; i < (k + 1) * mine / CHUNKS; ++i) {
+      const int row = r + i * R;
+      psld::cp_async16(xs + (size_t)row * s, xb + (size_t)row * c, true);
+    }
+    psld::cp_async_commit();
+  }
+  // the slice's scale and bias (s <= 2 * NT), in flight with x
+  float pr[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (tid + h * NT < s) {
+      pr[2 * h] = load_param(scale, scale_bf16, s0 + tid + h * NT);
+      pr[2 * h + 1] = load_param(bias, bias_bf16, s0 + tid + h * NT);
+    }
+  }
+
+  // ---- moments: each commit group's sums as soon as it has landed
+  float f[NV], a1[NV], a2[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) a1[v] = a2[v] = 0.f;
+  auto add = [&](const uint4& u) {
+    V::unpack(u, f);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      a1[v] += f[v];
+      a2[v] += f[v] * f[v];
+    }
+  };
+#pragma unroll 1
+  for (int k = 0; k < CHUNKS; ++k) {
+    wait_groups(CHUNKS - 1 - k);
+#pragma unroll 2
+    for (int i = k * mine / CHUNKS; i < (k + 1) * mine / CHUNKS; ++i)
+      add(*reinterpret_cast<const uint4*>(xs + (size_t)(r + i * R) * s));
+  }
+  if (active) {
+#pragma unroll 2
+    for (int row = tail0; row < rows; row += R)
+      add(__ldg(reinterpret_cast<const uint4*>(xb + (size_t)row * c)));
+  }
+  // over the rows of a warp (lanes of one channel piece), a fixed tree
+  for (int d = cp; d < 32; d *= 2) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      a1[v] += __shfl_xor_sync(0xffffffffu, a1[v], d);
+      a2[v] += __shfl_xor_sync(0xffffffffu, a2[v], d);
+    }
+  }
+  if (tid % 32 < cp && active) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      red[warp * s + j * NV + v] = a1[v];
+      red[(NW + warp) * s + j * NV + v] = a2[v];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (tid + h * NT < s) {
+      prm[tid + h * NT] = CHAIN ? bf16r(pr[2 * h]) : pr[2 * h];
+      prm[s + tid + h * NT] = CHAIN ? bf16r(pr[2 * h + 1]) : pr[2 * h + 1];
+    }
+  }
+  __syncthreads();
+  // over the warps, in order; then over the blocks of a cluster, in rank
+  // order (a block alone has its totals already)
+  for (int i = tid; i < 2 * s; i += NT) {
+    const float* col = red + (i / s) * NW * s + i % s;
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) acc += col[w * s];
+    (ncl > 1 ? blk : tot)[i] = acc;
+  }
+  if (ncl > 1) {
+    cluster.sync();
+    for (int i = tid; i < 2 * s; i += NT) {
+      float acc = 0.f;
+      for (int q = 0; q < ncl; ++q)
+        acc += cluster.map_shared_rank(blk, q)[i];
+      tot[i] = acc;
+    }
+  }
+  __syncthreads();
+  // into groups: every channel of a group adds the same terms in the same
+  // order
+  // 1 / n as PyTorch's mean takes it (a sum times its factor)
+  const float inv_n = 1.f / ((float)hw * (float)cgrp);
+  for (int i = tid; i < s; i += NT) {
+    const int g0 = i / cgrp * cgrp;
+    float m1 = 0.f, m2 = 0.f;
+    for (int q = g0; q < g0 + cgrp; ++q) {
+      m1 += tot[q];
+      m2 += tot[s + q];
+    }
+    const float mean = m1 * inv_n;
+    const float var =
+        fmaxf(__fsub_rn(m2 * inv_n, __fmul_rn(mean, mean)), 0.f);
+    const float rstd = rsqrtf(var + eps);
+    prm[2 * s + i] = CHAIN ? bf16r(mean) : mean;
+    prm[3 * s + i] = CHAIN ? bf16r(rstd) : rstd;
+  }
+  __syncthreads();
+
+  // ---- normalize + affine + act, 16-byte stores
+  if (active) {
+    const int ch = j * NV;
+    const Affine<T, CHAIN> aff(prm + ch, prm + s + ch, prm + 2 * s + ch,
+                               prm + 3 * s + ch);
+#pragma unroll 2
+    for (int i = 0; i < mine; ++i) {
+      const size_t row = (size_t)(r + i * R);
+      *reinterpret_cast<uint4*>(yb + row * c) = aff.template apply<ACT>(
+          *reinterpret_cast<const uint4*>(xs + row * s));
+    }
+#pragma unroll 2
+    for (int row = tail0; row < rows; row += R)
+      *reinterpret_cast<uint4*>(yb + (size_t)row * c) =
+          aff.template apply<ACT>(
+              __ldg(reinterpret_cast<const uint4*>(xb + (size_t)row * c)));
+  }
+  // no block leaves while a peer may still read its blk
+  if (ncl > 1) cluster.sync();
+}
+
+// Small maps: a warp owns a work item and holds its pieces in registers
+// (at most WP of them a lane), so the chain of loads, sums and stores has
+// no barrier and no shared memory; four work items a block. Groups fold
+// within a lane (cgrp divides the NV channels of a piece) or over the
+// lanes of a row (cgrp a power-of-two multiple of NV); the host planner
+// takes this path only then.
+constexpr int WP = 8;
+
+template <typename T, int ACT, bool CHAIN>
+__global__ void __launch_bounds__(128)
+gn_fwd_warp_kernel(const T* __restrict__ x, T* __restrict__ y,
+                   const void* __restrict__ scale, int scale_bf16,
+                   const void* __restrict__ bias, int bias_bf16, int items,
+                   int hw, int c, int cgrp, int s, float eps) {
+  using V = Vec<T>;
+  constexpr int NV = V::N;
+  const int lane = threadIdx.x % 32;
+  const int item = blockIdx.x * 4 + threadIdx.x / 32;
+  if (item >= items) return;
+  const int slices = c / s, s0 = (item % slices) * s;
+  const int cols = s / NV;
+  int cp = 1;
+  while (cp < cols) cp *= 2;
+  const int j = lane % cp, r = lane / cp, R = 32 / cp;
+  const bool active = j < cols;
+  const size_t base = (size_t)(item / slices) * hw * c + s0 + j * NV;
+
+  // every piece in flight at once, then the sums
+  uint4 u[WP];
+#pragma unroll
+  for (int p = 0; p < WP; ++p) {
+    const int row = r + p * R;
+    u[p] = active && row < hw
+               ? __ldg(reinterpret_cast<const uint4*>(x + base +
+                                                      (size_t)row * c))
+               : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float sc[NV], bi[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    sc[v] = active ? load_param(scale, scale_bf16, s0 + j * NV + v) : 0.f;
+    bi[v] = active ? load_param(bias, bias_bf16, s0 + j * NV + v) : 0.f;
+    if (CHAIN) {
+      sc[v] = bf16r(sc[v]);
+      bi[v] = bf16r(bi[v]);
+    }
+  }
+  float f[NV], a1[NV], a2[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) a1[v] = a2[v] = 0.f;
+#pragma unroll
+  for (int p = 0; p < WP; ++p) {
+    V::unpack(u[p], f);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      a1[v] += f[v];
+      a2[v] += f[v] * f[v];
+    }
+  }
+  // over the rows (lanes of one channel piece), a fixed tree that leaves
+  // the same totals in every lane
+  for (int d = cp; d < 32; d *= 2) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      a1[v] += __shfl_xor_sync(0xffffffffu, a1[v], d);
+      a2[v] += __shfl_xor_sync(0xffffffffu, a2[v], d);
+    }
+  }
+  // into groups, every channel of a group adding the same terms in the
+  // same order: within the lane, then over the lanes of a group
+  // (cgrp < NV is a power of two: a group is the channels v with the same
+  // v & gmask)
+  const int gmask = cgrp >= NV ? 0 : ~(cgrp - 1);
+  float m1[NV], m2[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    m1[v] = m2[v] = 0.f;
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      if ((q & gmask) == (v & gmask)) {
+        m1[v] += a1[q];
+        m2[v] += a2[q];
+      }
+    }
+  }
+  for (int d = 1; d < cgrp / NV; d *= 2) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      m1[v] += __shfl_xor_sync(0xffffffffu, m1[v], d);
+      m2[v] += __shfl_xor_sync(0xffffffffu, m2[v], d);
+    }
+  }
+  // 1 / n as PyTorch's mean takes it (a sum times its factor)
+  const float inv_n = 1.f / ((float)hw * (float)cgrp);
+  float mu[NV], rs[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const float mean = m1[v] * inv_n;
+    const float var =
+        fmaxf(__fsub_rn(m2[v] * inv_n, __fmul_rn(mean, mean)), 0.f);
+    const float rstd = rsqrtf(var + eps);
+    mu[v] = CHAIN ? bf16r(mean) : mean;
+    rs[v] = CHAIN ? bf16r(rstd) : rstd;
+  }
+  const Affine<T, CHAIN> aff(sc, bi, mu, rs);
+#pragma unroll
+  for (int p = 0; p < WP; ++p) {
+    const int row = r + p * R;
+    if (active && row < hw)
+      *reinterpret_cast<uint4*>(y + base + (size_t)row * c) =
+          aff.template apply<ACT>(u[p]);
+  }
+}
+
+template <typename T, int ACT, bool CHAIN, int NT>
+int launch_blocks(const void* x, void* y, const void* scale, int scale_bf16,
+                  const void* bias, int bias_bf16, int b, int hw, int c,
+                  int cgrp, int s, int cl, int res, float eps,
+                  cudaStream_t stream) {
+  auto kernel = gn_fwd_kernel<T, ACT, CHAIN, NT>;
+  const size_t smem = smem_bytes(res, s, sizeof(T), NT);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((c / s) * b * cl, 1, 1);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  // a cluster of one block launches as a plain grid, which schedules
+  // sooner; the kernel then sees a cluster of one
+  cfg.numAttrs = cl > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x),
+                           static_cast<T*>(y), scale, scale_bf16, bias,
+                           bias_bf16, hw, c, cgrp, s, res, eps);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int ACT, bool CHAIN, int NT>
+int launch(const void* x, void* y, const void* scale, int scale_bf16,
+           const void* bias, int bias_bf16, int b, int hw, int c, int cgrp,
+           int s, int cl, int res, float eps, cudaStream_t stream) {
+  if constexpr (NT == 32) {
+    const int items = (c / s) * b;
+    gn_fwd_warp_kernel<T, ACT, CHAIN><<<(items + 3) / 4, 128, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), scale, scale_bf16,
+        bias, bias_bf16, items, hw, c, cgrp, s, eps);
+    return (int)cudaGetLastError();
+  } else {
+    return launch_blocks<T, ACT, CHAIN, NT>(x, y, scale, scale_bf16, bias,
+                                            bias_bf16, b, hw, c, cgrp, s, cl,
+                                            res, eps, stream);
+  }
+}
+
+
+template <typename T, bool CHAIN, int NT, typename... Args>
+int dispatch(int act, Args... args) {
+  switch (act) {
+    case 0: return launch<T, 0, CHAIN, NT>(args...);
+    case 1: return launch<T, 1, CHAIN, NT>(args...);
+    case 2: return launch<T, 2, CHAIN, NT>(args...);
+    case 3: return launch<T, 3, CHAIN, NT>(args...);
+    case 4: return launch<T, 4, CHAIN, NT>(args...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// (B, H*W, C) NHWC x -> y of x's type. dtype: 0 = float32, 1 = bfloat16;
+// scale_bf16 / bias_bf16: the parameters' type; chain: 1 = the gn_bf16
+// chain (bfloat16 only). slice (channels, whole groups), cluster (blocks
+// of one slice), resident (pixel rows a block stages) and threads (128 or
+// 256, a block; 32: a warp a work item, its pieces in registers) come
+// from the host planner. x and y lie on 16-byte
+// boundaries. Returns a cudaError_t.
+int psld_gn_fwd(const void* x, void* y, const void* scale, int scale_bf16,
+                const void* bias, int bias_bf16, int b, int hw, int c,
+                int cgrp, int slice, int cluster, int resident, int threads,
+                int act, int chain, float eps, int dtype, void* stream) {
+  const int elem = dtype == 1 ? 2 : 4;
+  if ((dtype != 0 && dtype != 1) || (chain && dtype != 1) ||
+      (threads != 32 && threads != 128 && threads != 256) || b < 1 ||
+      hw < 1 || cgrp < 1 ||
+      slice < cgrp || slice % cgrp || c % slice ||
+      (size_t)b * (c / slice) * cluster > 0x7fffffff ||
+      (slice * elem) % 16 || slice * elem > 512 || slice > 2 * threads ||
+      cluster < 1 || cluster > MAX_CLUSTER || (cluster & (cluster - 1)) ||
+      resident < 0 ||
+      smem_bytes(resident, slice, elem, threads) > (size_t)MAX_SMEM ||
+      (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (threads == 32) {
+    // a warp a work item: its pieces fit the registers, its groups fold
+    // within a lane or over a power of two of lanes, no cluster
+    const int nv = 16 / elem, cols = slice / nv;
+    int cp = 1;
+    while (cp < cols) cp *= 2;
+    const int k = cgrp / nv;
+    if (cluster != 1 || (hw + 32 / cp - 1) / (32 / cp) > WP ||
+        !(cgrp <= nv ? nv % cgrp == 0 : cgrp % nv == 0 && !(k & (k - 1))))
+      return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && threads == 32)
+    return dispatch<float, false, 32>(act, x, y, scale, scale_bf16, bias,
+                                      bias_bf16, b, hw, c, cgrp, slice,
+                                      cluster, resident, eps, st);
+  if (dtype == 0 && threads == 128)
+    return dispatch<float, false, 128>(act, x, y, scale, scale_bf16, bias,
+                                       bias_bf16, b, hw, c, cgrp, slice,
+                                       cluster, resident, eps, st);
+  if (dtype == 0)
+    return dispatch<float, false, 256>(act, x, y, scale, scale_bf16, bias,
+                                       bias_bf16, b, hw, c, cgrp, slice,
+                                       cluster, resident, eps, st);
+#define PSLD_BF16(CH, NT)                                                     \
+  return dispatch<__nv_bfloat16, CH, NT>(act, x, y, scale, scale_bf16, bias, \
+                                         bias_bf16, b, hw, c, cgrp, slice,   \
+                                         cluster, resident, eps, st)
+  if (chain && threads == 32) PSLD_BF16(true, 32);
+  if (chain && threads == 128) PSLD_BF16(true, 128);
+  if (chain) PSLD_BF16(true, 256);
+  if (threads == 32) PSLD_BF16(false, 32);
+  if (threads == 128) PSLD_BF16(false, 128);
+  PSLD_BF16(false, 256);
+#undef PSLD_BF16
+}
+
+const char* psld_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

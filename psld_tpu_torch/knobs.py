@@ -3,17 +3,23 @@
 ==================  =======================================  ===============
 config key          meaning in the port                      env override
 ==================  =======================================  ===============
-model.score_fn.     GroupNorm normalize/act chain of the     PSLD_GN_BF16
-  gn_bf16           PLAIN version in the input dtype for
-                    bf16 inputs (moment sums stay f32). The
-                    Triton kernel always runs the chain in
-                    f32, as the TPU kernel did.
+model.score_fn.     GroupNorm normalize/affine/act chain in  PSLD_GN_BF16
+  gn_bf16           bf16 for bf16 inputs, with the JAX
+                    package's rounding points (moment sums
+                    stay f32), in the plain version and, on
+                    CUDA, in both GroupNorm kernels (forward
+                    and backward), read at every call. A
+                    deliberate difference: the JAX
+                    package's TPU kernel (fused_gn=true)
+                    ignores gn_bf16 and runs f32; its jnp
+                    chain and its VJP honour it, and the
+                    port's kernels are its only card path.
 model.score_fn.     resblock dropout: hw and hw_inline =     --
   dropout_impl      the counter-hash kernel, save_mask and
                     remat = a saved Bernoulli mask; see
                     ``models.layers.DropoutSites``
 model.score_fn.     accepted, no effect: on CUDA the port    --
-  fused_gn          always runs its GroupNorm kernel
+  fused_gn          always runs its GroupNorm kernels
 model.score_fn.     accepted, no effect: the attention       --
   pad_attn          kernel takes any C that is a multiple
                     of 8, so there is no lane padding
@@ -56,7 +62,9 @@ def gn_bf16() -> bool:
 
 def resolved(config=None) -> dict:
     """The effective knob values (``PSLD_GN_BF16`` applied), for a run's
-    metadata. With a config, also the model-threaded ``dropout_impl``."""
+    metadata: ``gn_bf16`` takes effect on every GroupNorm of a bf16
+    network, on the CPU and, through both GroupNorm kernels, on CUDA.
+    With a config, also the model-threaded ``dropout_impl``."""
     from psld_tpu_torch.models.layers import resolve_dropout_impl
 
     out = {"gn_bf16": gn_bf16()}

@@ -238,7 +238,10 @@ def conv1x1(in_ch: int, out_ch: int, bias: bool = True,
 
 class GroupNormAct(nn.Module):
     """GroupNorm(min(C//4, 32)) fused with the following activation; on
-    CUDA it runs the Triton kernel of :mod:`psld_tpu_torch.ops.group_norm`.
+    CUDA it runs the CUDA C++ kernels of :mod:`psld_tpu_torch.ops.group_norm`
+    (``csrc/group_norm_fwd.cu`` forward, ``csrc/group_norm_bwd.cu``
+    backward), which follow ``gn_bf16`` as the plain version does, where
+    the JAX package's TPU kernel (``fused_gn``) runs f32 whatever it says.
     """
 
     def __init__(self, ch: int, act: str = "none", eps: float = 1e-6):

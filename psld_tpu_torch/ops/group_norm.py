@@ -1,5 +1,5 @@
-"""GroupNorm -> activation for Hopper: a Triton forward kernel, a CUDA
-C++ backward kernel, and their plain PyTorch versions.
+"""GroupNorm -> activation for Hopper: CUDA C++ forward and backward
+kernels, their host planners, and their plain PyTorch versions.
 
 The forward replaces ``psld_tpu/ops/group_norm.py::_gn_kernel`` (launched
 by ``_pallas_gn``), the NHWC GroupNorm(G) + affine + act fused into one
@@ -9,48 +9,65 @@ the jnp chain; here it is a kernel of its own, because autograd through
 the plain chain would re-read and re-write the activation a dozen times,
 125 times a training step.
 
-What bounds the forward on the H100: device-memory bytes, and at the
-small flagship shapes the host's cost of a launch. There is no matrix
-work; per element it is a few FLOPs against one read for the moments,
-one read and one write for the normalize pass. The design:
+Numerics follow ``gn_bf16`` (:mod:`psld_tpu_torch.knobs`, read on the
+host at every call). Off, or for a float32 x, both kernels run the TPU
+kernel's f32 chain: single-pass f32 moments, the variance clamped at 0,
+``rsqrt(var + eps)``, one rounding to the output dtype. On, a bf16 x runs
+the chain of :func:`group_norm_act_plain` (``group_norm_act_reference``
+in the JAX package) with its rounding points: mean and rstd rounded to
+bf16, then ``x - mean``, ``* rstd``, ``* scale``, ``+ bias`` and the
+activation each rounded to bf16; the backward differentiates that chain
+and rounds its cotangents where autograd through the plain chain rounds
+them (the source note of ``csrc/group_norm_bwd.cu`` says which). This is
+a deliberate difference from the JAX package: its TPU kernel
+(``fused_gn=true``) ignores ``gn_bf16`` and runs the f32 chain, while its
+default path (the jnp chain) and its VJP honour it; here the kernels are
+the only path on the card, so they honour it.
 
-- Grid: the TPU kernel walks one batch element per grid step, which would
-  give 64 blocks for 132 SMs, and a 32x32x512 bf16 slice (1 MB) fits no
-  SM's shared memory. Groups are independent, so one program owns one
-  batch element's slice of whole groups (about 32 channels) and walks all
-  its pixels twice: a moment pass, then a normalize + affine + act pass
-  that finds the slice in L2. At batch 64 that is 256 to 1024 programs,
-  in one launch, with no scratch buffer and no second reduction.
-- Coalescing: in NHWC a group is C/G contiguous channels, only 4 (8 bytes)
-  at C=128. A tile is many pixel rows of the whole slice, so each row is
-  one contiguous run of the slice's channels; the per-channel sums fold
-  into groups once, at the end of the moment pass.
-- Numerics are the TPU kernel's: single-pass f32 moments, variance clamped
-  at 0, ``rsqrt(var + eps)``, the whole chain in f32, one rounding to the
-  output dtype. Like the TPU kernel, it does not read ``gn_bf16``; only
-  the plain version follows ``group_norm_act_reference`` with its bf16
-  rounding points.
+The forward kernel, ``csrc/group_norm_fwd.cu``, is bound by device-memory
+bytes: one read of x and one write of y, a few f32 operations an element.
+A block (or a thread block cluster of 2 to 8 blocks splitting the pixel
+rows) owns one work item, a batch element's slice of whole groups, and
+stages it in shared memory with 16-byte ``cp.async`` in four commit
+groups, adding the f32 channel sums of x and x^2 of each as it lands; it
+then folds the sums into groups (over the cluster through distributed
+shared memory, in rank order) and normalizes from shared memory with
+16-byte stores, so device memory sees each byte of x once.
+:func:`plan_forward` picks the slice, the cluster, the threads and the
+rows a block holds; past what shared memory holds (maps of 128 x 128 and
+up at some widths), the normalize pass re-reads the rest of the rows from
+device memory. Maps of up to 64 pixels give a work item to one warp,
+which holds it in registers: no barrier, no shared memory. What holds it
+back on the H100 (``PERF.md``, section 6): at 32 x 32 a launch is
+1.3 waves of three blocks an SM, each of which stages, reduces, then
+writes, so loads and stores overlap little; at 16 x 16 and below every
+block runs at once and one block's chain of latencies is the time.
 
-The backward is a CUDA C++ kernel, ``csrc/group_norm_bwd.cu``, which
-computes the exact gradient of that f32 chain. With ``xh = (x - mean) *
-rstd``, ``z = xh * scale + bias``, ``y = act(z)``: ``dz = g * act'(z)``,
-``dbias = sum dz``, ``dscale = sum dz * xh``, ``dxh = dz * scale``, ``dx =
-rstd * (dxh - mean_g(dxh) - xh * mean_g(dxh * xh))``. The moments are
+The backward kernel, ``csrc/group_norm_bwd.cu``, computes the exact
+gradient of the chain the forward ran. With ``xh = (x - mean) * rstd``,
+``z = xh * scale + bias``, ``y = act(z)``: ``dz = g * act'(z)``, ``dbias =
+sum dz``, ``dscale = sum dz * xh``, ``dxh = dz * scale``, ``dx = rstd *
+(dxh - mean_g(dxh) - xh * mean_g(dxh * xh))``. The moments are
 recomputed from x, so the autograd Function saves x, scale and bias and
 nothing else. It is bound by bytes (read x and g, write dx), and its
 design reads each of them from device memory once: a block (or a
 thread block cluster) holds one batch element's slice of whole groups in
 shared memory and runs its three passes from there (the source note
-says how). The slice, the cluster, the threads and the rows a block
-holds come from :func:`plan_backward`, on the host. ``dscale`` and
+says how), with the geometry of :func:`plan_backward`. ``dscale`` and
 ``dbias`` sum over the batch inside the same launch: the kernel writes
 (channel, batch element) partials into a (2, C, B) float32 buffer, and
 the last block of a slice to finish, counted with integers, adds them in
 a fixed order. A per-(device, stream) buffer of those counts is zeroed
 once and left at zero by every launch. A group whose variance was
 clamped at 0 gets no gradient through the variance. Activation slopes at
-the kink follow ``jax.nn``: relu 0 at 0, leaky relu 1 at 0, elu
-``exp(z)`` for z <= 0.
+the kink follow PyTorch's, as the plain version's autograd takes them:
+relu 0 and leaky relu 0.2 at z = 0 (``jax.nn``'s leaky relu takes 1
+there; the two differ only where z is exactly 0), elu ``exp(z)`` for
+z <= 0.
+
+Both kernels take x, and the backward its cotangent, on 16-byte
+boundaries, and launch without a host allocation beyond their outputs (and
+the backward's partials), so a CUDA graph can capture them.
 """
 
 from __future__ import annotations
@@ -97,110 +114,35 @@ def group_norm_act_plain(x, scale, bias, num_groups: int, eps: float = 1e-6,
     return _ACTS[act](y).to(x.dtype)
 
 
-_KERNEL = None
-
-
-def _kernel():
-    """Define the Triton forward kernel at first launch: ``triton``
-    exists only where there is a card."""
-    global _KERNEL
-    if _KERNEL is not None:
-        return _KERNEL
-    import triton
-    import triton.language as tl
-    import triton.language.extra.libdevice as tld
-
-    @triton.jit
-    def _gn_fwd(x_ptr, y_ptr, scale_ptr, bias_ptr, HW, C, n, eps,
-                CG: tl.constexpr, SLICE: tl.constexpr, ACT: tl.constexpr,
-                BLOCK_HW: tl.constexpr, BLOCK_C: tl.constexpr,
-                BLOCK_G: tl.constexpr):
-        # program (s, b): channels [s * SLICE, (s + 1) * SLICE) of batch b,
-        # SLICE a whole number of groups of CG channels
-        lc = tl.arange(0, BLOCK_C)
-        cmask = lc < SLICE
-        cols = tl.program_id(0) * SLICE + lc
-        base = tl.program_id(1).to(tl.int64) * HW * C
-        hw_ar = tl.arange(0, BLOCK_HW)
-        acc1 = tl.zeros((BLOCK_HW, BLOCK_C), tl.float32)
-        acc2 = tl.zeros((BLOCK_HW, BLOCK_C), tl.float32)
-        for r0 in range(0, HW, BLOCK_HW):
-            rows = r0 + hw_ar
-            mask = (rows[:, None] < HW) & cmask[None, :]
-            x = tl.load(x_ptr + base + rows[:, None] * C + cols[None, :],
-                        mask=mask, other=0.0).to(tl.float32)
-            acc1 += x
-            acc2 += x * x
-        s1 = tl.sum(acc1, axis=0)
-        s2 = tl.sum(acc2, axis=0)
-        # fold channel sums into the slice's groups and back
-        sel = ((lc[None, :] // CG) == tl.arange(0, BLOCK_G)[:, None]) \
-            & cmask[None, :]
-        mean_g = tl.sum(tl.where(sel, s1[None, :], 0.0), axis=1) / n
-        var_g = tl.maximum(
-            tl.sum(tl.where(sel, s2[None, :], 0.0), axis=1) / n
-            - mean_g * mean_g, 0.0)
-        rstd_g = 1.0 / tl.sqrt_rn(var_g + eps)
-        mean = tl.sum(tl.where(sel, mean_g[:, None], 0.0), axis=0)
-        rstd = tl.sum(tl.where(sel, rstd_g[:, None], 0.0), axis=0)
-        scale = tl.load(scale_ptr + cols, mask=cmask, other=0.0).to(
-            tl.float32)
-        bias = tl.load(bias_ptr + cols, mask=cmask, other=0.0).to(
-            tl.float32)
-        for r0 in range(0, HW, BLOCK_HW):
-            rows = r0 + hw_ar
-            mask = (rows[:, None] < HW) & cmask[None, :]
-            offs = base + rows[:, None] * C + cols[None, :]
-            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            y = (x - mean[None, :]) * rstd[None, :]
-            y = y * scale[None, :] + bias[None, :]
-            if ACT == 1:
-                y = y / (1.0 + tl.exp(-y))
-            elif ACT == 2:
-                y = tl.maximum(y, 0.0)
-            elif ACT == 3:
-                y = tl.where(y > 0, y, tld.expm1(y))
-            elif ACT == 4:
-                y = tl.where(y >= 0, y, 0.2 * y)
-            tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
-
-    _KERNEL = _gn_fwd
-    return _KERNEL
-
-
-def _pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
-
-
-# channels a program owns, at most: 64 contiguous bytes of a bf16 row
-_SLICE_CHANNELS = 32
-# elements of one (pixels x channels) tile
-_TILE = 4096
-
-
-@functools.lru_cache(maxsize=None)
-def _geometry(hw: int, c: int, num_groups: int) -> dict:
-    """Grid and block sizes: a program owns the most whole groups that
-    fit ``_SLICE_CHANNELS`` channels and divide G."""
-    cg = c // num_groups
-    gpp = max([d for d in range(1, num_groups + 1) if num_groups % d == 0
-               and d * cg <= _SLICE_CHANNELS] or [1])
-    block_c = _pow2(gpp * cg)
-    return dict(slices=num_groups // gpp, CG=cg, SLICE=gpp * cg,
-                BLOCK_HW=min(_pow2(hw), max(1, _TILE // block_c)),
-                BLOCK_C=block_c, BLOCK_G=_pow2(gpp))
-
-
-# the backward kernel's blocks (csrc/group_norm_bwd.cu): the shared
-# memory a block may have, the most blocks of a cluster
-_BWD_SMEM_MAX = 232_448
-_BWD_CLUSTERS = (1, 2, 4, 8)
+# the kernels' blocks (csrc/group_norm_fwd.cu, csrc/group_norm_bwd.cu): the
+# shared memory a block may have, the cluster sizes
+_SMEM_MAX = 232_448
+_CLUSTERS = (1, 2, 4, 8)
 # shared memory a block aims at, so that three blocks share an SM
-_BWD_SMEM_TARGET = _BWD_SMEM_MAX // 3
-# a slice's row, at most: one 128-byte line of an NHWC row
-_BWD_ROW_BYTES = 128
-# a block of at most this many elements of x runs 128 threads, else 256
+_SMEM_TARGET = _SMEM_MAX // 3
+# a slice's row, at most, where whole groups allow: one 128-byte line of
+# an NHWC row
+_ROW_BYTES = 128
+# a block of at most this many elements of x runs 128 threads, else 256:
+# the backward's, the forward's
 _BWD_SMALL_TILE = 4096
+_FWD_SMALL_TILE = 16384
+# forward work items (batch elements x slices) below which a narrower
+# slice pays: some four blocks for each of the H100's 132 SMs
+_FWD_ITEMS = 512
+# maps of at most this many pixels take a warp a work item, with at most
+# _WARP_PIECES 16-byte pieces a lane (``WP`` in the CUDA source)
+_WARP_HW = 64
+_WARP_PIECES = 8
+
+
+def _fwd_smem(resident: int, slice_: int, elem: int, threads: int) -> int:
+    """Bytes of shared memory of a forward block of ``threads`` threads
+    holding ``resident`` pixel rows of a ``slice_``-channel slice: x, then
+    float32 scratch (``smem_bytes`` in the CUDA source computes the
+    same)."""
+    return resident * slice_ * elem + 4 * (2 * (threads // 32) * slice_
+                                           + 8 * slice_)
 
 
 def _bwd_smem(resident: int, slice_: int, elem: int, threads: int) -> int:
@@ -213,74 +155,136 @@ def _bwd_smem(resident: int, slice_: int, elem: int, threads: int) -> int:
                                                + 11 * slice_)
 
 
-@functools.lru_cache(maxsize=None)
-def plan_backward(hw: int, c: int, num_groups: int, dtype) -> dict:
-    """The backward kernel's geometry for (H*W, C, G, dtype): ``slice``
-    channels (whole groups, a divisor of C, a multiple of 16 bytes) a
-    cluster of ``cluster`` blocks of ``threads`` threads owns, each block
-    holding ``resident`` of its pixel rows in shared memory (``smem``
-    bytes).
-
-    The smallest cluster comes first (a cluster's barriers cost more than
-    a narrower slice), then the widest slice up to one 128-byte line of a
-    row whose pixels fit in a third of an SM's shared memory; failing
-    that, the narrowest slice over the largest cluster holds what fits
-    and the kernel reads the rest of its rows from device memory. Raises
-    ValueError where no slice of whole groups is a multiple of 16
-    bytes."""
+def _plan(what: str, smem, staged: int, widest: int, small_tile: int,
+          hw: int, c: int, num_groups: int, dtype,
+          row_bytes: int = _ROW_BYTES, aligned: int = 1) -> dict:
+    """The geometry of a kernel whose block stages ``staged`` tensors of a
+    slice and needs ``smem(resident, slice, elem, threads)`` bytes; slices
+    are at most ``widest`` bytes wide, and at most ``row_bytes`` where
+    whole groups allow; slices a multiple of ``aligned`` bytes wide come
+    first, over any cluster; a block of ``small_tile`` elements or fewer
+    runs 128 threads. See :func:`plan_forward`."""
     if c % num_groups:
         raise ValueError(f"C={c} is no multiple of G={num_groups}")
     elem = torch.empty((), dtype=dtype).element_size()
     cg = c // num_groups
     slices = [k * cg for k in range(num_groups, 0, -1)
               if num_groups % k == 0 and k * cg * elem % 16 == 0
-              and k * cg <= 512]
+              and k * cg * elem <= widest]
     if not slices:
         raise ValueError(
-            f"group_norm_act_backward kernel: no slice of whole "
-            f"{cg}-channel groups of C={c} is a multiple of 16 bytes in "
+            f"{what} kernel: no slice of whole {cg}-channel groups of C={c} "
+            f"is a multiple of 16 bytes and at most {widest} bytes in "
             f"{dtype}")
 
     def plan(s, cl, resident):
-        threads = 128 if resident * s <= _BWD_SMALL_TILE else 256
+        threads = 128 if resident * s <= small_tile else 256
         return dict(slice=s, cluster=cl, resident=resident, threads=threads,
-                    smem=_bwd_smem(resident, s, elem, threads))
+                    smem=smem(resident, s, elem, threads))
 
-    narrow = [s for s in slices if s * elem <= _BWD_ROW_BYTES] or slices[-1:]
-    for cl in _BWD_CLUSTERS:
-        rows = -(-hw // cl)
-        for s in narrow:
-            if plan(s, cl, rows)["smem"] <= _BWD_SMEM_TARGET:
-                return plan(s, cl, rows)
-    s, cl = slices[-1], _BWD_CLUSTERS[-1]
-    resident = (_BWD_SMEM_MAX - _bwd_smem(0, s, elem, 256)) // (2 * s * elem)
+    narrow = [s for s in slices if s * elem <= row_bytes] or slices[-1:]
+    for group in ([s for s in narrow if s * elem % aligned == 0],
+                  [s for s in narrow if s * elem % aligned]):
+        for cl in _CLUSTERS:
+            rows = -(-hw // cl)
+            for s in group:
+                if plan(s, cl, rows)["smem"] <= _SMEM_TARGET:
+                    return plan(s, cl, rows)
+    s, cl = slices[-1], _CLUSTERS[-1]
+    resident = (_SMEM_MAX - smem(0, s, elem, 256)) // (staged * s * elem)
     return plan(s, cl, min(-(-hw // cl), resident))
 
 
-def _launch(x, scale, bias, num_groups: int, eps: float, act: str):
-    b, h, w, c = x.shape
-    geo = dict(_geometry(h * w, c, num_groups))
-    y = torch.empty_like(x)
-    _kernel()[(geo.pop("slices"), b)](
-        x, y, scale, bias, h * w, c, float(h * w * geo["CG"]), float(eps),
-        ACT=_ACT_CODE[act], num_warps=4, **geo)
-    return y
+@functools.lru_cache(maxsize=None)
+def plan_forward(hw: int, c: int, num_groups: int, dtype,
+                 batch: int | None = None) -> dict:
+    """The forward kernel's geometry for (H*W, C, G, dtype): ``slice``
+    channels (whole groups, a divisor of C, a multiple of 16 bytes) a
+    cluster of ``cluster`` blocks of ``threads`` threads owns, each block
+    holding ``resident`` of its pixel rows in shared memory (``smem``
+    bytes).
+
+    Slices a multiple of 32 bytes (whole sectors of device memory) come
+    first, over any cluster (C = 384 in bf16: 96-byte slices over a
+    cluster of 2 blocks, not 48-byte ones); within them the smallest
+    cluster (a cluster's barriers cost more than a narrower slice), then
+    the widest slice up to one 128-byte line of a row whose pixels fit in
+    a third of an SM's shared memory, so that three blocks share an SM.
+    Failing that, the narrowest slice over the largest cluster holds what
+    fits and the kernel reads the rest of its rows from device memory.
+    Given the ``batch``, a slice wider than 64 bytes that leaves fewer
+    than ``_FWD_ITEMS`` work items gives way to one of at most 64 bytes
+    (more blocks, each with a shorter chain of loads, sums and stores).
+    Maps of at most ``_WARP_HW`` pixels take a warp a work item where
+    :func:`_warp_plan` finds a slice (``threads`` 32, ``smem`` 0): their
+    chain is latency, not bytes. Raises ValueError where no slice of
+    whole groups is a multiple of 16 bytes and at most 512 bytes (a
+    warp's 16-byte pieces)."""
+    args = ("group_norm_act", _fwd_smem, 1, 512, _FWD_SMALL_TILE, hw, c,
+            num_groups, dtype)
+    plan = _plan(*args, aligned=32)
+    elem = torch.empty((), dtype=dtype).element_size()
+    if hw <= _WARP_HW:
+        warp = _warp_plan(hw, c, num_groups, elem)
+        if warp is not None:
+            return warp
+    if batch is not None and plan["slice"] * elem > 64 \
+            and batch * c // plan["slice"] < _FWD_ITEMS:
+        plan = _plan(*args, row_bytes=64, aligned=32)
+    return plan
+
+
+def _warp_plan(hw: int, c: int, num_groups: int, elem: int):
+    """A warp a work item (``threads`` 32, the pieces in registers, no
+    shared memory): the widest slice of at most 128 bytes whose pieces fit
+    ``_WARP_PIECES`` a lane, where the groups fold within a lane's piece
+    or over a power of two of lanes; else None."""
+    cg, nv = c // num_groups, 16 // elem
+    k = cg // nv
+    if not (nv % cg == 0 if cg <= nv else cg % nv == 0 and not k & (k - 1)):
+        return None
+    for kk in range(num_groups, 0, -1):
+        s = kk * cg
+        if num_groups % kk or s * elem % 16 or s * elem > 128:
+            continue
+        lanes = 1 << max(0, (s // nv - 1).bit_length())
+        if -(-hw // (32 // lanes)) <= _WARP_PIECES:
+            return dict(slice=s, cluster=1, resident=hw, threads=32, smem=0)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def plan_backward(hw: int, c: int, num_groups: int, dtype) -> dict:
+    """The backward kernel's geometry, planned as :func:`plan_forward`
+    plans the forward's, for a block that stages x and the cotangent and
+    a slice of at most 512 channels."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    return _plan("group_norm_act_backward", _bwd_smem, 2, 512 * elem,
+                 _BWD_SMALL_TILE, hw, c, num_groups, dtype)
 
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _bwd_lib():
-    lib = build.load("group_norm_bwd.cu")
-    fn = lib.psld_gn_bwd
+def _lib(src: str, fn_name: str, argtypes: list):
+    lib = build.load(src)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [
-            ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = argtypes
     return lib
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# psld_gn_fwd(x, y, scale, scale_bf16, bias, bias_bf16, b, hw, c, cgrp,
+# slice, cluster, resident, threads, act, chain, eps, dtype, stream)
+_FWD_ARGS = [_P, _P, _P, _I, _P, _I] + [_I] * 10 + [ctypes.c_float, _I, _P]
+# psld_gn_bwd(x, g, dx, scale, scale_bf16, bias, bias_bf16, part, done,
+# dscale, dbias, b, hw, c, cgrp, slice, cluster, resident, threads, act,
+# chain, eps, need_params, dtype, stream)
+_BWD_ARGS = [_P] * 4 + [_I, _P, _I] + [_P] * 4 + [_I] * 10 + [
+    ctypes.c_float, _I, _I, _P]
 
 
 # the backward kernel's per-slice counts of finished batch elements, one
@@ -311,10 +315,69 @@ def _check_kernel_args(what: str, x, scale, bias, num_groups: int) -> None:
                          "unsupported")
     if not x.is_contiguous():
         raise ValueError(f"{what} kernel needs contiguous NHWC")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what} kernel needs x on a 16-byte boundary")
     for p in (scale, bias):
-        if p.shape != (c,) or not p.is_contiguous() or p.device != x.device:
+        if p.shape != (c,) or not p.is_contiguous() or p.device != x.device \
+                or p.dtype not in _KERNEL_DTYPES:
             raise ValueError(f"{what} kernel: scale/bias must be contiguous "
-                             "(C,) on the input's device")
+                             "f32 or bf16 (C,) on the input's device")
+
+
+def _chain(x) -> bool:
+    """Whether the kernels run the ``gn_bf16`` chain for ``x``: read at
+    every call, as the plain version reads it."""
+    return x.dtype == torch.bfloat16 and knobs.gn_bf16()
+
+
+def _forward(x, scale, bias, num_groups: int, eps: float, act: str,
+             chain: bool):
+    b, h, w, c = x.shape
+    plan = plan_forward(h * w, c, num_groups, x.dtype, b)
+    y = torch.empty_like(x)
+    lib = _lib("group_norm_fwd.cu", "psld_gn_fwd", _FWD_ARGS)
+    with torch.cuda.device(x.device):
+        err = lib.psld_gn_fwd(
+            x.data_ptr(), y.data_ptr(), scale.data_ptr(), _BF16[scale.dtype],
+            bias.data_ptr(), _BF16[bias.dtype], b, h * w, c,
+            c // num_groups, plan["slice"], plan["cluster"],
+            plan["resident"], plan["threads"], _ACT_CODE[act], int(chain),
+            float(eps), _BF16[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "group_norm_act kernel launch")
+    group_norm_act.launches += 1
+    return y
+
+
+def _backward(x, scale, bias, g, num_groups: int, eps: float, act: str,
+              need_params: bool, chain: bool):
+    if g.data_ptr() % 16:
+        raise ValueError("group_norm_act_backward kernel needs the "
+                         "cotangent on a 16-byte boundary")
+    b, h, w, c = x.shape
+    plan = plan_backward(h * w, c, num_groups, x.dtype)
+    dx = torch.empty_like(x)
+    if need_params:
+        part = torch.empty((2, c, b), dtype=torch.float32, device=x.device)
+        dscale = torch.empty_like(scale)
+        dbias = torch.empty_like(bias)
+        done = _done_counts(x.device)
+    lib = _lib("group_norm_bwd.cu", "psld_gn_bwd", _BWD_ARGS)
+    with torch.cuda.device(x.device):
+        err = lib.psld_gn_bwd(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), scale.data_ptr(),
+            _BF16[scale.dtype], bias.data_ptr(), _BF16[bias.dtype],
+            *((part.data_ptr(), done.data_ptr(), dscale.data_ptr(),
+               dbias.data_ptr()) if need_params else (None,) * 4),
+            b, h * w, c, c // num_groups, plan["slice"], plan["cluster"],
+            plan["resident"], plan["threads"], _ACT_CODE[act], int(chain),
+            float(eps), int(need_params), _BF16[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "group_norm_act_backward kernel launch")
+    group_norm_act_backward.launches += 1
+    if not need_params:
+        return dx, None, None
+    return dx, dscale, dbias
 
 
 def group_norm_act_backward_plain(x, scale, bias, g, num_groups: int,
@@ -334,7 +397,8 @@ def group_norm_act_backward(x, scale, bias, g, num_groups: int,
     back to (dx, dscale, dbias), in the dtypes of x, scale and bias;
     ``need_params=False`` (a gradient into the input alone, as classifier
     guidance takes) gives (dx, None, None) and skips the sum over the
-    batch.
+    batch. Under ``gn_bf16`` a bf16 x takes the gradient of the bf16
+    chain.
 
     A CPU tensor runs :func:`group_norm_act_backward_plain`. A CUDA tensor
     launches the CUDA C++ backward kernel
@@ -356,70 +420,41 @@ def group_norm_act_backward(x, scale, bias, g, num_groups: int,
         raise ValueError("group_norm_act_backward kernel: the cotangent "
                          "must be contiguous NHWC of x's shape, dtype and "
                          "device")
-    for p in (scale, bias):
-        if p.dtype not in _KERNEL_DTYPES:
-            raise ValueError("group_norm_act_backward kernel: scale and bias "
-                             "must be f32 or bf16")
-    if x.data_ptr() % 16 or g.data_ptr() % 16:
-        raise ValueError("group_norm_act_backward kernel needs x and the "
-                         "cotangent on 16-byte boundaries")
-    b, h, w, c = x.shape
-    plan = plan_backward(h * w, c, num_groups, x.dtype)
-    dx = torch.empty_like(x)
-    if need_params:
-        part = torch.empty((2, c, b), dtype=torch.float32, device=x.device)
-        dscale = torch.empty_like(scale)
-        dbias = torch.empty_like(bias)
-        done = _done_counts(x.device)
-    lib = _bwd_lib()
-    with torch.cuda.device(x.device):
-        err = lib.psld_gn_bwd(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), scale.data_ptr(),
-            _BF16[scale.dtype], bias.data_ptr(), _BF16[bias.dtype],
-            *((part.data_ptr(), done.data_ptr(), dscale.data_ptr(),
-               dbias.data_ptr()) if need_params else (None,) * 4),
-            b, h * w, c, c // num_groups, plan["slice"], plan["cluster"],
-            plan["resident"], plan["threads"], _ACT_CODE[act], float(eps),
-            int(need_params), _BF16[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    build.check(lib, err, "group_norm_act_backward kernel launch")
-    group_norm_act_backward.launches += 1
-    if not need_params:
-        return dx, None, None
-    return dx, dscale, dbias
+    return _backward(x, scale, bias, g, num_groups, eps, act, need_params,
+                     _chain(x))
 
 
 group_norm_act_backward.launches = 0
 
 
 class _GroupNormAct(torch.autograd.Function):
-    """Forward and backward kernels; saves x, scale and bias only."""
+    """Forward and backward kernels; saves x, scale and bias only. The
+    backward differentiates the chain the forward ran."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps, act):
         ctx.save_for_backward(x, scale, bias)
         ctx.args = (num_groups, eps, act)
-        y = _launch(x, scale, bias, num_groups, eps, act)
-        group_norm_act.launches += 1
-        return y
+        ctx.chain = _chain(x)
+        return _forward(x, scale, bias, num_groups, eps, act, ctx.chain)
 
     @staticmethod
     def backward(ctx, g):
-        grads = group_norm_act_backward(
-            *ctx.saved_tensors, g.contiguous(), *ctx.args,
-            need_params=any(ctx.needs_input_grad[1:3]))
+        grads = _backward(*ctx.saved_tensors, g.contiguous(), *ctx.args,
+                          any(ctx.needs_input_grad[1:3]), ctx.chain)
         return (*grads, None, None, None)
 
 
 def group_norm_act(x, scale, bias, num_groups: int, eps: float = 1e-6,
                    act: str = "none"):
     """NHWC (B, H, W, C) GroupNorm + act, differentiable in x, scale and
-    bias.
+    bias; under ``gn_bf16`` a bf16 x runs the bf16 chain of
+    :func:`group_norm_act_plain`.
 
     A CPU tensor runs :func:`group_norm_act_plain`. A CUDA tensor launches
-    the Triton kernel (``group_norm_act.launches`` counts the calls), and
-    its gradient the backward kernel, or raises on what the kernels do not
-    take."""
+    the CUDA C++ forward kernel (``group_norm_act.launches`` counts the
+    launches), and its gradient the backward kernel, or raises on what the
+    kernels do not take."""
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":

@@ -49,7 +49,8 @@ import torch  # noqa: E402
 from chip_smoke import FLAGSHIP_ARGS, TRAIN_ARGS  # noqa: E402
 
 KINDS = [  # (label, substrings of the kernel's name), first match wins
-    ("GroupNorm forward kernel (Triton)", ("_gn_fwd",)),
+    ("GroupNorm forward kernel (CUDA C++)", ("gn_fwd_kernel",
+                                             "gn_fwd_warp_kernel")),
     ("GroupNorm backward kernel (CUDA C++)", ("gn_bwd_kernel",)),
     ("hash dropout kernel (Triton)", ("_hash_dropout",)),
     ("attention kernel (CUDA C++)", ("attention_bf16_kernel",

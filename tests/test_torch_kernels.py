@@ -10,15 +10,20 @@ guidance classifier's shapes (GroupNorm at H*W = 16, attention over N =
 counts that fill no key tile and widths that are no multiple of 16, the
 GroupNorm backward over a cluster of blocks at H*W = 1024, one capture
 and replay of each redesigned kernel in a CUDA graph, rows and channels of the
-fused bias + leaky ReLU that fit no vector width, and the inputs the
-wrappers refuse. They need a
+fused bias + leaky ReLU that fit no vector width, the GroupNorm kernels
+under ``gn_bf16`` against the plain version's bf16 chain, and the inputs
+the wrappers refuse (a misaligned x among them). They need a
 CUDA device (the CUDA source is built for sm_90a) and skip without one:
 
     python -m pytest -m cuda --noconftest tests/test_torch_kernels.py
 
 Tolerances: f32 1e-5 (the same f32 arithmetic, summed in another order);
 bf16 1e-2 (one rounding of equal f32 values to the output dtype, which
-may fall on either side of a rounding boundary). The dropout and fused
+may fall on either side of a rounding boundary). Under ``gn_bf16`` the
+GroupNorm forward is held bit for bit on at least ``GN_BF16_EQUAL`` of
+the elements and to the bf16 tolerance on the rest (a sum in another
+order can move a group's mean or rstd across a bf16 rounding boundary),
+its backward to 1e-2 of each gradient's scale. The dropout and fused
 bias + leaky ReLU kernels are held bit for bit.
 """
 
@@ -31,6 +36,8 @@ from psld_tpu_torch import ops
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+GN_BF16_EQUAL = 0.99
+ACTS = ("none", "swish", "relu", "elu", "lrelu")
 
 
 @pytest.fixture
@@ -78,11 +85,57 @@ def test_group_norm_act_kernel_matches_plain(card, shape, groups, dtype):
 def test_group_norm_act_kernel_refuses_what_it_does_not_take(card):
     x = rand((2, 4, 4, 32), 0, torch.float32, card)
     s, b = torch.ones(32, device=card), torch.zeros(32, device=card)
-    for bad in (x.double(), x.half(), x.permute(0, 2, 1, 3), x[..., :30]):
+    # contiguous, but 4 bytes past a 16-byte boundary
+    off = torch.zeros(1 + x.numel(), device=card)[1:].view(x.shape)
+    for bad in (x.double(), x.half(), x.permute(0, 2, 1, 3), x[..., :30],
+                off):
         with pytest.raises(ValueError):
             ops.group_norm_act(bad, s, b, 8)
     with pytest.raises(ValueError):
         ops.group_norm_act(x, s.cpu(), b, 8)
+
+
+GN_BF16_SHAPES = [
+    ((4, 32, 32, 256), 32),  # the flagship's H*W = 1024, C = 256
+    ((4, 8, 8, 512), 32),    # its H*W = 64, C = 512
+    ((3, 5, 7, 40), 10),     # ragged pixel tile, 20-channel slices
+]
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("shape,groups", GN_BF16_SHAPES)
+def test_group_norm_act_kernel_follows_gn_bf16(card, monkeypatch, shape,
+                                               groups, act):
+    """Under gn_bf16 a bf16 x runs the plain version's bf16 chain: at
+    least GN_BF16_EQUAL of the elements bit-equal, the rest within the
+    bf16 tolerance. The share tells the chains apart: the plain f32 chain
+    against the plain bf16 chain falls below it."""
+    x = rand(shape, 0, torch.bfloat16, card, 2.0, 0.5)
+    c = shape[-1]
+    scale = rand((c,), 1, torch.float32, card, 0.1, 1.0)
+    bias = rand((c,), 2, torch.float32, card, 0.1)
+    f32_chain = ops.group_norm_act_plain(x, scale, bias, groups, 1e-6, act)
+    monkeypatch.setenv("PSLD_GN_BF16", "1")
+    got = ops.group_norm_act(x, scale, bias, groups, 1e-6, act)
+    want = ops.group_norm_act_plain(x, scale, bias, groups, 1e-6, act)
+    assert_close(got, want, TOL[torch.bfloat16])
+    assert float((got == want).float().mean()) >= GN_BF16_EQUAL
+    assert float((f32_chain == want).float().mean()) < GN_BF16_EQUAL
+
+
+def test_group_norm_act_kernel_replays_from_a_cuda_graph(card, monkeypatch):
+    shape = (4, 32, 32, 256)
+    x = rand(shape, 0, torch.bfloat16, card, 2.0, 0.5)
+    scale = rand((256,), 2, torch.bfloat16, card, 0.1, 1.0)
+    bias = rand((256,), 3, torch.bfloat16, card, 0.1)
+    for on in ("0", "1"):
+        monkeypatch.setenv("PSLD_GN_BF16", on)
+        n = ops.group_norm_act.launches
+        got = _graph_replay(lambda: ops.group_norm_act(
+            x, scale, bias, 32, 1e-6, "swish"))
+        assert ops.group_norm_act.launches == n + 2
+        assert torch.equal(got, ops.group_norm_act(x, scale, bias, 32, 1e-6,
+                                                   "swish"))
 
 
 @pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
@@ -261,10 +314,45 @@ def test_group_norm_act_autograd_goes_through_both_kernels(card):
             assert abs(float(got[idx]) - fd) <= 2e-2 * ref, (which, idx)
 
 
+@pytest.mark.parametrize("shape,groups", GN_BF16_SHAPES + [
+    ((2, 4, 4, 256), 32),    # the classifier's 4x4 level: H*W = 16
+    ((2, 32, 32, 384), 32),  # 12-channel groups
+])
+def test_group_norm_act_backward_kernel_follows_gn_bf16(card, monkeypatch,
+                                                        shape, groups):
+    """Under gn_bf16 the backward kernel differentiates the bf16 chain:
+    dx, dscale and dbias within 1e-2 of each gradient's scale of autograd
+    through the plain version's bf16 chain, for every activation. At the
+    kink of relu and leaky relu the two can take z's sign apart (where a
+    group's mean or rstd rounds the other way), and such an element's dx
+    differs by its whole size: there at most 1e-3 of dx may lie outside."""
+    monkeypatch.setenv("PSLD_GN_BF16", "1")
+    x = rand(shape, 0, torch.bfloat16, card, 2.0, 0.5)
+    g = rand(shape, 3, torch.bfloat16, card)
+    c = shape[-1]
+    scale = rand((c,), 1, torch.float32, card, 0.1, 1.0)
+    bias = rand((c,), 2, torch.float32, card, 0.1)
+    for act in ACTS:
+        got = ops.group_norm_act_backward(x, scale, bias, g, groups, 1e-6,
+                                          act)
+        want = ops.group_norm_act_backward_plain(x, scale, bias, g, groups,
+                                                 1e-6, act)
+        torch.cuda.synchronize()
+        for a, w, name in zip(got, want, ("dx", "dscale", "dbias")):
+            assert a.dtype == w.dtype and a.shape == w.shape
+            ref = float(w.float().abs().max()) + 1e-6
+            diff = (a.float() - w.float()).abs()
+            if name == "dx" and act in ("relu", "lrelu"):
+                assert float((diff > 1e-2 * ref).float().mean()) <= 1e-3
+            else:
+                assert float(diff.max()) <= 1e-2 * ref, (act, name)
+
+
 def test_group_norm_act_backward_kernel_refuses_what_it_does_not_take(card):
     x = rand((2, 4, 4, 32), 0, torch.float32, card)
     s, b = torch.ones(32, device=card), torch.zeros(32, device=card)
-    for bad_g in (x.bfloat16(), x.permute(0, 2, 1, 3), x[:1]):
+    off = torch.zeros(1 + x.numel(), device=card)[1:].view(x.shape)
+    for bad_g in (x.bfloat16(), x.permute(0, 2, 1, 3), x[:1], off):
         with pytest.raises(ValueError):
             ops.group_norm_act_backward(x, s, b, bad_g, 8)
     with pytest.raises(ValueError):
