@@ -60,6 +60,28 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     and attention call through the kernels.
 15. sscs: ``psld_tpu_torch.cli.sample`` with SSCS-2M on the quadratic grid,
     50 NFE at batch 64, bf16, from the train checkpoint.
+16. pc_check, inpaint_check, edit_check (run right after the [sscs]
+    check): 3-NFE float32 trajectories of the flagship at B=2 on the card
+    against the CPU with the same injected draws, within 1e-4 of scale:
+    EM and SSCS-2M with one Langevin corrector step a step, inpainting
+    under the square mask (its known region equal to x_0 within 1e-2),
+    and editing from edit_t0 = 0.5.
+17. inpaint: ``psld_tpu_torch.cli.inpaint`` from the train checkpoint on
+    the synthetic set with square masks, batch 64, 20-NFE bf16: 64
+    samples, ground truths and masked inputs as PNGs, the known region of
+    each sample within one level of its ground truth.
+18. edit: ``psld_tpu_torch.cli.edit`` the same way, edit_t0 = 0.5.
+19. pc: ``psld_tpu_torch.cli.sample`` with a Langevin corrector (one step),
+    10 NFE of EM and of SSCS-2M, batch 64, bf16.
+20. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
+    width with 100 NFE (its default is 1000) and its train phase; its line
+    is printed after ``[bench] line:``, its img/s and MFU shares must be
+    positive, the shares at most 1.05.
+
+Every path (train, sample, train_clf, guided, sscs, inpaint, edit, pc,
+bench) is driven with the kernels' launch counts set to 0 just before it
+and must launch exactly the kernels its network calls, as many times as
+its forwards and steps need.
 
 Each kernel's time stands beside its bound (the larger of its bytes over
 3.35 TB/s and its operations over the card's peak for their type, from
@@ -87,6 +109,8 @@ import psld_tpu_torch  # noqa: E402,F401
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+from psld_tpu_torch.eval import bench  # noqa: E402
 
 BATCH = 64
 SAMPLE_NFE = 100
@@ -124,23 +148,18 @@ CLF_DROPOUT_SITES = sum(n for _, _, n in CLF_DROPOUT_CALLS)
 CLF_TRAIN_BATCH = 32
 GUIDED_NFE = 20
 SSCS_NFE = 50
+INPAINT_NFE = EDIT_NFE = 20
+PC_NFE = 10
+BENCH_NFE = 100
 # (rows, C) of the fused bias + leaky ReLU phase: the flagship's
 # activations at batch 128 seen as (B*H*W, C), its temb width, an odd one
 FUSED_ACT_SHAPES = [(128 * 1024, 256), (128 * 256, 256), (128 * 64, 512),
                     (128, 512), (1000, 6)]
 
-# the flagship option set of psld_tpu/eval/bench.py
-FLAGSHIP_ARGS = [
-    "+dataset=cifar10/cifar10_psld",
-    "dataset.diffusion.data.root=/unused",
+# the flagship option set of the bench (psld_tpu/eval/bench.py's), at
+# its full width, with gn_bf16 and the sampling SDE
+FLAGSHIP_ARGS = bench.FLAGSHIP_ARGS + [
     "dataset.diffusion.model.score_fn.nf=128",
-    "dataset.diffusion.model.score_fn.ch_mult=[2,2,2]",
-    "dataset.diffusion.model.score_fn.num_res_blocks=8",
-    "dataset.diffusion.model.score_fn.attn_resolutions=[16]",
-    "dataset.diffusion.model.score_fn.dropout=0.15",
-    "dataset.diffusion.model.score_fn.progressive_input=residual",
-    "dataset.diffusion.model.score_fn.fir=True",
-    "dataset.diffusion.model.score_fn.embedding_type=fourier",
     "+dataset.diffusion.model.score_fn.gn_bf16=True",
     "dataset.diffusion.model.sde.nu=4.02",
     "dataset.diffusion.model.sde.gamma=0.02",
@@ -782,11 +801,9 @@ def counts():
 
 
 def flagship_weights(net, seed: int = 0) -> dict:
-    """Every parameter N(0, 1) * 0.02 from a numpy seed, in key order."""
-    rng = np.random.default_rng(seed)
-    return {k: torch.from_numpy((rng.standard_normal(tuple(v.shape))
-                                 * 0.02).astype(np.float32))
-            for k, v in sorted(net.state_dict().items())}
+    """Every parameter N(0, 1) * 0.02 from a numpy seed, in key order, as
+    the bench draws them."""
+    return bench.random_weights(net, np.random.default_rng(seed))
 
 
 def phase_net(card, cfg):
@@ -1381,6 +1398,317 @@ def phase_sscs(card, work, ckpt):
     return n, {"ms_nfe": ms_nfe, "img_s": img_s}
 
 
+class NamedDraws:
+    """Injected standard normal draws by the samplers' names: each name
+    is drawn once, from a numpy seed, at the shape of the first request,
+    so the CPU and the card runs see the same numbers."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.draws: dict = {}
+
+    def __call__(self, name, like):
+        if name not in self.draws:
+            self.draws[name] = torch.from_numpy(self.rng.standard_normal(
+                tuple(like.shape)).astype(np.float32))
+        return self.draws[name].to(like.device)
+
+
+def card_vs_cpu(cfg, weights, run, what: str):
+    """``run(score_fn, device)`` with a CPU and a card copy of the flagship
+    (float32, ``weights``): the card's output within 1e-4 of the CPU
+    output's scale, as ``net`` holds EM. Returns (card, CPU) outputs on
+    the host and the error and scale."""
+    from psld_tpu_torch.eval.generate import build_score_model, make_score_fn
+
+    outs = []
+    with torch.inference_mode():
+        for dev in ("cpu", "cuda"):
+            net = build_score_model(cfg).eval()
+            net.load_state_dict(weights, strict=True)
+            outs.append(run(make_score_fn(net.to(dev)), dev).cpu())
+            del net
+    scale = float(outs[0].abs().max())
+    err = max_err(outs[1], outs[0])
+    check(bool(torch.isfinite(outs[1]).all()) and err <= 1e-4 * scale,
+          f"{what}: card vs CPU max abs error {err:.3e} (scale {scale:.3e})")
+    torch.cuda.empty_cache()
+    return outs[1], outs[0], err, scale
+
+
+def phase_pc_check(card, cfg, weights):
+    """3-NFE float32 trajectories of the flagship at B=2 with one Langevin
+    corrector step (snr 0.16) after each step, EM and SSCS-2M, on the
+    card against the CPU with the same injected predictor and corrector
+    draws: within 1e-4 of scale."""
+    from psld_tpu_torch.samplers import (EulerMaruyamaSampler, SSCS2MSampler,
+                                         build_corrector, make_timesteps)
+    from psld_tpu_torch.train.loop import build_sde
+
+    t0 = time.perf_counter()
+    sde = build_sde(cfg)
+    z0 = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        (2, 32, 32, 6)).astype(np.float32))
+    for cls, seed in ((EulerMaruyamaSampler, 22), (SSCS2MSampler, 23)):
+        draws = NamedDraws(seed)
+
+        def run(score, dev):
+            sampler = cls(cfg, sde, score,
+                          corrector_fn=build_corrector(cfg, sde, score))
+            return sampler.sample(None, z0.to(dev), make_timesteps(2, 1e-3),
+                                  2, denoise=True, eps=1e-3, noise=draws)
+
+        _, _, err, scale = card_vs_cpu(cfg, weights, run,
+                                       f"pc_check {cls.__name__}")
+        n_corr = sum(isinstance(k, tuple) for k in draws.draws)
+        check(n_corr == 2, f"pc_check: {n_corr} corrector draws, not 2")
+        say(f"[pc_check] 3-NFE f32 {cls.__name__} + Langevin (1 step a "
+            f"step) of the flagship: card == CPU (max abs err {err:.3e}, "
+            f"{err / scale:.2e} of scale {scale:.3e}; tol 1e-4)")
+    say(f"[pc_check] phase {time.perf_counter() - t0:.1f} s")
+
+
+def square_mask(batch: int, size: int = 32) -> torch.Tensor:
+    """``InpaintDataset``'s square mask: 1 on the known frame, 0 on the
+    centre square of half the side."""
+    m = torch.ones(batch, size, size, 3)
+    q = size // 4
+    m[:, q: 3 * q, q: 3 * q] = 0.0
+    return m
+
+
+def phase_inpaint_check(card, cfg, weights):
+    """A 3-NFE float32 inpainting trajectory (``ip_em_sde``) of the
+    flagship at B=2 under the square mask, on the card against the CPU
+    with the same injected draws: within 1e-4 of scale; the known region
+    of the card's sample equals x_0 within 1e-2."""
+    from psld_tpu_torch.samplers import EulerMaruyamaInpainter, make_timesteps
+    from psld_tpu_torch.train.loop import build_sde
+
+    t0 = time.perf_counter()
+    sde = build_sde(cfg)
+    x0 = torch.from_numpy(np.random.default_rng(24).uniform(
+        -1, 1, (2, 32, 32, 3)).astype(np.float32))
+    mask = square_mask(2)
+    draws = NamedDraws(25)
+
+    def run(score, dev):
+        return EulerMaruyamaInpainter(cfg, sde, score).sample(
+            None, (x0.to(dev), mask.to(dev)), make_timesteps(2, 1e-3), 2,
+            denoise=True, eps=1e-3, noise=draws)
+
+    got, _, err, scale = card_vs_cpu(cfg, weights, run, "inpaint_check")
+    known = mask == 1
+    k_err = max_err(got[..., :3][known], x0[known])
+    check(k_err <= 1e-2, f"inpaint_check: known region off x_0 by {k_err}")
+    say(f"[inpaint_check] 3-NFE f32 ip_em_sde of the flagship, square mask: "
+        f"card == CPU (max abs err {err:.3e}, {err / scale:.2e} of scale "
+        f"{scale:.3e}; tol 1e-4); known region == x_0 (max abs err "
+        f"{k_err:.2e}; tol 1e-2); phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_edit_check(card, cfg, weights):
+    """A 3-NFE float32 editing trajectory (``edit_em_sde``, edit_t0 0.5)
+    of the flagship at B=2 on the card against the CPU with the same
+    injected draws: within 1e-4 of scale."""
+    from psld_tpu_torch.samplers import EditEulerMaruyamaSampler, \
+        make_timesteps
+    from psld_tpu_torch.train.loop import build_sde
+
+    t0 = time.perf_counter()
+    sde = build_sde(cfg)
+    x0 = torch.from_numpy(np.random.default_rng(26).uniform(
+        -1, 1, (2, 32, 32, 3)).astype(np.float32))
+    draws = NamedDraws(27)
+
+    def run(score, dev):
+        return EditEulerMaruyamaSampler(cfg, sde, score).sample(
+            None, x0.to(dev), make_timesteps(2, 1e-3), 2, denoise=True,
+            eps=1e-3, noise=draws)
+
+    _, _, err, scale = card_vs_cpu(cfg, weights, run, "edit_check")
+    say(f"[edit_check] 3-NFE f32 edit_em_sde (edit_t0 0.5) of the flagship: "
+        f"card == CPU (max abs err {err:.3e}, {err / scale:.2e} of scale "
+        f"{scale:.3e}; tol 1e-4); phase {time.perf_counter() - t0:.1f} s")
+
+
+def _pngs(path):
+    return sorted(f for f in os.listdir(path) if f.endswith(".png"))
+
+
+def _eval_args(ckpt, out_dir, nfe):
+    return [f"dataset.diffusion.evaluation.chkpt_path={ckpt}",
+            f"dataset.diffusion.evaluation.save_path={out_dir}",
+            f"dataset.diffusion.evaluation.batch_size={BATCH}",
+            f"dataset.diffusion.evaluation.n_samples={BATCH}",
+            f"dataset.diffusion.evaluation.n_discrete_steps={nfe}",
+            "dataset.diffusion.evaluation.sample_from=source",
+            "+dataset.diffusion.evaluation.bf16=True",
+            "+dataset.diffusion.evaluation.device=cuda"]
+
+
+def _one_batch(batches, nfe: int, what: str):
+    check(len(batches) == 1 and batches[0]["samples"] == BATCH,
+          f"{what} drew {batches}")
+    row = batches[0]
+    check(row["nonfinite"] == 0, f"{what}: {row['nonfinite']} non-finite")
+    check(row["nfe"] == nfe, f"{what} sampled with {row['nfe']} NFE")
+    return row
+
+
+def phase_inpaint(card, work, ckpt):
+    """``cli.inpaint`` from the checkpoint of ``train`` on the synthetic
+    set (square masks: no MNIST under the run's data root), batch 64, bf16, ``INPAINT_NFE`` NFE:
+    samples, ground truth and masked input written under one set of
+    names; the known region of every sample PNG equals the ground truth
+    PNG within one level of 255."""
+    from PIL import Image
+
+    from psld_tpu_torch.cli import inpaint as inpaint_cli
+
+    out_dir = os.path.join(work, "inpaint")
+    # a data root inside the run's directory: no MNIST there, so the
+    # masks are the square ones whatever the host holds
+    data_root = os.path.join(work, "inpaint_data")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    batches = inpaint_cli.main(FLAGSHIP_ARGS + [
+        "dataset.diffusion.data.name=synthetic",
+        f"dataset.diffusion.data.root={data_root}"] + _eval_args(
+        ckpt, out_dir, INPAINT_NFE))
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    row = _one_batch(batches, INPAINT_NFE, "inpaint")
+    names = {d: _pngs(os.path.join(out_dir, d))
+             for d in ("images", "batch", "corrupt")}
+    check(len(names["images"]) == BATCH
+          and names["images"] == names["batch"] == names["corrupt"],
+          f"inpaint wrote {[len(v) for v in names.values()]} PNGs")
+    known = square_mask(1)[0].numpy() == 1
+    worst = 0
+    for f in names["images"]:
+        got, want = (np.asarray(Image.open(os.path.join(out_dir, d, f)),
+                                np.int16) for d in ("images", "batch"))
+        worst = max(worst, int(np.abs(got - want)[known].max()))
+    check(worst <= 1, f"inpaint: known region off the ground truth by "
+          f"{worst} levels")
+    want = expected(group_norm_act=GN_PER_FWD * INPAINT_NFE,
+                    attention=ATTN_PER_FWD * INPAINT_NFE)
+    check(n == want, f"inpainting launched {n}, expected {want}")
+    say(f"[inpaint] cli.inpaint from the trained checkpoint, synthetic set, "
+        f"square masks: {BATCH} samples, ground truths and masked inputs "
+        f"as PNGs, finite, known region within {worst} level of the ground "
+        f"truth; batch {BATCH}, {INPAINT_NFE}-NFE EM (bf16 net): "
+        f"{row['seconds'] / INPAINT_NFE * 1e3:.2f} ms/NFE (trajectory "
+        f"{row['seconds']:.2f} s, entry point {wall:.2f} s), peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated; {card}")
+    say(f"[inpaint] kernel launches in the run: {n}")
+    return n
+
+
+def phase_edit(card, work, ckpt):
+    """``cli.edit`` from the checkpoint of ``train`` on the synthetic set,
+    edit_t0 0.5, batch 64, bf16, ``EDIT_NFE`` NFE."""
+    from psld_tpu_torch.cli import edit as edit_cli
+
+    out_dir = os.path.join(work, "edit")
+    reset_counts()
+    t0 = time.perf_counter()
+    batches = edit_cli.main(FLAGSHIP_ARGS + [
+        "dataset.diffusion.data.name=synthetic",
+        "+dataset.diffusion.evaluation.sampler.edit_t0=0.5"] + _eval_args(
+        ckpt, out_dir, EDIT_NFE))
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    row = _one_batch(batches, EDIT_NFE, "edit")
+    pngs = _pngs(os.path.join(out_dir, "images"))
+    check(len(pngs) == BATCH and sorted(os.listdir(out_dir)) == ["images"],
+          f"edit wrote {len(pngs)} PNGs and {os.listdir(out_dir)}")
+    want = expected(group_norm_act=GN_PER_FWD * EDIT_NFE,
+                    attention=ATTN_PER_FWD * EDIT_NFE)
+    check(n == want, f"editing launched {n}, expected {want}")
+    say(f"[edit] cli.edit from the trained checkpoint, synthetic set, "
+        f"edit_t0 0.5: {len(pngs)} PNGs, finite, batch {BATCH}, "
+        f"{EDIT_NFE}-NFE EM over [0.5, 1 - 1e-3] (bf16 net): "
+        f"{row['seconds'] / EDIT_NFE * 1e3:.2f} ms/NFE (trajectory "
+        f"{row['seconds']:.2f} s, entry point {wall:.2f} s); {card}")
+    say(f"[edit] kernel launches in the run: {n}")
+    return n
+
+
+def phase_pc(card, work, ckpt):
+    """``cli.sample`` with ``corrector=langevin`` (one step, snr 0.16) from
+    the checkpoint of ``train``, batch 64, bf16, ``PC_NFE`` NFE of EM and
+    then of SSCS-2M on the quadratic grid. A corrector step is one more
+    network forward after each step but the mean-only denoise one, so a
+    run of N NFE makes 2N - 1 forwards."""
+    from psld_tpu_torch.cli import sample as sample_cli
+
+    reset_counts()
+    rows = []
+    for name, extra in (("em_sde", []), ("sscs2m_sde", [
+            "dataset.diffusion.evaluation.stride_type=quadratic"])):
+        out_dir = os.path.join(work, f"pc_{name}")
+        batches = sample_cli.main(FLAGSHIP_ARGS + extra + [
+            f"dataset.diffusion.evaluation.sampler.name={name}",
+            "+dataset.diffusion.evaluation.sampler.corrector=langevin",
+            "+dataset.diffusion.evaluation.sampler.corrector_steps=1",
+        ] + _eval_args(ckpt, out_dir, PC_NFE))
+        rows.append(_one_batch(batches, PC_NFE, f"pc {name}"))
+        check(len(_pngs(os.path.join(out_dir, "images"))) == BATCH,
+              f"pc {name} wrote no {BATCH} PNGs")
+    n = all_counts()
+    fwd = 2 * (2 * PC_NFE - 1)
+    want = expected(group_norm_act=GN_PER_FWD * fwd,
+                    attention=ATTN_PER_FWD * fwd)
+    check(n == want, f"predictor-corrector sampling launched {n}, expected "
+          f"{want}")
+    say(f"[pc] cli.sample + Langevin corrector (1 step), {PC_NFE} NFE of EM "
+        f"and of SSCS-2M (quadratic), batch {BATCH}, bf16 net: {BATCH} "
+        f"finite PNGs each; {rows[0]['seconds']:.2f} s and "
+        f"{rows[1]['seconds']:.2f} s a trajectory of {2 * PC_NFE - 1} "
+        f"forwards ({rows[0]['seconds'] / (2 * PC_NFE - 1) * 1e3:.2f} and "
+        f"{rows[1]['seconds'] / (2 * PC_NFE - 1) * 1e3:.2f} ms a forward); "
+        f"{card}")
+    say(f"[pc] kernel launches in the run: {n} (2 x {2 * PC_NFE - 1} "
+        f"forwards)")
+    return n
+
+
+def phase_bench(card):
+    """``psld_tpu_torch.eval.bench.run_bench`` in this process at the
+    flagship's full width with ``BENCH_NFE`` NFE (the bench's default is
+    1000) and its train phase; its line is printed, and its img/s and MFU
+    shares must be positive, the shares at most 1.05."""
+    reset_counts()
+    t0 = time.perf_counter()
+    line = bench.run_bench(nfe=BENCH_NFE)
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    say(f"[bench] line: {json.dumps(line)}")
+    for key in ("value", "train_img_per_s", "mfu_vs_h100_bf16_peak",
+                "train_mfu_vs_h100_bf16_peak"):
+        v = line.get(key)
+        check(isinstance(v, float) and v > 0 and np.isfinite(v),
+              f"bench: {key} = {v}")
+    for key in ("mfu_vs_h100_bf16_peak", "train_mfu_vs_h100_bf16_peak"):
+        check(line[key] <= 1.05, f"bench: {key} = {line[key]} > 1.05")
+    fwd = bench.WARMUP_NFE + BENCH_NFE
+    steps = bench.TRAIN_WARMUP + bench.TRAIN_TIMED
+    want = expected(group_norm_act=GN_PER_FWD * (fwd + steps),
+                    attention=ATTN_PER_FWD * (fwd + steps),
+                    group_norm_act_bwd=GN_PER_FWD * steps,
+                    hash_dropout=2 * DROPOUT_SITES * steps)
+    check(n == want, f"the bench launched {n}, expected {want}")
+    say(f"[bench] run_bench(nfe={BENCH_NFE}) in {wall:.1f} s: "
+        f"{line['value']:.4f} img/s, MFU {line['mfu_vs_h100_bf16_peak']:.4f};"
+        f" train {line['train_img_per_s']:.2f} img/s, MFU "
+        f"{line['train_mfu_vs_h100_bf16_peak']:.4f}; {line['device']}")
+    say(f"[bench] kernel launches in the run: {n}")
+    return n, line
+
+
 def combine(*timings) -> dict:
     """The timings of one path that launches a kernel at the shapes of
     two networks (guided sampling: the score network's and the
@@ -1402,7 +1730,17 @@ def combine(*timings) -> dict:
 
 # the paths the script drives, each with the batch its kernels run at
 PATHS = {"sample": BATCH, "train": TRAIN_BATCH, "train_clf": CLF_TRAIN_BATCH,
-         "guided": BATCH, "sscs": BATCH}
+         "guided": BATCH, "sscs": BATCH, "inpaint": BATCH, "edit": BATCH,
+         "pc": BATCH, "bench": [BATCH, TRAIN_BATCH]}
+# the kernels that run only in the bench's train phase, at its batch
+BENCH_TRAIN_ONLY = ("group_norm_act_bwd", "hash_dropout")
+
+
+def path_batch(path: str, name: str):
+    """The batch (or batches) at which ``path`` launches kernel ``name``."""
+    if path == "bench" and name in BENCH_TRAIN_ONLY:
+        return TRAIN_BATCH
+    return PATHS[path]
 
 
 def main() -> int:
@@ -1440,6 +1778,11 @@ def main() -> int:
     cfg = bootstrap(FLAGSHIP_ARGS).dataset.diffusion
     weights, _ = phase_net(card, cfg)
     phase_sscs_check(card, cfg, weights)
+    phase_pc_check(card, bootstrap(FLAGSHIP_ARGS + [
+        "+dataset.diffusion.evaluation.sampler.corrector=langevin"
+    ]).dataset.diffusion, weights)
+    phase_inpaint_check(card, cfg, weights)
+    phase_edit_check(card, cfg, weights)
     phase_train_check(card, weights)
     del weights
     phase_clf_check(card)
@@ -1452,26 +1795,38 @@ def main() -> int:
     clf_ckpt, n_train_clf, _ = phase_train_clf(card, work)
     n_guided, _ = phase_guided(card, work, ckpt, clf_ckpt)
     n_sscs, _ = phase_sscs(card, work, ckpt)
+    n_inpaint = phase_inpaint(card, work, ckpt)
+    n_edit = phase_edit(card, work, ckpt)
+    n_pc = phase_pc(card, work, ckpt)
+    n_bench, _ = phase_bench(card)
     on_path = {"sample": n_sample, "train": n_train,
                "train_clf": n_train_clf, "guided": n_guided,
-               "sscs": n_sscs}
+               "sscs": n_sscs, "inpaint": n_inpaint, "edit": n_edit,
+               "pc": n_pc, "bench": n_bench}
     # what each path runs, at the shapes it runs it
+    # the bench samples at 64 and trains at 128: its forward kernels'
+    # numbers add one forward at each batch
     times = {
         "group_norm_act": {
             "sample": gn["flagship64"], "train": gn["flagship128"],
             "train_clf": gn["clf32"],
             "guided": combine(gn["flagship64"], gn["clf64"]),
-            "sscs": gn["flagship64"]},
+            "sscs": gn["flagship64"], "inpaint": gn["flagship64"],
+            "edit": gn["flagship64"], "pc": gn["flagship64"],
+            "bench": combine(gn["flagship64"], gn["flagship128"])},
         "group_norm_act_bwd": {
             "train": gn_bwd["flagship128"], "train_clf": gn_bwd["clf32"],
-            "guided": gn_bwd["clf64"]},
+            "guided": gn_bwd["clf64"], "bench": gn_bwd["flagship128"]},
         "attention": {
             "sample": attn["flagship64"], "train": attn["flagship128"],
             "train_clf": attn["clf32"],
             "guided": combine(attn["flagship64"], attn["clf64"]),
-            "sscs": attn["flagship64"]},
+            "sscs": attn["flagship64"], "inpaint": attn["flagship64"],
+            "edit": attn["flagship64"], "pc": attn["flagship64"],
+            "bench": combine(attn["flagship64"], attn["flagship128"])},
         "hash_dropout": {"train": drop["flagship128"],
-                         "train_clf": drop["clf32"]},
+                         "train_clf": drop["clf32"],
+                         "bench": drop["flagship128"]},
     }
     for name, paths in times.items():
         for path in paths:
@@ -1497,8 +1852,9 @@ def main() -> int:
                     "replaces": replaces, "launches": 0, "path": None,
                     **timed, "basis": basis, "by_path": {}, **more}
         per = times[name]
-        by_path = {p: {"launches": on_path[p][name], "batch": b, **per[p]}
-                   for p, b in PATHS.items() if p in per}
+        by_path = {p: {"launches": on_path[p][name],
+                       "batch": path_batch(p, name), **per[p]}
+                   for p in PATHS if p in per}
         path = next(p for p in PATHS if p in per)
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces,
@@ -1508,9 +1864,10 @@ def main() -> int:
 
     fwd = ("bf16: device ms (CUDA-graph replay) summed over the calls of "
            "one network forward at the path's batch (guided: the score "
-           "network's and the classifier's), eager_ms the same calls made "
-           "one by one; max_abs_err of the bf16 kernel against the plain "
-           "version (GroupNorm: its gn_bf16 chain)")
+           "network's and the classifier's; bench: one forward at 64 and "
+           "one at 128), eager_ms the same calls made one by one; "
+           "max_abs_err of the bf16 kernel against the plain version "
+           "(GroupNorm: its gn_bf16 chain)")
     fused_basis = ("bf16: device ms summed over one call at each of "
                    f"{FUSED_ACT_SHAPES} (rows, C); no path of the port or "
                    "model of the JAX package calls the op, so launches is 0 "

@@ -1,10 +1,12 @@
 """Datasets (``psld_tpu/data/datasets.py``): numpy-native NHWC image sets
-for training and the prior source for generation.
+for training, the prior source for generation, and the image-and-mask
+pairs of inpainting.
 
-No downloads: CIFAR-10 is parsed from its standard pickles on disk, and a
-``synthetic`` dataset makes procedural images from a seed. Both are numpy
-on this side and in the JAX package, so the same seed gives the same
-images. The image-folder datasets (CelebA, AFHQ) are not ported yet.
+No downloads: CIFAR-10 is parsed from its standard pickles on disk, MNIST
+(the inpainting masks) from its idx file, and a ``synthetic`` dataset
+makes procedural images from a seed. All are numpy on this side and in
+the JAX package, so the same seed gives the same images. The image-folder
+datasets (CelebA, AFHQ) are not ported yet.
 """
 
 from __future__ import annotations
@@ -99,6 +101,70 @@ class SyntheticDataset(ArrayDataset):
             images[i] = (img.clip(0, 1) * 255).astype(np.uint8)
         super().__init__(images, targets, norm=norm,
                          return_target=return_target)
+
+
+def load_mnist_images(root: str) -> np.ndarray:
+    """MNIST's train images, (N, 28, 28) uint8, from the standard idx file
+    ``train-images-idx3-ubyte`` under ``root`` or ``root/MNIST/raw``."""
+    candidates = [
+        os.path.join(root, "MNIST", "raw", "train-images-idx3-ubyte"),
+        os.path.join(root, "train-images-idx3-ubyte"),
+    ]
+    for path in candidates:
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                data = f.read()
+            n = int.from_bytes(data[4:8], "big")
+            return np.frombuffer(data, np.uint8, offset=16).reshape(n, 28, 28)
+    raise FileNotFoundError(f"MNIST idx files not found under {root}")
+
+
+@register_module(category="datasets", name="inpaint")
+class InpaintDataset:
+    """Pairs base-dataset images with binary masks cut from MNIST digits:
+    mask = 1 - (digit > 0), resized nearest to the image size, repeated
+    over 3 channels; 1 marks the known region. Where MNIST is absent under
+    ``data.root``, ``mask_mode`` is ``square``: a known frame around an
+    unknown centre square of half the image's side."""
+
+    def __init__(self, config, dataset):
+        self.config = config
+        self.dataset = dataset
+        self.size = int(config.data.image_size)
+        try:
+            self._digits = load_mnist_images(config.data.root)
+            self.mask_mode = "mnist"
+        except (FileNotFoundError, ValueError):
+            self._digits = None
+            self.mask_mode = "square"
+
+    def _mask(self, idx):
+        if self.mask_mode == "mnist":
+            digit = self._digits[idx % len(self._digits)]
+            ys = (np.arange(self.size) * 28 // self.size).clip(0, 27)
+            digit = digit[np.ix_(ys, ys)]
+            mask = 1 - (digit > 0).astype(np.float32)
+        else:
+            mask = np.ones((self.size, self.size), np.float32)
+            q = self.size // 4
+            mask[q: 3 * q, q: 3 * q] = 0.0
+        return np.repeat(mask[..., None], 3, axis=-1)
+
+    def __len__(self):
+        n = int(self.config.evaluation.n_samples)
+        return min(n, len(self.dataset))
+
+    def __getitem__(self, idx):
+        img = self.dataset[idx]
+        mask = self._mask(idx)
+        if mask.shape != img.shape:
+            raise ValueError(f"mask {mask.shape} vs image {img.shape}")
+        return img, mask
+
+    def batch(self, idxs):
+        imgs = self.dataset.batch(idxs)
+        masks = np.stack([self._mask(int(i)) for i in idxs])
+        return imgs, masks
 
 
 def batch_generator(seed: int, batch_idx: int, device) -> torch.Generator:

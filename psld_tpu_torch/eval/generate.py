@@ -1,11 +1,18 @@
-"""Sampling (``psld_tpu/eval/generate.py``): unconditional
-``sample`` and classifier-guided ``class_cond_sample``.
+"""Sampling (``psld_tpu/eval/generate.py``): unconditional ``sample``,
+classifier-guided ``class_cond_sample``, ``inpaint`` and SDEdit-style
+``edit``.
 
 One device, one process: the sample count is drawn in batches of
 ``evaluation.batch_size``; batch ``k`` gets its own generator seeded from
-(``evaluation.seed``, k), which draws its prior sample and its trajectory
-noise. A tail batch is drawn full-width and sliced, as in the JAX
-package.
+(``evaluation.seed``, k), which draws its prior sample (or, for
+``inpaint`` and ``edit``, the draws that forward-diffuse its dataset
+images) and its trajectory noise. A tail batch is drawn full-width and
+sliced, as in the JAX package. ``inpaint`` and ``edit`` take batch k from
+the dataset's images k * batch_size onwards, wrapping around its end.
+
+``evaluation.sampler.corrector`` (``langevin``, with ``corrector_snr`` and
+``corrector_steps``) adds a corrector to ``sample``, ``class_cond_sample``
+and ``edit``; ``inpaint`` runs without one, as in the JAX package.
 
 ``evaluation.chkpt_path`` names a ``torch.save`` file
 ``{"params": state_dict, "ema_params": state_dict, "step": int}``;
@@ -31,13 +38,18 @@ import torch
 import psld_tpu_torch.models  # noqa: F401  (registers the score nets)
 import psld_tpu_torch.samplers  # noqa: F401  (registers the samplers)
 import psld_tpu_torch.sde  # noqa: F401  (registers the SDEs)
-from psld_tpu_torch.data.datasets import SDELatentDataset, batch_generator
-from psld_tpu_torch.eval.writers import SimpleImageWriter
 from psld_tpu_torch.config import ConfigDict
+from psld_tpu_torch.data.datasets import (InpaintDataset, SDELatentDataset,
+                                          batch_generator)
+from psld_tpu_torch.data.loader import get_dataset
+from psld_tpu_torch.eval.writers import (InpaintingImageWriter,
+                                         SimpleImageWriter)
 from psld_tpu_torch.registry import get_module
 from psld_tpu_torch.samplers.base import make_timesteps
-from psld_tpu_torch.samplers.sde_samplers import \
-    ClassCondEulerMaruyamaSampler
+from psld_tpu_torch.samplers.correctors import build_corrector
+from psld_tpu_torch.samplers.sde_samplers import (
+    ClassCondEulerMaruyamaSampler, EditEulerMaruyamaSampler,
+    EulerMaruyamaInpainter)
 
 logger = logging.getLogger(__name__)
 
@@ -90,11 +102,6 @@ def make_score_fn(net, bf16: bool = False):
 
 
 def _check_single_device(ecfg) -> None:
-    corrector = str(ecfg.sampler.get("corrector", "none"))
-    if corrector not in ("none", "None", ""):
-        raise NotImplementedError(
-            f"evaluation.sampler.corrector={corrector}: correctors are not "
-            "ported yet")
     if int(ecfg.get("num_processes", 0) or 0) > 1 or \
             int(ecfg.get("spatial", 1) or 1) > 1:
         raise NotImplementedError(
@@ -102,12 +109,42 @@ def _check_single_device(ecfg) -> None:
             "fan-out are not ported yet")
 
 
-def _run_sampler(config, sde, sampler_at, writer, latent, device,
+def _latent_source(sde, config, device):
+    """Batch source of the prior: batch k is a prior draw from its
+    generator, on ``device``."""
+    latent = SDELatentDataset(sde, config)
+    return lambda k, gen, width: latent.sample_batch(gen, width,
+                                                     device=device)
+
+
+def _dataset_source(dataset, device, images_only: bool = False):
+    """Batch source of a dataset (rank 0 of one device): batch k holds
+    the images k * width onwards, wrapping around the end, as float32
+    tensors on ``device``; a tuple where the dataset gives one (images and
+    masks), unless ``images_only``, which drops a labelled dataset's
+    labels."""
+    def batch_at(k, gen, width):
+        del gen
+        idxs = np.arange(k * width, (k + 1) * width) % len(dataset)
+        arrays = dataset.batch(idxs)
+        if isinstance(arrays, tuple) and images_only:
+            arrays = arrays[0]
+        if isinstance(arrays, tuple):
+            return tuple(torch.from_numpy(np.asarray(a, np.float32))
+                         .to(device) for a in arrays)
+        return torch.from_numpy(np.asarray(arrays, np.float32)).to(device)
+
+    return batch_at
+
+
+def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
                  prefix_at=None) -> list:
-    """The batch loop: prior draw, trajectory, write; returns one dict of
+    """The batch loop: input batch, trajectory, write; returns one dict of
     stats per batch (samples written, NFE, seconds, non-finite values).
-    ``sampler_at(k)`` is batch k's sampler; ``prefix_at(k)``, when given,
-    its file-name prefix."""
+    ``sampler_at(k)`` is batch k's sampler; ``batch_at(k, generator,
+    width)`` its input (a prior draw, or dataset images); ``prefix_at(k)``,
+    when given, its file-name prefix. An input that is a tuple (images
+    and masks) goes to the writer too."""
     ecfg = config.evaluation
     denoise = bool(ecfg.denoise)
     n_steps = int(ecfg.n_discrete_steps)
@@ -123,7 +160,7 @@ def _run_sampler(config, sde, sampler_at, writer, latent, device,
         take = min(per_step, n_samples - written)
         t0 = time.perf_counter()
         gen = batch_generator(seed, batch_idx, device)
-        z = latent.sample_batch(gen, per_step, device=device)
+        z = batch_at(batch_idx, gen, per_step)
         out = sampler_at(batch_idx).sample(gen, z, ts, n_eff,
                                            denoise=denoise, eps=eps)
         out = out[:take].float().cpu().numpy()
@@ -133,7 +170,11 @@ def _run_sampler(config, sde, sampler_at, writer, latent, device,
                  "nonfinite": int(out.size - np.isfinite(out).sum())}
         if prefix_at is not None:
             writer.sample_prefix = prefix_at(batch_idx)
-        writer.write_batch(out, rank=0, batch_idx=batch_idx)
+        if isinstance(z, tuple):
+            writer.write_batch(out, rank=0, batch_idx=batch_idx, batch=tuple(
+                b[:take].float().cpu().numpy() for b in z))
+        else:
+            writer.write_batch(out, rank=0, batch_idx=batch_idx)
         written += take
         batches.append(stats)
         logger.info("batch %(batch)d: %(samples)d samples, %(nfe)d NFE in "
@@ -141,9 +182,13 @@ def _run_sampler(config, sde, sampler_at, writer, latent, device,
     return batches
 
 
-def _writer(config, is_augmented: bool):
+def _writer(config, cls=SimpleImageWriter, is_augmented=None):
+    """A ``cls`` writer from ``evaluation``; ``is_augmented`` defaults to
+    the SDE's."""
     ecfg = config.evaluation
-    return SimpleImageWriter(
+    if is_augmented is None:
+        is_augmented = bool(config.model.sde.get("is_augmented", True))
+    return cls(
         str(ecfg.save_path),
         sample_prefix=str(ecfg.sample_prefix),
         path_prefix=str(ecfg.path_prefix),
@@ -167,13 +212,13 @@ def sample(config, preloaded=None):
     sde = build_sde(config)
     net = preloaded if preloaded is not None else load_eval_state(config)
     net = net.eval().to(device)
-    writer = _writer(config, bool(config.model.sde.get("is_augmented",
-                                                       True)))
+    writer = _writer(config)
     with torch.inference_mode():
-        sampler = sampler_cls(config, sde,
-                              make_score_fn(net, bf16=eval_bf16(config)))
+        score_fn = make_score_fn(net, bf16=eval_bf16(config))
+        sampler = sampler_cls(config, sde, score_fn, corrector_fn=(
+            build_corrector(config, sde, score_fn)))
         return _run_sampler(config, sde, lambda _: sampler, writer,
-                            SDELatentDataset(sde, config), device)
+                            _latent_source(sde, config, device), device)
 
 
 def load_clf_model(ccfg):
@@ -248,16 +293,66 @@ def class_cond_sample(config):
     def label_at(i):
         return labels[i % len(labels)]
 
-    samplers = {y: sampler_cls(merged, sde, score_fn, clf_fn=clf_fn, y=y)
+    corrector = build_corrector(merged, sde, score_fn)
+    samplers = {y: sampler_cls(merged, sde, score_fn, clf_fn=clf_fn,
+                               corrector_fn=corrector, y=y)
                 for y in labels}
     base_prefix = str(ecfg.sample_prefix)
     prefix_at = (lambda i: f"{base_prefix}y{label_at(i)}") \
         if len(labels) > 1 else None
     with torch.no_grad():
         batches = _run_sampler(dcfg, sde, lambda i: samplers[label_at(i)],
-                               _writer(dcfg, True),
-                               SDELatentDataset(sde, dcfg), device,
+                               _writer(dcfg, is_augmented=True),
+                               _latent_source(sde, dcfg, device), device,
                                prefix_at=prefix_at)
     for row in batches:
         row["label"] = label_at(row["batch"])
     return batches
+
+
+def _dataset_synthesis(config, build_sampler, batch_at_of, writer) -> list:
+    """Shared body of ``inpaint`` and ``edit``, which start from dataset
+    images: the score network from the checkpoint on
+    ``evaluation.device``, the sampler ``build_sampler(sde, score_fn)``,
+    batches from ``batch_at_of(dataset, device)``, written by
+    ``writer``."""
+    ecfg = config.evaluation
+    _check_single_device(ecfg)
+    device = torch.device(str(ecfg.get("device", "cuda")))
+    sde = build_sde(config)
+    net = load_eval_state(config).to(device)
+    dataset = get_dataset(config)
+    with torch.inference_mode():
+        sampler = build_sampler(sde, make_score_fn(net,
+                                                   bf16=eval_bf16(config)))
+        return _run_sampler(config, sde, lambda _: sampler, writer,
+                            batch_at_of(dataset, device), device)
+
+
+def inpaint(config) -> list:
+    """Inpainting of dataset images under MNIST-digit masks (square masks
+    where MNIST is absent; ``data.InpaintDataset``): the known region
+    (mask 1) is kept, the rest generated. Writes the samples under
+    ``images/``, the ground truth under ``batch/`` and the masked input
+    under ``corrupt/``. Returns the per-batch stats of ``_run_sampler``."""
+    return _dataset_synthesis(
+        config,
+        lambda sde, score_fn: EulerMaruyamaInpainter(config, sde, score_fn),
+        lambda dataset, device: _dataset_source(
+            InpaintDataset(config, dataset), device),
+        _writer(config, InpaintingImageWriter))
+
+
+def edit(config) -> list:
+    """SDEdit-style editing of dataset images: each is forward-diffused to
+    ``evaluation.sampler.edit_t0`` and reverse-diffused back
+    (``edit_em_sde``); labels of a labelled dataset are dropped. Returns
+    the per-batch stats of ``_run_sampler``."""
+    return _dataset_synthesis(
+        config,
+        lambda sde, score_fn: EditEulerMaruyamaSampler(
+            config, sde, score_fn,
+            corrector_fn=build_corrector(config, sde, score_fn)),
+        lambda dataset, device: _dataset_source(dataset, device,
+                                                images_only=True),
+        _writer(config))

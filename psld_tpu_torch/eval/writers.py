@@ -1,7 +1,8 @@
-"""Prediction writer (``psld_tpu/eval/writers.py::SimpleImageWriter``).
+"""Prediction writers (``psld_tpu/eval/writers.py``).
 
 Layout and naming as the JAX package: ``<output_dir>[/<path_prefix>]/
-images/output_<sample_prefix>_<rank>_<batch>_<i>.png``.
+images/output_<sample_prefix>_<rank>_<batch>_<i>.png``, plus ``batch/``
+and ``corrupt/`` beside ``images/`` for inpainting.
 """
 
 from __future__ import annotations
@@ -40,3 +41,26 @@ class SimpleImageWriter:
                 img_dir, f"output_{self.sample_prefix}_{rank}_{batch_idx}"),
             denorm=self.is_norm,
         )
+
+
+class InpaintingImageWriter(SimpleImageWriter):
+    """Also writes the ground-truth batch (``batch/``) and the masked
+    input (``corrupt/``) under the samples' file names, when given the
+    ``(images, masks)`` batch."""
+
+    def write_batch(self, samples, rank: int, batch_idx: int, batch=None):
+        super().write_batch(samples, rank, batch_idx)
+        if batch is None:
+            return
+        img, mask = (np.asarray(b) for b in batch)
+        base = self._base()
+        batch_dir = os.path.join(base, "batch")
+        corr_dir = os.path.join(base, "corrupt")
+        os.makedirs(batch_dir, exist_ok=True)
+        os.makedirs(corr_dir, exist_ok=True)
+        img = img * 0.5 + 0.5
+        name = f"output_{self.sample_prefix}_{rank}_{batch_idx}"
+        self.save_fn(img * mask, file_name=os.path.join(corr_dir, name),
+                     denorm=False)
+        self.save_fn(img, file_name=os.path.join(batch_dir, name),
+                     denorm=False)

@@ -8,6 +8,7 @@ grid held on the host.
 from __future__ import annotations
 
 import abc
+import inspect
 
 import numpy as np
 import torch
@@ -26,12 +27,33 @@ def make_timesteps(n_steps: int, eval_eps: float, t_max: float = 1.0,
 
 
 class Sampler(abc.ABC):
-    """``score_fn(z, t) -> eps`` is the network bound to its weights."""
+    """``score_fn(z, t) -> eps`` is the network bound to its weights.
 
-    def __init__(self, config, sde, score_fn):
+    ``corrector_fn``, when given, runs after predictor steps: the keyed
+    form ``(x, t, dt, draw)`` (a stochastic corrector, such as
+    :class:`~psld_tpu_torch.samplers.correctors.LangevinCorrector`, whose
+    ``draw(j, like)`` is its j-th standard normal draw) or the
+    reference's ``(x, t, dt)``; either returns ``(x, x_mean)``."""
+
+    def __init__(self, config, sde, score_fn, corrector_fn=None):
         self.config = config
         self.sde = sde
         self.score_fn = score_fn
+        self.corrector_fn = corrector_fn
+        self._corrector_keyed = False
+        if corrector_fn is not None:
+            try:
+                n_params = len(inspect.signature(corrector_fn).parameters)
+            except (TypeError, ValueError):
+                n_params = 3
+            self._corrector_keyed = n_params >= 4
+
+    def corrector_update_fn(self, x, t: float, dt: float, draw=None):
+        if self.corrector_fn is None:
+            return x, x
+        if self._corrector_keyed:
+            return self.corrector_fn(x, t, dt, draw)
+        return self.corrector_fn(x, t, dt)
 
     @abc.abstractmethod
     def sample(self, generator, batch, ts, n_discrete_steps, denoise=True,

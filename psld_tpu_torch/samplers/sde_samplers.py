@@ -1,19 +1,32 @@
 """Reverse-SDE samplers (``psld_tpu/samplers/sde_samplers.py``):
-Euler--Maruyama, classifier-guided EM, and the symmetric splitting
-samplers SSCS and SSCS-2M.
+Euler--Maruyama, classifier-guided EM, inpainting EM, SDEdit editing EM,
+and the symmetric splitting samplers SSCS and SSCS-2M.
 
 Randomness comes from an explicit ``torch.Generator`` on the batch's
-device. ``noise(k, x)``, when given, supplies the k-th standard normal
-draw of the trajectory instead; the parity tests hand in the JAX key
-stream's draws through it. EM draws once per noisy grid row (k = the
-row), SSCS and SSCS-2M twice per step (k = 2 * step + j for the j-th
-analytical half-step).
+device. ``noise(k, like)``, when given, supplies the standard normal draw
+named ``k``, shaped like ``like``, instead; the parity tests hand in the
+JAX key stream's draws through it. The names:
+
+- predictor draws are integers: EM draws once per noisy grid row (k = the
+  row), SSCS and SSCS-2M twice per step (k = 2 * step + j for the j-th
+  analytical half-step);
+- ``("corrector", i, j)`` is the corrector's draw for its j-th step after
+  grid row (EM) or step (SSCS) i;
+- ``"prior_x"`` and ``"prior_m"`` draw the inpainter's prior, ``"init_m"``
+  (DSM only) and ``"init_eps"`` forward-diffuse the known image (to T) or
+  the guide (to ``edit_t0``), and ``("known_m", i)`` (DSM only) and
+  ``("known_eps", i)`` forward-diffuse the known image at grid row i.
+
+Without a corrector a sampler asks for its integer draws alone, in the
+same order as with one.
 
 The time grid and every SDE coefficient stay float64 until the edge of
-the image tensor. No corrector is ported: the entry points refuse one.
+the image tensor.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -55,12 +68,22 @@ def _step_grid(sde, ts: torch.Tensor, denoise: bool, eps: float):
     return rows
 
 
-def _normal(generator, noise, k: int, x):
-    """The k-th draw of a trajectory: injected, or from ``generator``."""
+def _normal(generator, noise, k, like, shape=None):
+    """The draw named ``k`` of a trajectory, shaped like ``like`` (or
+    ``shape``, in ``like``'s dtype and device): injected, or from
+    ``generator``."""
+    if shape is not None:
+        like = like.new_empty(shape)
     if noise is not None:
-        return noise(k, x)
-    return torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                       device=x.device)
+        return noise(k, like)
+    return torch.randn(like.shape, generator=generator, dtype=like.dtype,
+                       device=like.device)
+
+
+def _corrector_draws(generator, noise, i: int):
+    """The draw function a keyed corrector gets after row or step ``i``."""
+    return lambda j, like: _normal(generator, noise, ("corrector", i, j),
+                                   like)
 
 
 @register_module(category="samplers", name="em_sde")
@@ -68,16 +91,23 @@ class EulerMaruyamaSampler(Sampler):
     def _step(self, x, t, dt, z, flag):
         return _em_update(self.sde, self.score_fn, x, t, dt, z, flag)[0]
 
+    def _trajectory(self, generator, x, rows, noise):
+        """EM over the (t, dt, flag) ``rows``; the corrector follows every
+        noisy row and skips the mean-only denoise row."""
+        for i, (t, dt, flag) in enumerate(rows):
+            z = _normal(generator, noise, i, x) if flag else None
+            x = self._step(x, t, dt, z, flag)
+            if flag and self.corrector_fn is not None:
+                x = self.corrector_update_fn(
+                    x, t, dt, _corrector_draws(generator, noise, i))[0]
+        return x
+
     def sample(self, generator, batch, ts, n_discrete_steps, denoise=True,
                eps=1e-3, noise=None):
         """Run the reverse SDE from the prior draw ``batch`` (NHWC)."""
         del n_discrete_steps  # len(ts) - 1
-        x = batch
-        for i, (t, dt, flag) in enumerate(_step_grid(self.sde, ts, denoise,
-                                                     eps)):
-            z = _normal(generator, noise, i, x) if flag else None
-            x = self._step(x, t, dt, z, flag)
-        return x
+        return self._trajectory(generator, batch,
+                                _step_grid(self.sde, ts, denoise, eps), noise)
 
 
 def clf_time_convention(config) -> str:
@@ -108,8 +138,9 @@ class ClassCondEulerMaruyamaSampler(EulerMaruyamaSampler):
     state, so the sampler must not run under ``torch.inference_mode``,
     whose tensors can never require grad."""
 
-    def __init__(self, config, sde, score_fn, clf_fn, y=None):
-        super().__init__(config, sde, score_fn)
+    def __init__(self, config, sde, score_fn, clf_fn, corrector_fn=None,
+                 y=None):
+        super().__init__(config, sde, score_fn, corrector_fn=corrector_fn)
         self.clf_fn = clf_fn
         self.y = int(config.clf.evaluation.label_to_sample if y is None
                      else y)
@@ -135,6 +166,100 @@ class ClassCondEulerMaruyamaSampler(EulerMaruyamaSampler):
             else self.sde.T - t
         return _em_update(self.sde, self.score_fn, x, t, dt, z, flag,
                           guidance=lambda xx: self._guidance(xx, t_clf))[0]
+
+
+def _forward_diffuse(sampler, generator, noise, x_0, t: float, names):
+    """Forward-diffuse ``x_0`` to time ``t`` through the training kernel:
+    HSM takes m_0 = 0 with kernel variance ``mm_0``, DSM draws m_0 ~ N(0,
+    mm_0 I) with none. ``names`` are the (m_0, eps) draws' names; eps has
+    2C channels. Returns (z_t, mean)."""
+    sde = sampler.sde
+    name_m, name_eps = names
+    if str(sampler.config.training.mode) == "hsm":
+        m_0, mm_0 = torch.zeros_like(x_0), sde.mm_0
+    else:
+        m_0 = math.sqrt(sde.mm_0) * _normal(generator, noise, name_m, x_0)
+        mm_0 = 0.0
+    eps = _normal(generator, noise, name_eps, x_0,
+                  shape=x_0.shape[:-1] + (2 * x_0.shape[-1],))
+    tv = sde.timestep_vector(t, x_0.shape[0], x_0.device)
+    z_t, mu_t, _ = sde.perturb_data(x_0, m_0, 0.0, mm_0, tv, eps)
+    return z_t, mu_t
+
+
+@register_module(category="samplers", name="ip_em_sde")
+class EulerMaruyamaInpainter(EulerMaruyamaSampler):
+    """RePaint-style phase-space inpainting: the state starts as the prior
+    with the known region (mask 1) stitched in, forward-diffused to T;
+    after each EM step both the x and the m halves of the known region are
+    overwritten with the known image forward-diffused to the step's time.
+    On the mean-only denoise row the stitched region is the kernel's mean.
+    ``batch`` is ``(x_0, mask)``, NHWC with C channels each. No corrector
+    runs, as in the JAX package's ``inpaint``."""
+
+    @staticmethod
+    def _stitch(z, z_known, mask):
+        x_c, m_c = split_xm(z)
+        x_k, m_k = split_xm(z_known)
+        return join_xm(x_c * (1 - mask) + x_k * mask,
+                       m_c * (1 - mask) + m_k * mask)
+
+    def sample(self, generator, batch, ts, n_discrete_steps, denoise=True,
+               eps=1e-3, noise=None):
+        del n_discrete_steps  # len(ts) - 1
+        x_0, mask = batch
+        sde = self.sde
+        p_x = _normal(generator, noise, "prior_x", x_0)
+        p_m = _normal(generator, noise, "prior_m", x_0) * math.sqrt(sde.m)
+        u_k, _ = _forward_diffuse(self, generator, noise, x_0, sde.T,
+                                  ("init_m", "init_eps"))
+        x = self._stitch(join_xm(p_x, p_m), u_k, mask)
+        for i, (t, dt, flag) in enumerate(_step_grid(sde, ts, denoise,
+                                                     eps)):
+            z = _normal(generator, noise, i, x) if flag else None
+            x = self._step(x, t, dt, z, flag)
+            u_k, mu_k = _forward_diffuse(
+                self, generator, noise, x_0, sde.T - t,
+                (("known_m", i), ("known_eps", i)))
+            known = mu_k.to(x.dtype) + flag * (u_k - mu_k).to(x.dtype)
+            x = self._stitch(x, known, mask)
+        return x
+
+
+@register_module(category="samplers", name="edit_em_sde")
+class EditEulerMaruyamaSampler(EulerMaruyamaSampler):
+    """SDEdit-style editing: the guide image ``batch`` (NHWC, C channels)
+    is forward-diffused to ``t0 = evaluation.sampler.edit_t0`` (the edit
+    strength) through the training kernel, with the momentum as the loss
+    draws it (HSM: m_0 = 0 with kernel variance ``mm_0``; DSM: m_0 ~ N(0,
+    mm_0 I)), and the reverse EM runs over [T - t0, T - eps] only: the
+    caller's [0, T - eps] grid is mapped onto it affinely, so its stride
+    shape is kept. The VP-SDE branch of the JAX package is not ported: the
+    port builds no VP-SDE."""
+
+    def __init__(self, config, sde, score_fn, corrector_fn=None):
+        super().__init__(config, sde, score_fn, corrector_fn=corrector_fn)
+        self.edit_t0 = float(config.evaluation.sampler.get("edit_t0", 0.5))
+        if not 0.0 < self.edit_t0 <= float(sde.T):
+            raise ValueError(
+                f"evaluation.sampler.edit_t0 must be in (0, T={sde.T}]; "
+                f"got {self.edit_t0}")
+
+    def _edit_ts(self, ts: torch.Tensor, eps: float) -> torch.Tensor:
+        """The affine map of the [0, T - eps] grid onto [T - t0, T - eps],
+        float64."""
+        t0 = self.edit_t0
+        return (self.sde.T - t0) + ts * ((t0 - eps) / (self.sde.T - eps))
+
+    def sample(self, generator, batch, ts, n_discrete_steps, denoise=True,
+               eps=1e-3, noise=None):
+        del n_discrete_steps  # len(ts) - 1
+        x, _ = _forward_diffuse(self, generator, noise, batch, self.edit_t0,
+                                ("init_m", "init_eps"))
+        return self._trajectory(
+            generator, x,
+            _step_grid(self.sde, self._edit_ts(ts, eps), denoise, eps),
+            noise)
 
 
 @register_module(category="samplers", name="sscs_sde")
@@ -201,6 +326,8 @@ class SSCSSampler(Sampler):
             eps1 = _normal(generator, noise, 2 * i, u)
             eps2 = _normal(generator, noise, 2 * i + 1, u)
             u = self.predictor_update_fn(u, t, t_next - t, eps1, eps2)
+            u = self.corrector_update_fn(
+                u, t, t_next - t, _corrector_draws(generator, noise, i))[0]
         return self._finalize(u, denoise, eps)
 
 
@@ -239,4 +366,6 @@ class SSCS2MSampler(SSCSSampler):
             prev, dt_prev = self._linear_mean(nterm, t, dt / 2), dt
             u = self.analytical_dynamics(
                 u, t, dt / 2, _normal(generator, noise, 2 * i + 1, u))
+            u = self.corrector_update_fn(
+                u, t, dt, _corrector_draws(generator, noise, i))[0]
         return self._finalize(u, denoise, eps)

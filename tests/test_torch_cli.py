@@ -1,6 +1,6 @@
 """The port's entry points (sampling, SSCS-2M sampling, classifier
-training, guided sampling), their files and log lines, and what they
-import (CPU)."""
+training, guided sampling, inpainting, editing, the bench), their files
+and log lines, and what they import (CPU)."""
 
 import os
 import subprocess
@@ -88,13 +88,13 @@ def test_sample_cli_writes_the_jax_writers_files(tmp_path, one_thread):
 
 
 @pytest.mark.parametrize("override", [
-    "+dataset.diffusion.evaluation.sampler.corrector=langevin",
     "+dataset.diffusion.evaluation.spatial=2",
     "+dataset.diffusion.evaluation.num_processes=2",
 ])
 def test_sample_refuses_what_is_not_ported(override):
-    """Correctors and multi-device fan-out are not ported: asked for, the
-    entry point raises before it loads anything."""
+    """Multi-device fan-out is not ported: asked for, the entry point
+    raises before it loads anything. (Correctors are ported:
+    ``test_torch_corrector``.)"""
     with pytest.raises(NotImplementedError):
         sample_cli.main(["+dataset=cifar10/cifar10_psld",
                          "dataset.diffusion.data.root=/unused", override,
@@ -124,14 +124,16 @@ def test_writer_keeps_only_the_x_half(tmp_path):
 
 
 _IMPORT_ALL = """
-import pkgutil, sys, tempfile
+import os, pkgutil, sys, tempfile
 import torch
 torch.set_num_threads(1)  # tiny shapes: threads only contend with others
 import psld_tpu_torch
 for m in pkgutil.walk_packages(psld_tpu_torch.__path__, "psld_tpu_torch."):
     __import__(m.name)
 from psld_tpu_torch.cli._common import bootstrap
-from psld_tpu_torch.cli import class_cond_sample, sample, train_clf, train_sde
+from psld_tpu_torch.cli import (class_cond_sample, edit, inpaint, sample,
+                                train_clf, train_sde)
+from psld_tpu_torch.eval import bench
 from psld_tpu_torch.train.checkpoint import latest_checkpoint
 bootstrap(["+dataset=cifar10/cifar10_psld"])
 tiny, clf, guided = {tiny!r}, {clf!r}, {guided!r}
@@ -154,7 +156,16 @@ with tempfile.TemporaryDirectory() as d:
         "dataset.clf.evaluation.chkpt_path="
         + latest_checkpoint(d + "/clf/checkpoints"),
         "dataset.diffusion.evaluation.save_path=" + d + "/guided"])
+    batches += inpaint.main(tiny + [
+        "dataset.diffusion.evaluation.chkpt_path=" + score,
+        "dataset.diffusion.evaluation.save_path=" + d + "/inpaint"])
+    batches += edit.main(tiny + [
+        "dataset.diffusion.evaluation.chkpt_path=" + score,
+        "dataset.diffusion.evaluation.save_path=" + d + "/edit"])
 print("RAN", state.step, clf_state.step, sum(b["samples"] for b in batches))
+os.environ.update(PSLD_BENCH_NF="8", PSLD_BENCH_TRAIN_BATCH="1")
+line = bench.run_bench(batch=1, nfe=2, device="cpu")
+print("BENCH", len(line), line["device"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "psld_tpu", "triton"))
@@ -201,15 +212,17 @@ def test_importing_the_port_pulls_in_no_jax():
     """Every module of the port imported in a fresh process, a config
     composed by ``bootstrap``, and a tiny run of each entry point
     (``cli.train_sde``, ``cli.sample`` with EM and with SSCS-2M,
-    ``cli.train_clf``, ``cli.class_cond_sample``) leave no module named
-    ``psld_tpu`` or ``psld_tpu.*``, nothing of JAX and no Triton in
+    ``cli.train_clf``, ``cli.class_cond_sample``, ``cli.inpaint``,
+    ``cli.edit``, and the bench on the CPU at width 8) leave no module
+    named ``psld_tpu`` or ``psld_tpu.*``, nothing of JAX and no Triton in
     ``sys.modules``."""
     r = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(
             tiny=_TINY_RUN, clf=_CLF_RUN, guided=_GUIDED_RUN)], cwd=REPO,
         capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert "RAN 2 2 8" in r.stdout, r.stdout
+    assert "RAN 2 2 12" in r.stdout, r.stdout
+    assert "BENCH 18 cpu" in r.stdout, r.stdout
     assert "IMPORTED []" in r.stdout, r.stdout
 
 
