@@ -20,7 +20,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
    included; under gn_bf16 bit for bit on at least 99% of the elements.
 5. gn_bwd: the CUDA C++ GroupNorm+act backward kernel (dx, dscale,
    dbias) against autograd through the plain version, at the flagship's
-   shapes at batch 128 and the classifier's at 64 and 32.
+   shapes at batch 128 and the classifier's at 64 and 32; its input-only
+   mode (dx alone, the likelihood's) at the flagship's shapes at 64.
 6. attention: the CUDA C++ attention kernel against its plain version at
    the attention shapes of the same four (network, batch) pairs, N = 16
    tokens included.
@@ -73,13 +74,32 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 18. edit: ``psld_tpu_torch.cli.edit`` the same way, edit_t0 = 0.5.
 19. pc: ``psld_tpu_torch.cli.sample`` with a Langevin corrector (one step),
     10 NFE of EM and of SSCS-2M, batch 64, bf16.
-20. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
+20. ode_check (run after clf_check): float32 probability-flow
+    trajectories of the flagship at B=2 on the card against the CPU,
+    within 1e-4 of scale: rk_ode (Heun, 2 steps), ei_ode (order 2, 3
+    steps), adaptive_ode (2 controller iterations, the same NFE on both)
+    and cc_ei_ode (2 guided steps, the shipped classifier); one RK4 step
+    of the Hutchinson likelihood with the same probes (logp within 1e-4
+    relative, its divergence integral and terminal state within 1e-4 of
+    scale).
+21. ode: ``psld_tpu_torch.cli.sample`` from the train checkpoint, batch
+    64, bf16: ei_ode (order 2, 20 NFE), rk_ode (Heun, 10 steps, 21 NFE),
+    adaptive_ode and bb_ode (SciPy RK45) at rtol = atol = 1e-2; ms/NFE,
+    img/s and each run's NFE.
+22. cc_ode: ``psld_tpu_torch.cli.class_cond_sample`` with cc_ei_ode
+    (order 2), one batch of 64, label 0, 20 NFE.
+23. likelihood: ``psld_tpu_torch.cli.likelihood`` from the train
+    checkpoint on the synthetic set, batch 64, bf16, RK4 with 2 steps (8
+    right-hand sides, each a forward and an input-only vector-Jacobian
+    product), one Hutchinson probe: finite bits/dim, ms a right-hand
+    side, peak memory.
+24. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
     width with 100 NFE (its default is 1000) and its train phase; its line
     is printed after ``[bench] line:``, its img/s and MFU shares must be
     positive, the shares at most 1.05.
 
 Every path (train, sample, train_clf, guided, sscs, inpaint, edit, pc,
-bench) is driven with the kernels' launch counts set to 0 just before it
+ode, cc_ode, likelihood, bench) is driven with the kernels' launch counts set to 0 just before it
 and must launch exactly the kernels its network calls, as many times as
 its forwards and steps need.
 
@@ -151,6 +171,16 @@ SSCS_NFE = 50
 INPAINT_NFE = EDIT_NFE = 20
 PC_NFE = 10
 BENCH_NFE = 100
+# the ODE paths: ei_ode at its documented floor (order 2, 20 NFE), rk_ode
+# Heun with 10 steps, the adaptive solvers at a tolerance loose enough for
+# the barely trained network (adaptive_ode capped at 2 + 6 * 40 + 1 NFE),
+# guided ei_ode at 20 NFE, and the likelihood with 2 RK4 steps (8
+# right-hand sides, each a forward and a vector-Jacobian product)
+EI_NFE = CC_ODE_NFE = 20
+RK_STEPS = 10
+ODE_TOL = 1e-2
+ODE_MAX_STEPS = 40
+LIK_STEPS = 2
 # (rows, C) of the fused bias + leaky ReLU phase: the flagship's
 # activations at batch 128 seen as (B*H*W, C), its temb width, an odd one
 FUSED_ACT_SHAPES = [(128 * 1024, 256), (128 * 256, 256), (128 * 64, 512),
@@ -405,10 +435,14 @@ def phase_gn(card, batch, calls=GN_CALLS, net="flagship"):
             "bound_by": bound_by(total), **total, "library_ms": lib_fwd}
 
 
-def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship"):
+def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship",
+                 need_params=True):
     """dx, dscale, dbias of the backward kernel against autograd through
     the plain version, at the (H*W, C) shapes of one ``net`` backward
-    (``calls``) at ``batch``. Tolerances, relative
+    (``calls``) at ``batch``; with ``need_params=False`` the input-only
+    mode (dx alone, the weights frozen: the likelihood's divergence)
+    against autograd into x alone, and it is that mode that is timed.
+    Tolerances, relative
     to each gradient's largest magnitude: f32 1e-4 (sums of up to
     131,072 x 64 terms in another order); bf16 2e-2 (bf16 inputs, one rounding of dx; dscale and dbias
     rounded to bf16); bf16 with gn_bf16 1e-2 (both differentiate the
@@ -424,6 +458,14 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship"):
                                     group_norm_act_backward_plain,
                                     group_norm_act_plain)
 
+    def reference_bwd(x, sc, bi, ct, g, act):
+        if need_params:
+            return group_norm_act_backward_plain(x, sc, bi, ct, g, 1e-6, act)
+        with torch.enable_grad():
+            xl = x.detach().requires_grad_()
+            y = group_norm_act_plain(xl, sc, bi, g, 1e-6, act)
+            return torch.autograd.grad(y, [xl], ct)[0], None, None
+
     rng = np.random.default_rng(3)
     rows, errs, abs_errs = [], {}, {}
     kernel_bwd = eager_bwd = plain_bwd = lib_bwd = 0.0
@@ -433,6 +475,9 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship"):
     def rel_err(got, want, tol, what, mode, kinked):
         worst = 0.0
         for a, w, name in zip(got, want, ("dx", "dscale", "dbias")):
+            if w is None:  # the input-only mode
+                check(a is None, f"{what}: {name} in the input-only mode")
+                continue
             check(a.dtype == w.dtype and a.shape == w.shape,
                   f"{what}: {name} is {a.dtype} {tuple(a.shape)}")
             check(bool(torch.isfinite(a.float()).all()),
@@ -470,9 +515,9 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship"):
                                   (torch.bfloat16, True, 1e-2)):
                 x, ct, sc, bi = (a.to(dt) for a in (x32, ct32, sc32, bi32))
                 set_gn_bf16(gn16)
-                got = group_norm_act_backward(x, sc, bi, ct, g, 1e-6, act)
-                want = group_norm_act_backward_plain(x, sc, bi, ct, g, 1e-6,
-                                                     act)
+                got = group_norm_act_backward(x, sc, bi, ct, g, 1e-6, act,
+                                              need_params=need_params)
+                want = reference_bwd(x, sc, bi, ct, g, act)
                 torch.cuda.synchronize()
                 mode = f"{str(dt)[6:]}{'+gn_bf16' if gn16 else ''}"
                 errs[mode] = max(errs.get(mode, 0.0), rel_err(
@@ -482,22 +527,22 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship"):
         x, ct, sc, bi = (a.bfloat16() for a in (x32, ct32, sc32, bi32))
         set_gn_bf16(True)
         k_ms = device_ms(lambda: group_norm_act_backward(
-            x, sc, bi, ct, g, 1e-6, "swish"))
+            x, sc, bi, ct, g, 1e-6, "swish", need_params=need_params))
         e_ms = cuda_ms(lambda: group_norm_act_backward(
-            x, sc, bi, ct, g, 1e-6, "swish"))
+            x, sc, bi, ct, g, 1e-6, "swish", need_params=need_params))
         # the plain version's forward is part of its autograd: it is
         # timed on its own and taken off
-        p_ms = device_ms(lambda: group_norm_act_backward_plain(
-            x, sc, bi, ct, g, 1e-6, "swish"), launches=3) - device_ms(
+        p_ms = device_ms(lambda: reference_bwd(x, sc, bi, ct, g, "swish"),
+                         launches=3) - device_ms(
             lambda: group_norm_act_plain(x, sc, bi, g, 1e-6, "swish"))
         # the library's backward alone: its forward runs once, on the
         # stream the timed graph is captured on, and its graph is kept
-        leaves = [t.detach().requires_grad_() for t in
-                  (x.permute(0, 3, 1, 2), sc, bi)]
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        scl, bil = (t.detach().requires_grad_(need_params) for t in (sc, bi))
+        leaves = [xl, scl, bil] if need_params else [xl]
         side_stream().wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side_stream()):
-            y = F.silu(F.group_norm(leaves[0], g, leaves[1], leaves[2],
-                                    1e-6))
+            y = F.silu(F.group_norm(xl, g, scl, bil, 1e-6))
         ctn = ct.permute(0, 3, 1, 2)
         l_ms = device_ms(lambda: torch.autograd.grad(y, leaves, ctn,
                                                      retain_graph=True))
@@ -506,16 +551,20 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship"):
         eager_bwd += n_calls * e_ms
         plain_bwd += n_calls * p_ms
         lib_bwd += n_calls * l_ms
-        # read x and g, write dx; scale, bias, dscale, dbias; ~30 f32
+        # read x and g, write dx; scale, bias (and dscale, dbias); ~30 f32
         # operations a value
-        n_bytes = (3 * x.numel() + 4 * c) * x.element_size()
+        n_bytes = (3 * x.numel() + (4 if need_params else 2) * c) \
+            * x.element_size()
         add_bound(total, n_calls, n_bytes, 30 * x.numel(), SCALAR_OPS)
         rows.append((hw, c, n_calls, k_ms, e_ms, p_ms, l_ms,
                      n_bytes / 1e12 / (k_ms / 1e3),
                      30 * x.numel() / 1e12 / (k_ms / 1e3)))
     os.environ.pop("PSLD_GN_BF16")
-    say(f"[gn_bwd] CUDA C++ backward kernel == autograd through plain at all "
-        f"{len(calls)} {net} shapes, B={batch} (of each gradient's scale: "
+    mode = "dx, dscale, dbias" if need_params else \
+        "input-only mode (dx alone, need_params=False)"
+    say(f"[gn_bwd] CUDA C++ backward kernel, {mode}, == autograd through "
+        f"plain at all {len(calls)} {net} shapes, B={batch} (of each "
+        f"gradient's scale: "
         f"f32 "
         f"tol 1e-4; bf16 tol 2e-2; bf16+gn_bf16 tol 1e-2) in "
         f"{time.perf_counter() - t0:.1f} s; max error of scale "
@@ -523,7 +572,7 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship"):
         + "; max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in abs_errs.items()))
     say(f"[gn_bwd] device times (CUDA-graph replay; eager = called one by "
-        f"one): bf16 swish, B={batch}, {card}")
+        f"one): bf16 swish, {mode}, B={batch}, {card}")
     for hw, c, n_calls, k_ms, e_ms, p_ms, l_ms, tbps, tflops in rows:
         say(f"[gn_bwd]   HW={hw:5d} C={c:3d} x{n_calls:2d}/bwd: kernel "
             f"{k_ms:.4f} ms ({tbps:.3f} TB/s of x, g, dx; {tflops:.2f} "
@@ -1414,17 +1463,19 @@ class NamedDraws:
         return self.draws[name].to(like.device)
 
 
-def card_vs_cpu(cfg, weights, run, what: str):
+def card_vs_cpu(cfg, weights, run, what: str, grad: bool = False):
     """``run(score_fn, device)`` with a CPU and a card copy of the flagship
     (float32, ``weights``): the card's output within 1e-4 of the CPU
-    output's scale, as ``net`` holds EM. Returns (card, CPU) outputs on
-    the host and the error and scale."""
+    output's scale, as ``net`` holds EM. ``grad`` runs under ``no_grad``
+    (a run that takes a gradient, as guidance does) rather than
+    ``inference_mode``. Returns (card, CPU) outputs on the host and the
+    error and scale."""
     from psld_tpu_torch.eval.generate import build_score_model, make_score_fn
 
     outs = []
-    with torch.inference_mode():
+    with torch.no_grad() if grad else torch.inference_mode():
         for dev in ("cpu", "cuda"):
-            net = build_score_model(cfg).eval()
+            net = build_score_model(cfg).eval().requires_grad_(False)
             net.load_state_dict(weights, strict=True)
             outs.append(run(make_score_fn(net.to(dev)), dev).cpu())
             del net
@@ -1676,6 +1727,274 @@ def phase_pc(card, work, ckpt):
     return n
 
 
+def phase_ode_check(card, weights):
+    """Float32 probability-flow trajectories of the flagship at B=2 on the
+    card against the CPU, within 1e-4 of scale: ``rk_ode`` Heun, 2 steps;
+    ``ei_ode`` order 2, 3 steps; ``adaptive_ode`` cut at 2 controller
+    iterations (the same NFE on both); ``cc_ei_ode`` order 2, 2 steps,
+    with the shipped classifier (weights from a numpy seed). Then one RK4
+    step of the Hutchinson likelihood with the same probes on both: logp
+    within 1e-4 relative, and its divergence integral and terminal state
+    within 1e-4 of their scales (the GN backward kernel in its input-only
+    mode)."""
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.eval.generate import (_merged_eval_config,
+                                              build_score_model,
+                                              make_score_fn)
+    from psld_tpu_torch.eval.likelihood import make_likelihood_fn
+    from psld_tpu_torch.registry import get_module
+    from psld_tpu_torch.samplers import make_timesteps
+    from psld_tpu_torch.train.loop import build_clf_model, build_sde
+
+    t0 = time.perf_counter()
+    set_gn_bf16(False)
+    rng = np.random.default_rng(31)
+    z0 = torch.from_numpy(rng.standard_normal((2, 32, 32, 6)).astype(
+        np.float32))
+    runs = [("rk_ode", 2, ["+dataset.diffusion.evaluation.sampler.solver="
+                           "heun"]),
+            ("ei_ode", 3, ["+dataset.diffusion.evaluation.sampler.order=2"]),
+            ("adaptive_ode", 0, [
+                "+dataset.diffusion.evaluation.sampler.rtol=1e-3",
+                "+dataset.diffusion.evaluation.sampler.atol=1e-3",
+                "+dataset.diffusion.evaluation.sampler.max_steps=2"])]
+    for name, n, extra in runs:
+        cfg = bootstrap(FLAGSHIP_ARGS + extra + [
+            f"dataset.diffusion.evaluation.sampler.name={name}"
+        ]).dataset.diffusion
+        sde, nfe = build_sde(cfg), {}
+
+        def run(score, dev):
+            sampler = get_module("samplers", name)(cfg, sde, score)
+            out = sampler.sample(None, z0.to(dev), make_timesteps(n, 1e-3),
+                                 n, denoise=True, eps=1e-3)
+            nfe[dev] = sampler.nfe
+            return out
+
+        _, _, err, scale = card_vs_cpu(cfg, weights, run,
+                                       f"ode_check {name}")
+        check(nfe["cuda"] == nfe["cpu"], f"ode_check {name}: {nfe} NFE")
+        say(f"[ode_check] f32 {name} ({nfe['cuda']} NFE) of the flagship: "
+            f"card == CPU (max abs err {err:.3e}, {err / scale:.2e} of "
+            f"scale {scale:.3e}; tol 1e-4)")
+
+    # guided: the classifier on each device beside the score network
+    dcfg = bootstrap(FLAGSHIP_ARGS + CLF_ARGS + [
+        "dataset.diffusion.evaluation.sampler.name=cc_ei_ode",
+        "+dataset.diffusion.evaluation.sampler.order=2"]).dataset
+    clf_weights = flagship_weights(build_clf_model(dcfg.clf, device="meta"),
+                                   seed=7)
+    merged = _merged_eval_config(dcfg)
+    sde = build_sde(dcfg.diffusion)
+
+    def guided(score, dev):
+        clf = build_clf_model(dcfg.clf).eval().requires_grad_(False)
+        clf.load_state_dict(clf_weights, strict=True)
+        sampler = get_module("samplers", "cc_ei_ode")(
+            merged, sde, score, clf_fn=make_score_fn(clf.to(dev)), y=3)
+        return sampler.sample(None, z0.to(dev), make_timesteps(2, 1e-3), 2,
+                              denoise=True, eps=1e-3)
+
+    _, _, err, scale = card_vs_cpu(dcfg.diffusion, weights, guided,
+                                   "ode_check cc_ei_ode", grad=True)
+    say(f"[ode_check] f32 cc_ei_ode (2 guided steps + denoise, label 3) of "
+        f"the flagship and the shipped classifier: card == CPU (max abs err "
+        f"{err:.3e}, {err / scale:.2e} of scale {scale:.3e}; tol 1e-4)")
+
+    # one Hutchinson RK4 step of the likelihood, the same probes
+    cfg = dcfg.diffusion
+    x = torch.from_numpy(np.concatenate([
+        rng.uniform(-1, 1, (2, 32, 32, 3)),
+        rng.standard_normal((2, 32, 32, 3)) * np.sqrt(sde.mm_0)],
+        axis=-1).astype(np.float32))
+    probes = torch.from_numpy(rng.choice([-1.0, 1.0], (1, 2, 32, 32, 6))
+                              .astype(np.float32))
+    logp, delta, z_t = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        net = build_score_model(cfg).eval().requires_grad_(False)
+        net.load_state_dict(weights, strict=True)
+        fn = make_likelihood_fn(sde, make_score_fn(net.to(dev)), n_steps=1,
+                                method="rk4")
+        reset_counts()
+        with torch.no_grad():
+            out = fn(None, x.to(dev), probes=probes.to(dev))
+        logp[dev], delta[dev], z_t[dev] = (
+            out[k].cpu() for k in ("logp", "delta_logp", "z_T"))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = all_counts()
+            want = expected(group_norm_act=4 * GN_PER_FWD,
+                            group_norm_act_bwd=4 * GN_PER_FWD,
+                            attention=4 * ATTN_PER_FWD)
+            check(n == want, f"ode_check: one RK4 likelihood step launched "
+                  f"{n}, expected {want}")
+        del net
+    os.environ.pop("PSLD_GN_BF16")
+    rel = float(((logp["cuda"] - logp["cpu"]).abs()
+                 / logp["cpu"].abs()).max())
+    check(bool(torch.isfinite(logp["cuda"]).all()) and rel <= 1e-4,
+          f"ode_check likelihood: logp {logp['cuda'].tolist()} on the card, "
+          f"{logp['cpu'].tolist()} on the CPU")
+    d_err = max_err(delta["cuda"], delta["cpu"]) / float(
+        delta["cpu"].abs().max())
+    z_err = max_err(z_t["cuda"], z_t["cpu"]) / float(z_t["cpu"].abs().max())
+    check(d_err <= 1e-4 and z_err <= 1e-4,
+          f"ode_check likelihood: divergence integral off by {d_err:.3e}, "
+          f"terminal state by {z_err:.3e} of scale (tol 1e-4)")
+    say(f"[ode_check] f32 Hutchinson likelihood, one RK4 step (4 forwards "
+        f"and 4 input-only backwards), B=2: card == CPU, logp {rel:.2e} "
+        f"relative (tol 1e-4; {logp['cuda'].tolist()}), divergence "
+        f"integral {d_err:.2e} of its scale "
+        f"{float(delta['cpu'].abs().max()):.3e}, z_T {z_err:.2e} of scale "
+        f"(tol 1e-4); phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def phase_ode(card, work, ckpt):
+    """``cli.sample`` with the probability-flow ODE samplers from the
+    checkpoint of ``train``, batch 64, bf16: ``ei_ode`` order 2 at
+    ``EI_NFE``, ``rk_ode`` Heun with ``RK_STEPS`` steps, ``adaptive_ode``
+    and ``bb_ode`` at rtol = atol = ``ODE_TOL``. One forward an NFE.
+    SciPy's integrator module is imported (and its import timed) before
+    the runs: the trajectories' times are those of a process that has
+    it."""
+    t0 = time.perf_counter()
+    import scipy
+    import scipy.integrate  # noqa: F401
+
+    import_s = time.perf_counter() - t0
+    from psld_tpu_torch.cli import sample as sample_cli
+
+    reset_counts()
+    rows = []
+    for name, nfe_arg, extra in (
+            ("ei_ode", EI_NFE,
+             ["+dataset.diffusion.evaluation.sampler.order=2"]),
+            ("rk_ode", RK_STEPS + 1,
+             ["+dataset.diffusion.evaluation.sampler.solver=heun"]),
+            ("adaptive_ode", 2, [
+                f"+dataset.diffusion.evaluation.sampler.rtol={ODE_TOL}",
+                f"+dataset.diffusion.evaluation.sampler.atol={ODE_TOL}",
+                "+dataset.diffusion.evaluation.sampler.max_steps="
+                f"{ODE_MAX_STEPS}"]),
+            ("bb_ode", 2, [
+                f"+dataset.diffusion.evaluation.sampler.rtol={ODE_TOL}",
+                f"+dataset.diffusion.evaluation.sampler.atol={ODE_TOL}"])):
+        out_dir = os.path.join(work, f"ode_{name}")
+        batches = sample_cli.main(FLAGSHIP_ARGS + extra + [
+            f"dataset.diffusion.evaluation.sampler.name={name}",
+        ] + _eval_args(ckpt, out_dir, nfe_arg))
+        check(len(batches) == 1 and batches[0]["samples"] == BATCH
+              and batches[0]["nonfinite"] == 0, f"ode {name} drew {batches}")
+        check(len(_pngs(os.path.join(out_dir, "images"))) == BATCH,
+              f"ode {name} wrote no {BATCH} PNGs")
+        rows.append((name, batches[0]))
+    nfes = {name: row["nfe"] for name, row in rows}
+    check(nfes["ei_ode"] == EI_NFE and nfes["rk_ode"] == 2 * RK_STEPS + 1,
+          f"ode: fixed-grid NFE {nfes}")
+    n = all_counts()
+    total = sum(nfes.values())
+    want = expected(group_norm_act=GN_PER_FWD * total,
+                    attention=ATTN_PER_FWD * total)
+    check(n == want, f"ODE sampling launched {n}, expected {want}")
+    for name, row in rows:
+        extra = ""
+        if name == "adaptive_ode":
+            capped = row["nfe"] == 2 + 6 * ODE_MAX_STEPS + 1
+            extra = (f"; rtol = atol = {ODE_TOL}, max_steps {ODE_MAX_STEPS}"
+                     f" ({'reached' if capped else 'not reached'})")
+        elif name == "bb_ode":
+            extra = (f"; SciPy {scipy.__version__} RK45 (scipy.integrate "
+                     f"imported in {import_s:.2f} s before the run), rtol = "
+                     f"atol = {ODE_TOL}, mean NFE {row['nfe']}")
+        say(f"[ode] cli.sample {name}: {BATCH} finite PNGs, batch {BATCH}, "
+            f"{row['nfe']} NFE (bf16 net): "
+            f"{row['seconds'] / row['nfe'] * 1e3:.2f} ms/NFE, "
+            f"{BATCH / row['seconds']:.3f} img/s (trajectory "
+            f"{row['seconds']:.2f} s){extra}; {card}")
+    say(f"[ode] kernel launches in the run: {n} ({total} NFE, "
+        f"{GN_PER_FWD} GN and {ATTN_PER_FWD} attention an NFE)")
+    return n
+
+
+def phase_cc_ode(card, work, score_ckpt, clf_ckpt):
+    """``cli.class_cond_sample`` with ``cc_ei_ode`` (order 2) from the
+    checkpoints of ``train`` and ``train_clf``: one batch of 64, label 0,
+    ``CC_ODE_NFE`` NFE, bf16 networks. Every NFE but the unguided denoise
+    microstep runs the score network, the classifier and its gradient."""
+    from psld_tpu_torch.cli import class_cond_sample as guided_cli
+
+    out_dir = os.path.join(work, "cc_ode")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    batches = guided_cli.main(FLAGSHIP_ARGS + CLF_ARGS + [
+        "dataset.diffusion.evaluation.sampler.name=cc_ei_ode",
+        "+dataset.diffusion.evaluation.sampler.order=2",
+        f"dataset.clf.evaluation.chkpt_path={clf_ckpt}",
+        "dataset.clf.evaluation.label_to_sample=0",
+    ] + _eval_args(score_ckpt, out_dir, CC_ODE_NFE))
+    n = all_counts()
+    row = _one_batch(batches, CC_ODE_NFE, "cc_ode")
+    check(row["label"] == 0 and len(_pngs(os.path.join(out_dir, "images")))
+          == BATCH, f"cc_ode drew {batches}")
+    guided = CC_ODE_NFE - 1
+    want = {k: v * guided for k, v in GUIDED_NFE_COUNTS.items()}
+    want["group_norm_act"] += GN_PER_FWD
+    want["attention"] += ATTN_PER_FWD
+    check(n == want, f"guided ODE sampling launched {n}, expected {want}")
+    ms_nfe = row["seconds"] / CC_ODE_NFE * 1e3
+    say(f"[cc_ode] cli.class_cond_sample cc_ei_ode (order 2), label 0: "
+        f"{BATCH} finite PNGs, batch {BATCH}, {CC_ODE_NFE} NFE ({guided} "
+        f"guided, bf16 score net and classifier): {ms_nfe:.2f} ms/NFE, "
+        f"{BATCH / row['seconds']:.3f} img/s (trajectory "
+        f"{row['seconds']:.2f} s), peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated; {card}")
+    say(f"[cc_ode] kernel launches in the run: {n}")
+    return n
+
+
+def phase_likelihood(card, work, ckpt):
+    """``cli.likelihood`` from the checkpoint of ``train`` on the synthetic
+    set: one batch of 64, bf16 network, RK4 with ``LIK_STEPS`` steps (4
+    right-hand sides a step, each one forward and one vector-Jacobian
+    product into the input), one Hutchinson probe; finite bits/dim."""
+    from psld_tpu_torch.cli import likelihood as likelihood_cli
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    bpd, batches = likelihood_cli.main(FLAGSHIP_ARGS + [
+        "dataset.diffusion.data.name=synthetic",
+        f"dataset.diffusion.evaluation.chkpt_path={ckpt}",
+        f"dataset.diffusion.evaluation.batch_size={BATCH}",
+        f"dataset.diffusion.evaluation.n_samples={BATCH}",
+        "dataset.diffusion.evaluation.sample_from=source",
+        "+dataset.diffusion.evaluation.bf16=True",
+        "+dataset.diffusion.evaluation.device=cuda",
+        f"+dataset.diffusion.evaluation.likelihood.n_steps={LIK_STEPS}",
+        "+dataset.diffusion.evaluation.likelihood.solver=rk4",
+        "+dataset.diffusion.evaluation.likelihood.n_probes=1",
+    ])
+    n = all_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rhs = 4 * LIK_STEPS
+    check(len(batches) == 1 and batches[0]["samples"] == BATCH
+          and batches[0]["nonfinite"] == 0 and np.isfinite(bpd)
+          and batches[0]["nfe"] == rhs, f"likelihood: {bpd}, {batches}")
+    want = expected(group_norm_act=GN_PER_FWD * rhs,
+                    group_norm_act_bwd=GN_PER_FWD * rhs,
+                    attention=ATTN_PER_FWD * rhs)
+    check(n == want, f"the likelihood launched {n}, expected {want}")
+    seconds = batches[0]["seconds"]
+    say(f"[likelihood] cli.likelihood from the trained checkpoint, synthetic "
+        f"set, batch {BATCH}, bf16 net, RK4 x {LIK_STEPS} ({rhs} right-hand "
+        f"sides), 1 Hutchinson probe: {bpd:.4f} bits/dim (finite); "
+        f"{seconds / rhs * 1e3:.2f} ms a right-hand side (a forward and an "
+        f"input-only VJP; batch {seconds:.2f} s), peak {peak_gb:.2f} GB "
+        f"allocated; {card}")
+    say(f"[likelihood] kernel launches in the run: {n}")
+    return n
+
+
 def phase_bench(card):
     """``psld_tpu_torch.eval.bench.run_bench`` in this process at the
     flagship's full width with ``BENCH_NFE`` NFE (the bench's default is
@@ -1731,7 +2050,8 @@ def combine(*timings) -> dict:
 # the paths the script drives, each with the batch its kernels run at
 PATHS = {"sample": BATCH, "train": TRAIN_BATCH, "train_clf": CLF_TRAIN_BATCH,
          "guided": BATCH, "sscs": BATCH, "inpaint": BATCH, "edit": BATCH,
-         "pc": BATCH, "bench": [BATCH, TRAIN_BATCH]}
+         "pc": BATCH, "ode": BATCH, "cc_ode": BATCH, "likelihood": BATCH,
+         "bench": [BATCH, TRAIN_BATCH]}
 # the kernels that run only in the bench's train phase, at its batch
 BENCH_TRAIN_ONLY = ("group_norm_act_bwd", "hash_dropout")
 
@@ -1763,6 +2083,7 @@ def main() -> int:
           "clf32": phase_gn(card, CLF_TRAIN_BATCH, CLF_GN_CALLS,
                             "classifier")}
     gn_bwd = {"flagship128": phase_gn_bwd(card),
+              "flagship64_dx": phase_gn_bwd(card, BATCH, need_params=False),
               "clf64": phase_gn_bwd(card, BATCH, CLF_GN_CALLS, "classifier"),
               "clf32": phase_gn_bwd(card, CLF_TRAIN_BATCH, CLF_GN_CALLS,
                                     "classifier")}
@@ -1784,8 +2105,9 @@ def main() -> int:
     phase_inpaint_check(card, cfg, weights)
     phase_edit_check(card, cfg, weights)
     phase_train_check(card, weights)
-    del weights
     phase_clf_check(card)
+    phase_ode_check(card, weights)
+    del weights
     work = os.path.join(REPO, "build", "smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -1798,11 +2120,15 @@ def main() -> int:
     n_inpaint = phase_inpaint(card, work, ckpt)
     n_edit = phase_edit(card, work, ckpt)
     n_pc = phase_pc(card, work, ckpt)
+    n_ode = phase_ode(card, work, ckpt)
+    n_cc_ode = phase_cc_ode(card, work, ckpt, clf_ckpt)
+    n_likelihood = phase_likelihood(card, work, ckpt)
     n_bench, _ = phase_bench(card)
     on_path = {"sample": n_sample, "train": n_train,
                "train_clf": n_train_clf, "guided": n_guided,
                "sscs": n_sscs, "inpaint": n_inpaint, "edit": n_edit,
-               "pc": n_pc, "bench": n_bench}
+               "pc": n_pc, "ode": n_ode, "cc_ode": n_cc_ode,
+               "likelihood": n_likelihood, "bench": n_bench}
     # what each path runs, at the shapes it runs it
     # the bench samples at 64 and trains at 128: its forward kernels'
     # numbers add one forward at each batch
@@ -1813,16 +2139,24 @@ def main() -> int:
             "guided": combine(gn["flagship64"], gn["clf64"]),
             "sscs": gn["flagship64"], "inpaint": gn["flagship64"],
             "edit": gn["flagship64"], "pc": gn["flagship64"],
+            "ode": gn["flagship64"],
+            "cc_ode": combine(gn["flagship64"], gn["clf64"]),
+            "likelihood": gn["flagship64"],
             "bench": combine(gn["flagship64"], gn["flagship128"])},
         "group_norm_act_bwd": {
             "train": gn_bwd["flagship128"], "train_clf": gn_bwd["clf32"],
-            "guided": gn_bwd["clf64"], "bench": gn_bwd["flagship128"]},
+            "guided": gn_bwd["clf64"], "cc_ode": gn_bwd["clf64"],
+            "likelihood": gn_bwd["flagship64_dx"],
+            "bench": gn_bwd["flagship128"]},
         "attention": {
             "sample": attn["flagship64"], "train": attn["flagship128"],
             "train_clf": attn["clf32"],
             "guided": combine(attn["flagship64"], attn["clf64"]),
             "sscs": attn["flagship64"], "inpaint": attn["flagship64"],
             "edit": attn["flagship64"], "pc": attn["flagship64"],
+            "ode": attn["flagship64"],
+            "cc_ode": combine(attn["flagship64"], attn["clf64"]),
+            "likelihood": attn["flagship64"],
             "bench": combine(attn["flagship64"], attn["flagship128"])},
         "hash_dropout": {"train": drop["flagship128"],
                          "train_clf": drop["clf32"],
@@ -1863,9 +2197,9 @@ def main() -> int:
                 "by_path": by_path, **more}
 
     fwd = ("bf16: device ms (CUDA-graph replay) summed over the calls of "
-           "one network forward at the path's batch (guided: the score "
-           "network's and the classifier's; bench: one forward at 64 and "
-           "one at 128), eager_ms the same calls made one by one; "
+           "one network forward at the path's batch (guided and cc_ode: the "
+           "score network's and the classifier's; bench: one forward at 64 "
+           "and one at 128), eager_ms the same calls made one by one; "
            "max_abs_err of the bf16 kernel against the plain version "
            "(GroupNorm: its gn_bf16 chain)")
     fused_basis = ("bf16: device ms summed over one call at each of "
@@ -1882,7 +2216,8 @@ def main() -> int:
             "psld_tpu_torch/csrc/group_norm_bwd.cu",
             "psld_tpu/ops/group_norm.py:125",
             "bf16: device ms summed over the calls of one network backward "
-            "at the path's batch; max_abs_err is the largest |kernel - "
+            "at the path's batch (likelihood: the input-only mode, dx "
+            "alone, at B=64); max_abs_err is the largest |kernel - "
             "plain| over dx, dscale and dbias against autograd through the "
             "plain version's gn_bf16 chain (dscale sums 131,072 x 64 terms "
             "at B=128, so it is large in absolute terms); max_err_of_scale "

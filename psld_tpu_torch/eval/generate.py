@@ -2,6 +2,13 @@
 classifier-guided ``class_cond_sample``, ``inpaint`` and SDEdit-style
 ``edit``.
 
+``sample`` runs any unguided sampler, the probability-flow ODE ones
+(``rk_ode``, ``ei_ode``, ``adaptive_ode``, ``bb_ode``) included;
+``class_cond_sample`` runs a guided one (``cc_em_sde``, ``cc_ei_ode``).
+The ODE samplers are deterministic and ignore the batch's generator
+beyond its prior draw, and count their network evaluations: a batch's
+``nfe`` is what its sampler counted.
+
 One device, one process: the sample count is drawn in batches of
 ``evaluation.batch_size``; batch ``k`` gets its own generator seeded from
 (``evaluation.seed``, k), which draws its prior sample (or, for
@@ -47,9 +54,9 @@ from psld_tpu_torch.eval.writers import (InpaintingImageWriter,
 from psld_tpu_torch.registry import get_module
 from psld_tpu_torch.samplers.base import make_timesteps
 from psld_tpu_torch.samplers.correctors import build_corrector
-from psld_tpu_torch.samplers.sde_samplers import (
-    ClassCondEulerMaruyamaSampler, EditEulerMaruyamaSampler,
-    EulerMaruyamaInpainter)
+from psld_tpu_torch.samplers.ode import AdaptiveODESampler, BBODESampler
+from psld_tpu_torch.samplers.sde_samplers import (EditEulerMaruyamaSampler,
+                                                  EulerMaruyamaInpainter)
 
 logger = logging.getLogger(__name__)
 
@@ -140,7 +147,8 @@ def _dataset_source(dataset, device, images_only: bool = False):
 def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
                  prefix_at=None) -> list:
     """The batch loop: input batch, trajectory, write; returns one dict of
-    stats per batch (samples written, NFE, seconds, non-finite values).
+    stats per batch (samples written, NFE, seconds, non-finite values;
+    the NFE is the grid's unless the sampler counts its own).
     ``sampler_at(k)`` is batch k's sampler; ``batch_at(k, generator,
     width)`` its input (a prior draw, or dataset images); ``prefix_at(k)``,
     when given, its file-name prefix. An input that is a tuple (images
@@ -161,11 +169,13 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
         t0 = time.perf_counter()
         gen = batch_generator(seed, batch_idx, device)
         z = batch_at(batch_idx, gen, per_step)
-        out = sampler_at(batch_idx).sample(gen, z, ts, n_eff,
-                                           denoise=denoise, eps=eps)
+        sampler = sampler_at(batch_idx)
+        nfe0 = getattr(sampler, "nfe", None)
+        out = sampler.sample(gen, z, ts, n_eff, denoise=denoise, eps=eps)
         out = out[:take].float().cpu().numpy()
         stats = {"batch": batch_idx, "samples": take, "width": per_step,
-                 "nfe": len(ts) - 1 + int(denoise),
+                 "nfe": (len(ts) - 1 + int(denoise) if nfe0 is None
+                         else sampler.nfe - nfe0),
                  "seconds": time.perf_counter() - t0,
                  "nonfinite": int(out.size - np.isfinite(out).sum())}
         if prefix_at is not None:
@@ -206,7 +216,7 @@ def sample(config, preloaded=None):
     _check_single_device(ecfg)
     device = torch.device(str(ecfg.get("device", "cuda")))
     sampler_cls = get_module("samplers", str(ecfg.sampler.name))
-    if issubclass(sampler_cls, ClassCondEulerMaruyamaSampler):
+    if sampler_cls.guided:
         raise ValueError(f"evaluation.sampler.name={ecfg.sampler.name} is "
                          "guided: use cli.class_cond_sample")
     sde = build_sde(config)
@@ -217,8 +227,11 @@ def sample(config, preloaded=None):
         score_fn = make_score_fn(net, bf16=eval_bf16(config))
         sampler = sampler_cls(config, sde, score_fn, corrector_fn=(
             build_corrector(config, sde, score_fn)))
-        return _run_sampler(config, sde, lambda _: sampler, writer,
-                            _latent_source(sde, config, device), device)
+        batches = _run_sampler(config, sde, lambda _: sampler, writer,
+                               _latent_source(sde, config, device), device)
+    if isinstance(sampler, (BBODESampler, AdaptiveODESampler)) and batches:
+        logger.info("%s mean NFE: %.1f", ecfg.sampler.name, sampler.mean_nfe)
+    return batches
 
 
 def load_clf_model(ccfg):
@@ -270,9 +283,9 @@ def class_cond_sample(config):
     _check_single_device(ecfg)
     device = torch.device(str(ecfg.get("device", "cuda")))
     sampler_cls = get_module("samplers", str(ecfg.sampler.name))
-    if not issubclass(sampler_cls, ClassCondEulerMaruyamaSampler):
+    if not sampler_cls.guided:
         raise ValueError(f"class_cond_sample needs a guided sampler "
-                         f"(cc_em_sde), not {ecfg.sampler.name}")
+                         f"(cc_em_sde, cc_ei_ode), not {ecfg.sampler.name}")
     labels = _parse_label_spec(config.clf.evaluation.label_to_sample,
                                int(config.clf.model.clf_fn.n_cls))
     sde = build_sde(dcfg)

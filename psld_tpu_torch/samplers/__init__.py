@@ -11,3 +11,10 @@ from psld_tpu_torch.samplers.sde_samplers import (  # noqa: F401
     SSCS2MSampler,
     SSCSSampler,
 )
+from psld_tpu_torch.samplers.ode import (  # noqa: F401
+    AdaptiveODESampler,
+    BBODESampler,
+    ClassCondEIODESampler,
+    EIODESampler,
+    RKODESampler,
+)

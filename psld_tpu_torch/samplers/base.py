@@ -33,7 +33,12 @@ class Sampler(abc.ABC):
     form ``(x, t, dt, draw)`` (a stochastic corrector, such as
     :class:`~psld_tpu_torch.samplers.correctors.LangevinCorrector`, whose
     ``draw(j, like)`` is its j-th standard normal draw) or the
-    reference's ``(x, t, dt)``; either returns ``(x, x_mean)``."""
+    reference's ``(x, t, dt)``; either returns ``(x, x_mean)``.
+
+    ``guided`` samplers also take a classifier (``clf_fn``) and run
+    through ``class_cond_sample``."""
+
+    guided = False
 
     def __init__(self, config, sde, score_fn, corrector_fn=None):
         self.config = config

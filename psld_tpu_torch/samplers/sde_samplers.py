@@ -138,6 +138,8 @@ class ClassCondEulerMaruyamaSampler(EulerMaruyamaSampler):
     state, so the sampler must not run under ``torch.inference_mode``,
     whose tensors can never require grad."""
 
+    guided = True
+
     def __init__(self, config, sde, score_fn, clf_fn, corrector_fn=None,
                  y=None):
         super().__init__(config, sde, score_fn, corrector_fn=corrector_fn)

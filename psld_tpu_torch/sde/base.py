@@ -20,6 +20,11 @@ class SDE(abc.ABC):
     def T(self) -> float:
         return 1.0
 
+    @property
+    def is_augmented(self) -> bool:
+        """Whether the state carries a momentum half (phase space)."""
+        return False
+
     @abc.abstractmethod
     def sde(self, z, t):
         """Forward drift and diffusion ``(f, g)`` at (z, t)."""

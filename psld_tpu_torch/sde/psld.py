@@ -9,7 +9,7 @@ covariance ``E Sigma_0 E^T + D I0 + S I1 + Q I2``.
 Time vectors are float64 tensors; every coefficient stays float64 until
 :func:`~psld_tpu_torch.utils.numerics.to_edge` casts it to the image
 tensor's dtype and device, as ``_mean`` and ``get_score`` do in the JAX
-package. The likelihood pieces come with the evaluation slice.
+package.
 """
 
 from __future__ import annotations
@@ -82,6 +82,10 @@ class PSLD(SDE):
     @property
     def type(self) -> str:
         return f"psld-{self.mode}"
+
+    @property
+    def is_augmented(self) -> bool:
+        return True
 
     # -- matrix exponential pieces --------------------------------------------
     def _exp_half_As(self, s):
@@ -246,6 +250,25 @@ class PSLD(SDE):
         p_m = torch.randn(shape, generator=generator, dtype=dtype,
                           device=device) * math.sqrt(self.m)
         return join_xm(p_x, p_m)
+
+    def prior_logp(self, z):
+        """log N(x; 0, I) + log N(m; 0, M I) per sample, float64: the
+        squared norms are summed in ``z``'s dtype, and the constants added
+        in float64, as the JAX package does under x64."""
+        x, m = split_xm(z)
+        n = math.prod(x.shape[1:])
+        dims = tuple(range(1, x.ndim))
+        logp_x = -0.5 * n * math.log(2 * math.pi) \
+            - (0.5 * (x * x).sum(dims)).double()
+        logp_m = -0.5 * n * math.log(2 * math.pi * self.m) \
+            - (0.5 * self.m_inv * (m * m).sum(dims)).double()
+        return logp_x + logp_m
+
+    def likelihood_weighting(self, t):
+        """(beta gamma, beta M nu) at time ``t``: the diffusion's squares
+        on the x and m halves."""
+        beta = self.beta_t(t)
+        return beta * self.gamma, beta * self.m * self.nu
 
     def timestep_vector(self, t: float, batch: int,
                         device=None) -> torch.Tensor:

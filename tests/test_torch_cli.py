@@ -124,15 +124,15 @@ def test_writer_keeps_only_the_x_half(tmp_path):
 
 
 _IMPORT_ALL = """
-import os, pkgutil, sys, tempfile
+import math, os, pkgutil, sys, tempfile
 import torch
 torch.set_num_threads(1)  # tiny shapes: threads only contend with others
 import psld_tpu_torch
 for m in pkgutil.walk_packages(psld_tpu_torch.__path__, "psld_tpu_torch."):
     __import__(m.name)
 from psld_tpu_torch.cli._common import bootstrap
-from psld_tpu_torch.cli import (class_cond_sample, edit, inpaint, sample,
-                                train_clf, train_sde)
+from psld_tpu_torch.cli import (class_cond_sample, edit, inpaint,
+                                likelihood, sample, train_clf, train_sde)
 from psld_tpu_torch.eval import bench
 from psld_tpu_torch.train.checkpoint import latest_checkpoint
 bootstrap(["+dataset=cifar10/cifar10_psld"])
@@ -162,7 +162,18 @@ with tempfile.TemporaryDirectory() as d:
     batches += edit.main(tiny + [
         "dataset.diffusion.evaluation.chkpt_path=" + score,
         "dataset.diffusion.evaluation.save_path=" + d + "/edit"])
+    ode = sample.main(tiny + [
+        "dataset.diffusion.evaluation.sampler.name=ei_ode",
+        "dataset.diffusion.evaluation.chkpt_path=" + score,
+        "dataset.diffusion.evaluation.save_path=" + d + "/ode"])
+    bpd, nll = likelihood.main(tiny + [
+        "dataset.diffusion.evaluation.chkpt_path=" + score,
+        "+dataset.diffusion.evaluation.likelihood.n_steps=2",
+        "+dataset.diffusion.evaluation.likelihood.solver=heun"])
 print("RAN", state.step, clf_state.step, sum(b["samples"] for b in batches))
+print("ODE", [(b["samples"], b["nfe"], b["nonfinite"]) for b in ode])
+print("NLL", [(b["samples"], b["nfe"], b["nonfinite"]) for b in nll],
+      bpd == nll[0]["bits_per_dim"] and math.isfinite(bpd))
 os.environ.update(PSLD_BENCH_NF="8", PSLD_BENCH_TRAIN_BATCH="1")
 line = bench.run_bench(batch=1, nfe=2, device="cpu")
 print("BENCH", len(line), line["device"])
@@ -211,9 +222,10 @@ _GUIDED_RUN = ["dataset.diffusion.evaluation.sampler.name=cc_em_sde",
 def test_importing_the_port_pulls_in_no_jax():
     """Every module of the port imported in a fresh process, a config
     composed by ``bootstrap``, and a tiny run of each entry point
-    (``cli.train_sde``, ``cli.sample`` with EM and with SSCS-2M,
+    (``cli.train_sde``, ``cli.sample`` with EM, SSCS-2M and ``ei_ode``,
     ``cli.train_clf``, ``cli.class_cond_sample``, ``cli.inpaint``,
-    ``cli.edit``, and the bench on the CPU at width 8) leave no module
+    ``cli.edit``, ``cli.likelihood`` (two Heun steps, one batch of 2),
+    and the bench on the CPU at width 8) leave no module
     named ``psld_tpu`` or ``psld_tpu.*``, nothing of JAX and no Triton in
     ``sys.modules``."""
     r = subprocess.run(
@@ -222,6 +234,8 @@ def test_importing_the_port_pulls_in_no_jax():
         capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "RAN 2 2 12" in r.stdout, r.stdout
+    assert "ODE [(2, 3, 0)]" in r.stdout, r.stdout
+    assert "NLL [(2, 4, 0)] True" in r.stdout, r.stdout
     assert "BENCH 18 cpu" in r.stdout, r.stdout
     assert "IMPORTED []" in r.stdout, r.stdout
 
@@ -300,7 +314,9 @@ def test_train_clf_then_guided_and_sscs2m_sampling(tmp_path, caplog,
 
 
 @pytest.mark.parametrize("entry,sampler", [("guided", "em_sde"),
-                                           ("sample", "cc_em_sde")])
+                                           ("sample", "cc_em_sde"),
+                                           ("guided", "ei_ode"),
+                                           ("sample", "cc_ei_ode")])
 def test_guided_and_unguided_entry_points_refuse_each_others_sampler(
         entry, sampler):
     argv = _TINY_RUN + _CLF_RUN + [
