@@ -93,15 +93,47 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     right-hand sides, each a forward and an input-only vector-Jacobian
     product), one Hutchinson probe: finite bits/dim, ms a right-hand
     side, peak memory.
-24. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
+24. vp_check (run after ode_check): the VP-SDE baseline
+    (``cifar10_vpsde``, 61,804,419 parameters, weights N(0, 1) * 0.02
+    from a numpy seed) in float32 on the card against the CPU: one
+    training step at B=2 with hash dropout 0.1 (loss within 1e-4
+    relative, every gradient within 1e-3 of its scale, the step's launch
+    counts), 3 NFE of EM, EM with the Langevin corrector, editing and
+    ``ei_ode`` at B=2 (1e-4 of scale), one RK4 likelihood step (logp
+    1e-4 relative), and the Inception features of 4 images resized to
+    299 (random weights, 1e-4 of scale, TF32 switched on around the
+    extractor, which turns it off for itself). The kernel phases 4-7 run
+    at the VP-SDE's shapes too: GroupNorm and attention at 64 and 128,
+    the GN backward at 128 and in its input-only mode at 64, dropout at
+    rate 0.1 at 128.
+25. vp_train: ``cli.train_sde`` on ``cifar10_vpsde`` at batch 128, bf16,
+    ``dropout_impl=hw_inline``, synthetic set, 12 steps: ms/step, img/s,
+    peak memory, a checkpoint.
+26. vp_sample, vp_pc, vp_edit, vp_ode, vp_likelihood: ``cli.sample``
+    (100-NFE EM; 10 NFE of EM with one Langevin step; ``ei_ode``,
+    ``rk_ode``, ``adaptive_ode`` and ``bb_ode`` as ``ode``), ``cli.edit``
+    (20 NFE) and ``cli.likelihood`` (RK4 x 2, one probe; the VP-SDE's NLL
+    without a momentum draw) from that checkpoint at batch 64, bf16.
+27. fid: ``cli.fid --fid --kid --isc --save-stats1`` on the card with
+    random Inception weights, the 64 vp_sample PNGs against 64 PNGs of
+    the synthetic set: finite values, the stats file read back and FID
+    from it equal, no kernel of the port launched; Inception's images/s
+    at batch 64.
+28. sweep: ``cli.sweep_fid_nfe`` of the VP-SDE checkpoint over em_sde and
+    ei_ode at 20 and 50 NFE, 64 samples a point, FID against the
+    synthetic PNGs with a fake ``pt_inception`` checkpoint (random values
+    from a numpy seed): every record has a finite ``fid`` and no
+    ``quality_error``.
+29. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
     width with 100 NFE (its default is 1000) and its train phase; its line
     is printed after ``[bench] line:``, its img/s and MFU shares must be
     positive, the shares at most 1.05.
 
 Every path (train, sample, train_clf, guided, sscs, inpaint, edit, pc,
-ode, cc_ode, likelihood, bench) is driven with the kernels' launch counts set to 0 just before it
-and must launch exactly the kernels its network calls, as many times as
-its forwards and steps need.
+ode, cc_ode, likelihood, vp_train, vp_sample, vp_pc, vp_edit, vp_ode,
+vp_likelihood, fid, sweep, bench) is driven with the kernels' launch
+counts set to 0 just before it and must launch exactly the kernels its
+network calls, as many times as its forwards and steps need (fid: none).
 
 Each kernel's time stands beside its bound (the larger of its bytes over
 3.35 TB/s and its operations over the card's peak for their type, from
@@ -116,6 +148,7 @@ Without a CUDA device the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -150,9 +183,6 @@ GN_CALLS = [(1024, 128, 1), (1024, 256, 27), (1024, 384, 1), (1024, 512, 8),
 ATTN_CALLS = [(256, 256, 9), (64, 256, 1)]
 # (H*W, C, sites per flagship forward) of the resblocks' dropout
 DROPOUT_CALLS = [(1024, 256, 18), (256, 256, 19), (64, 256, 20)]
-GN_PER_FWD = sum(n for _, _, n in GN_CALLS)
-ATTN_PER_FWD = sum(n for _, _, n in ATTN_CALLS)
-DROPOUT_SITES = sum(n for _, _, n in DROPOUT_CALLS)
 
 # the same for the shipped guidance classifier (cifar10_psld.yaml's clf
 # tree: nf 128, ch_mult [1,2,2,2], 2 blocks a level, attention at 16^2;
@@ -162,9 +192,6 @@ CLF_GN_CALLS = [(1024, 128, 5), (256, 128, 2), (256, 256, 6), (64, 256, 6),
 CLF_ATTN_CALLS = [(256, 256, 2), (16, 256, 1)]
 CLF_DROPOUT_CALLS = [(1024, 128, 2), (256, 128, 1), (256, 256, 2),
                      (64, 256, 3), (16, 256, 5)]
-CLF_GN_PER_FWD = sum(n for _, _, n in CLF_GN_CALLS)
-CLF_ATTN_PER_FWD = sum(n for _, _, n in CLF_ATTN_CALLS)
-CLF_DROPOUT_SITES = sum(n for _, _, n in CLF_DROPOUT_CALLS)
 CLF_TRAIN_BATCH = 32
 GUIDED_NFE = 20
 SSCS_NFE = 50
@@ -186,6 +213,25 @@ LIK_STEPS = 2
 FUSED_ACT_SHAPES = [(128 * 1024, 256), (128 * 256, 256), (128 * 64, 512),
                     (128, 512), (1000, 6)]
 
+# the VP-SDE baseline, cifar10_vpsde.yaml at full width (nf 128, ch_mult
+# [1,2,2,2], 4 BigGAN blocks a level, attention at 16^2, positional
+# embedding, no FIR, dropout 0.1, 3 channels; 61,804,419 parameters):
+# (H*W, C, calls per forward) of every GroupNorm and attention, and the
+# (H*W, C, sites) of its dropout; its middle block attends over 4 x 4
+VP_GN_CALLS = [(1024, 128, 15), (1024, 256, 5), (1024, 384, 1),
+               (256, 128, 2), (256, 256, 20), (256, 384, 1), (256, 512, 4),
+               (64, 256, 17), (64, 512, 5), (16, 256, 20), (16, 512, 5)]
+VP_ATTN_CALLS = [(256, 256, 5), (16, 256, 1)]
+VP_DROPOUT_CALLS = [(1024, 128, 9), (1024, 256, 1), (256, 128, 1),
+                    (256, 256, 10), (64, 256, 11), (16, 256, 12)]
+VP_RATE = 0.1
+VP_PARAMS = 61_804_419
+VP_ARGS = ["+dataset=cifar10/cifar10_vpsde",
+           "dataset.diffusion.data.root=/unused",
+           "+dataset.diffusion.model.score_fn.gn_bf16=True"]
+# the sweep's NFEs (each sampler at each) and samples a point
+SWEEP_NFES = (20, 50)
+
 # the flagship option set of the bench (psld_tpu/eval/bench.py's), at
 # its full width, with gn_bf16 and the sampling SDE
 FLAGSHIP_ARGS = bench.FLAGSHIP_ARGS + [
@@ -201,6 +247,40 @@ CLF_ARGS = [
     "dataset.clf.model.clf_fn.n_cls=10",
     "+dataset.clf.model.clf_fn.dropout_impl=hw",
 ]
+
+
+class Net:
+    """A network the paths drive: its config arguments, the channels of
+    its state, and the kernel calls of one forward (GroupNorm, attention)
+    and of one training step's dropout."""
+
+    def __init__(self, name, args, channels, gn_calls, attn_calls,
+                 dropout_calls):
+        self.name, self.args, self.channels = name, args, channels
+        self.gn = sum(n for _, _, n in gn_calls)
+        self.attn = sum(n for _, _, n in attn_calls)
+        self.dropout_sites = sum(n for _, _, n in dropout_calls)
+
+    def step_counts(self, steps: int = 1) -> dict:
+        """The launches of ``steps`` training steps."""
+        return expected(group_norm_act=self.gn * steps,
+                        group_norm_act_bwd=self.gn * steps,
+                        attention=self.attn * steps,
+                        hash_dropout=2 * self.dropout_sites * steps)
+
+    def fwd_counts(self, forwards: int, input_vjps: int = 0) -> dict:
+        """The launches of ``forwards`` forwards and ``input_vjps``
+        backwards into the input alone."""
+        return expected(group_norm_act=self.gn * forwards,
+                        group_norm_act_bwd=self.gn * input_vjps,
+                        attention=self.attn * forwards)
+
+
+FLAGSHIP = Net("flagship", FLAGSHIP_ARGS, 6, GN_CALLS, ATTN_CALLS,
+               DROPOUT_CALLS)
+CLF = Net("classifier", FLAGSHIP_ARGS + CLF_ARGS, 6, CLF_GN_CALLS,
+          CLF_ATTN_CALLS, CLF_DROPOUT_CALLS)
+VP = Net("VP-SDE", VP_ARGS, 3, VP_GN_CALLS, VP_ATTN_CALLS, VP_DROPOUT_CALLS)
 
 
 class SmokeFailure(RuntimeError):
@@ -591,10 +671,10 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship",
 
 
 def phase_dropout(card, batch=TRAIN_BATCH, calls=DROPOUT_CALLS,
-                  net="flagship"):
+                  net="flagship", rate=0.15):
     """The hash dropout kernel against its plain version, bit for bit, at
     the (H*W, C) shapes of ``net``'s dropout sites (``calls``) at
-    ``batch``."""
+    ``batch``, at ``net``'s ``rate`` (timed) and 0.5."""
     import torch.nn.functional as F
 
     from psld_tpu_torch.ops import hash_dropout, hash_dropout_plain
@@ -612,31 +692,31 @@ def phase_dropout(card, batch=TRAIN_BATCH, calls=DROPOUT_CALLS,
         for dt in (torch.float32, torch.bfloat16):
             # the layout inside the network: NCHW-logical, channels_last
             x = x32.to(dt).permute(0, 3, 1, 2)
-            for rate, off in ((0.15, 0), (0.5, 0), (0.15, 1_000_003)):
-                got = hash_dropout(x, seed, rate, elem_off=off)
-                want = hash_dropout_plain(x, seed, rate, elem_off=off)
+            for p, off in ((rate, 0), (0.5, 0), (rate, 1_000_003)):
+                got = hash_dropout(x, seed, p, elem_off=off)
+                want = hash_dropout_plain(x, seed, p, elem_off=off)
                 torch.cuda.synchronize()
-                what = f"dropout {hw}x{c} {dt} rate={rate} off={off}"
+                what = f"dropout {hw}x{c} {dt} rate={p} off={off}"
                 check(got.dtype == dt and got.stride() == x.stride(),
                       f"{what}: output dtype or layout changed")
                 worst = max(worst, max_err(got, want))
                 check(torch.equal(got, want), f"{what}: kernel != plain")
                 kept = float((got != 0).float().mean())
-                sigma = (rate * (1 - rate) / x.numel()) ** 0.5
-                check(abs(kept - (1 - rate)) < 4 * sigma,
+                sigma = (p * (1 - p) / x.numel()) ** 0.5
+                check(abs(kept - (1 - p)) < 4 * sigma,
                       f"{what}: kept share {kept:.6f}")
                 n_cases += 1
         x = x32.bfloat16().permute(0, 3, 1, 2)
         xg = x.detach().requires_grad_()
         ct = torch.randn_like(x)
-        (dx,) = torch.autograd.grad(hash_dropout(xg, seed, 0.15), xg, ct)
-        check(torch.equal(dx, hash_dropout_plain(ct, seed, 0.15)),
+        (dx,) = torch.autograd.grad(hash_dropout(xg, seed, rate), xg, ct)
+        check(torch.equal(dx, hash_dropout_plain(ct, seed, rate)),
               f"dropout {hw}x{c}: backward does not re-mask the cotangent")
-        k_ms = device_ms(lambda: hash_dropout(x, seed, 0.15))
-        e_ms = cuda_ms(lambda: hash_dropout(x, seed, 0.15))
-        p_ms = device_ms(lambda: hash_dropout_plain(x, seed, 0.15),
+        k_ms = device_ms(lambda: hash_dropout(x, seed, rate))
+        e_ms = cuda_ms(lambda: hash_dropout(x, seed, rate))
+        p_ms = device_ms(lambda: hash_dropout_plain(x, seed, rate),
                          launches=3)
-        l_ms = device_ms(lambda: F.dropout(x, 0.15, training=True))
+        l_ms = device_ms(lambda: F.dropout(x, rate, training=True))
         # forward and backward of a step launch the same kernel
         kernel_step += 2 * n_calls * k_ms
         eager_step += 2 * n_calls * e_ms
@@ -656,11 +736,11 @@ def phase_dropout(card, batch=TRAIN_BATCH, calls=DROPOUT_CALLS,
     check(torch.equal(got, want),
           "dropout: odd size, 4-word seed: kernel != plain")
     say(f"[dropout] Triton kernel == plain bit for bit in {n_cases + 1} cases"
-        f" (f32 and bf16, rates 0.15 and 0.5, an offset, an odd size), "
+        f" (f32 and bf16, rates {rate} and 0.5, an offset, an odd size), "
         f"{net} shapes, B={batch}; kept share within 4 sigma; backward "
         f"re-masks")
     say(f"[dropout] device times (CUDA-graph replay; eager = called one by "
-        f"one): bf16, rate 0.15, {card}")
+        f"one): bf16, rate {rate}, {card}")
     for hw, c, n_calls, k_ms, e_ms, p_ms, l_ms, gbps in rows:
         say(f"[dropout]   HW={hw:5d} C={c} x{n_calls} sites: kernel {k_ms:.4f}"
             f" ms ({gbps:.0f} GB/s read+write; eager {e_ms:.4f} ms), plain "
@@ -880,7 +960,7 @@ def phase_net(card, cfg):
         got = gnet(x.cuda(), t.cuda())
         torch.cuda.synchronize()
         n_gn, n_attn = counts()
-    check((n_gn, n_attn) == (GN_PER_FWD, ATTN_PER_FWD),
+    check((n_gn, n_attn) == (FLAGSHIP.gn, FLAGSHIP.attn),
           f"one forward launched {n_gn} GN and {n_attn} attention kernels")
     scale = float(want.abs().max())
     err = max_err(got.cpu(), want)
@@ -931,29 +1011,28 @@ TRAIN_ARGS = [
     "+dataset.diffusion.model.score_fn.dropout_impl=hw",
     "+dataset.diffusion.training.bf16=True",
 ]
-STEP_COUNTS = expected(group_norm_act=GN_PER_FWD,
-                       group_norm_act_bwd=GN_PER_FWD,
-                       attention=ATTN_PER_FWD,
-                       hash_dropout=2 * DROPOUT_SITES)
-CLF_STEP_COUNTS = expected(group_norm_act=CLF_GN_PER_FWD,
-                           group_norm_act_bwd=CLF_GN_PER_FWD,
-                           attention=CLF_ATTN_PER_FWD,
-                           hash_dropout=2 * CLF_DROPOUT_SITES)
+VP_TRAIN_ARGS = [
+    "dataset.diffusion.data.name=synthetic",
+    "+dataset.diffusion.model.score_fn.dropout_impl=hw_inline",
+    "+dataset.diffusion.training.bf16=True",
+]
 # one guided NFE: the score network's forward, the classifier's forward
 # and its backward into the input (attention's gradient is no kernel)
-GUIDED_NFE_COUNTS = expected(group_norm_act=GN_PER_FWD + CLF_GN_PER_FWD,
-                             group_norm_act_bwd=CLF_GN_PER_FWD,
-                             attention=ATTN_PER_FWD + CLF_ATTN_PER_FWD)
+GUIDED_NFE_COUNTS = expected(group_norm_act=FLAGSHIP.gn + CLF.gn,
+                             group_norm_act_bwd=CLF.gn,
+                             attention=FLAGSHIP.attn + CLF.attn)
 
 
-def phase_train_check(card, weights):
-    """One float32 optimizer step of the flagship at B=2, hash dropout
-    0.15, on the card against the CPU, with the same t, eps and seed
-    words. The first step's learning rate is 0 (warmup), so the weights
-    stay and Adam's first moment is (1 - beta_1) times the clipped
-    gradient: it holds every parameter's gradient. Tolerance: 1e-3 of
-    each gradient's scale (float32 sums in another order through ~250
-    layers, TF32 off)."""
+def phase_train_check(card, weights, net=FLAGSHIP, tag="train_check",
+                      seed: int = 5):
+    """One float32 optimizer step of ``net`` at B=2, with its config's
+    hash dropout, on the card against the CPU, with the same t, eps and
+    seed words. The first step's learning rate is 0 (warmup), so the
+    weights stay and Adam's first moment is (1 - beta_1) times the
+    clipped gradient: it holds every parameter's gradient. Tolerances:
+    the loss within 1e-4 relative, the gradient norm within 1e-3, each
+    gradient within 1e-3 of its scale (float32 sums in another order
+    through ~250 layers, TF32 off); and the launches of one step."""
     from psld_tpu_torch.cli._common import bootstrap
     from psld_tpu_torch.train.loop import build_score_model, build_sde
     from psld_tpu_torch.train.state import init_state
@@ -961,60 +1040,117 @@ def phase_train_check(card, weights):
     from psld_tpu_torch.registry import get_module
 
     t0 = time.perf_counter()
-    cfg = bootstrap(FLAGSHIP_ARGS + [
+    cfg = bootstrap(net.args + [
         "+dataset.diffusion.model.score_fn.dropout_impl=hw"
     ]).dataset.diffusion
+    rate = float(cfg.model.score_fn.dropout)
     set_gn_bf16(False)
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.uniform(-1, 1, (2, 32, 32, 3)).astype(
         np.float32))
     t = torch.tensor([0.3, 0.7], dtype=torch.float64)
-    eps = torch.from_numpy(rng.standard_normal((2, 32, 32, 6)).astype(
-        np.float32))
+    eps = torch.from_numpy(rng.standard_normal(
+        (2, 32, 32, net.channels)).astype(np.float32))
     seeds = [tuple(int(w) for w in row)
-             for row in rng.integers(0, 2 ** 32, (DROPOUT_SITES, 2))]
+             for row in rng.integers(0, 2 ** 32, (net.dropout_sites, 2))]
+    want_n = net.step_counts()
     out = {}
     for dev in ("cpu", "cuda"):
-        net = build_score_model(cfg)
-        net.load_state_dict(weights, strict=True)
-        net.to(dev)
+        model = build_score_model(cfg)
+        model.load_state_dict(weights, strict=True)
+        model.to(dev)
         sde = build_sde(cfg)
         crit = get_module("losses", cfg.training.loss.name)(cfg, sde)
-        step, opt = make_train_step(net, sde, crit, cfg)
-        state = init_state(dict(net.named_parameters()), opt)
+        step, opt = make_train_step(model, sde, crit, cfg)
+        state = init_state(dict(model.named_parameters()), opt)
         reset_counts()
         state, m = step(state, x.to(dev), t=t, eps=eps.to(dev),
                         dropout_seeds=seeds)
         if dev == "cuda":
             torch.cuda.synchronize()
             n = all_counts()
-            check(n == STEP_COUNTS, f"one train step launched {n}, expected "
-                  f"{STEP_COUNTS}")
+            check(n == want_n, f"{tag}: one train step launched {n}, "
+                  f"expected {want_n}")
         out[dev] = (float(m["loss"]), float(m["grad_norm"]),
                     {k: v.cpu() for k, v in state.opt_state["mu"].items()})
-        del state, step, net
+        del state, step, model
     os.environ.pop("PSLD_GN_BF16")
     (l_c, g_c, mu_c), (l_g, g_g, mu_g) = out["cpu"], out["cuda"]
-    check(abs(l_g - l_c) <= 1e-3 * abs(l_c),
-          f"train_check: loss {l_g} on the card, {l_c} on the CPU")
+    check(abs(l_g - l_c) <= 1e-4 * abs(l_c),
+          f"{tag}: loss {l_g} on the card, {l_c} on the CPU")
     check(abs(g_g - g_c) <= 1e-3 * abs(g_c),
-          f"train_check: grad_norm {g_g} on the card, {g_c} on the CPU")
-    top = max(float(v.abs().max()) for v in mu_c.values())
-    worst, worst_key = 0.0, ""
-    for k, want in mu_c.items():
-        if k.endswith(".W"):
-            check(not mu_g[k].any(), f"train_check: {k} has a gradient")
-            continue
-        ref = max(float(want.abs().max()), 1e-4 * top)
-        err = max_err(mu_g[k], want) / ref
-        if err > worst:
-            worst, worst_key = err, k
-    check(worst <= 1e-3, f"train_check: gradient of {worst_key} differs by "
-          f"{worst:.3e} of its scale (tol 1e-3)")
-    say(f"[train_check] f32 step at B=2, hash dropout 0.15: card == CPU "
-        f"(loss {l_g:.6f} vs {l_c:.6f}; grad_norm {g_g:.6f} vs {g_c:.6f}; "
-        f"worst parameter gradient {worst:.2e} of its scale, {worst_key}; "
-        f"tol 1e-3); one step launched {STEP_COUNTS}; phase "
+          f"{tag}: grad_norm {g_g} on the card, {g_c} on the CPU")
+    worst, worst_key = _mu_close(mu_g, mu_c, tag)
+    n_params = sum(v.numel() for v in mu_c.values())
+    say(f"[{tag}] {net.name} {n_params} params, f32 step at B=2, hash "
+        f"dropout {rate}: card == CPU (loss {l_g:.7f} vs {l_c:.7f}, tol "
+        f"1e-4 relative; grad_norm {g_g:.6f} vs {g_c:.6f}; worst parameter "
+        f"gradient {worst:.2e} of its scale, {worst_key}; tol 1e-3); one "
+        f"step launched {want_n}; phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def phase_likelihood_check(card, weights, net=FLAGSHIP, tag="ode_check",
+                           seed: int = 32):
+    """One RK4 step of the Hutchinson likelihood of ``net`` (float32, B=2)
+    on the card against the CPU with the same probe: data in [-1, 1] (and,
+    for PSLD, a momentum drawn from its N(0, mm_0)); logp within 1e-4
+    relative, its divergence integral and terminal state within 1e-4 of
+    their scales; 4 forwards and 4 input-only backwards launched (the GN
+    backward kernel in its input-only mode)."""
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.eval.generate import build_score_model, make_score_fn
+    from psld_tpu_torch.eval.likelihood import make_likelihood_fn
+    from psld_tpu_torch.train.loop import build_sde
+
+    t0 = time.perf_counter()
+    set_gn_bf16(False)
+    cfg = bootstrap(net.args).dataset.diffusion
+    sde = build_sde(cfg)
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, (2, 32, 32, 3))
+    if hasattr(sde, "mm_0"):
+        x = np.concatenate([x, rng.standard_normal((2, 32, 32, 3))
+                            * np.sqrt(sde.mm_0)], axis=-1)
+    x = torch.from_numpy(x.astype(np.float32))
+    probes = torch.from_numpy(rng.choice(
+        [-1.0, 1.0], (1, 2, 32, 32, net.channels)).astype(np.float32))
+    want_n = net.fwd_counts(4, input_vjps=4)
+    logp, delta, z_t = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        model = build_score_model(cfg).eval().requires_grad_(False)
+        model.load_state_dict(weights, strict=True)
+        fn = make_likelihood_fn(sde, make_score_fn(model.to(dev)),
+                                n_steps=1, method="rk4")
+        reset_counts()
+        with torch.no_grad():
+            out = fn(None, x.to(dev), probes=probes.to(dev))
+        logp[dev], delta[dev], z_t[dev] = (
+            out[k].cpu() for k in ("logp", "delta_logp", "z_T"))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            n = all_counts()
+            check(n == want_n, f"{tag}: one RK4 likelihood step launched "
+                  f"{n}, expected {want_n}")
+        del model
+    os.environ.pop("PSLD_GN_BF16")
+    rel = float(((logp["cuda"] - logp["cpu"]).abs()
+                 / logp["cpu"].abs()).max())
+    check(bool(torch.isfinite(logp["cuda"]).all()) and rel <= 1e-4,
+          f"{tag} likelihood: logp {logp['cuda'].tolist()} on the card, "
+          f"{logp['cpu'].tolist()} on the CPU")
+    d_err = max_err(delta["cuda"], delta["cpu"]) / float(
+        delta["cpu"].abs().max())
+    z_err = max_err(z_t["cuda"], z_t["cpu"]) / float(z_t["cpu"].abs().max())
+    check(d_err <= 1e-4 and z_err <= 1e-4,
+          f"{tag} likelihood: divergence integral off by {d_err:.3e}, "
+          f"terminal state by {z_err:.3e} of scale (tol 1e-4)")
+    say(f"[{tag}] f32 Hutchinson likelihood of the {net.name}, one RK4 step "
+        f"(4 forwards and 4 input-only backwards), B=2: card == CPU, logp "
+        f"{rel:.2e} relative (tol 1e-4; {logp['cuda'].tolist()}), "
+        f"divergence integral {d_err:.2e} of its scale "
+        f"{float(delta['cpu'].abs().max()):.3e}, z_T {z_err:.2e} of scale "
+        f"(tol 1e-4); launched {want_n}; phase "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
@@ -1069,7 +1205,7 @@ def phase_clf_check(card):
     eps = torch.from_numpy(rng.standard_normal((2, 32, 32, 6)).astype(
         np.float32))
     seeds = [tuple(int(w) for w in row)
-             for row in rng.integers(0, 2 ** 32, (CLF_DROPOUT_SITES, 2))]
+             for row in rng.integers(0, 2 ** 32, (CLF.dropout_sites, 2))]
     z = torch.from_numpy(rng.standard_normal((2, 32, 32, 6)).astype(
         np.float32))
     out = {}
@@ -1087,8 +1223,8 @@ def phase_clf_check(card):
         if dev == "cuda":
             torch.cuda.synchronize()
             n = all_counts()
-            check(n == CLF_STEP_COUNTS, f"one classifier step launched {n}, "
-                  f"expected {CLF_STEP_COUNTS}")
+            check(n == CLF.step_counts(), f"one classifier step launched "
+                  f"{n}, expected {CLF.step_counts()}")
         mu = {k: v.cpu() for k, v in state.opt_state["mu"].items()}
         # the guidance gradient, through the frozen classifier
         net.eval().requires_grad_(False)
@@ -1101,9 +1237,7 @@ def phase_clf_check(card):
         if dev == "cuda":
             torch.cuda.synchronize()
             n = all_counts()
-            want_n = expected(group_norm_act=CLF_GN_PER_FWD,
-                              group_norm_act_bwd=CLF_GN_PER_FWD,
-                              attention=CLF_ATTN_PER_FWD)
+            want_n = CLF.fwd_counts(1, input_vjps=1)
             check(n == want_n, f"one guidance gradient launched {n}, "
                   f"expected {want_n}")
         out[dev] = (float(m["loss"]), float(m["top1"]), mu, grad)
@@ -1125,16 +1259,22 @@ def phase_clf_check(card):
         f"params, f32 step at B=2, hash dropout 0.1: card == CPU (loss "
         f"{l_g:.6f} vs {l_c:.6f}; top-1 {a_g} vs {a_c}; worst parameter "
         f"gradient {worst:.2e} of its scale, {worst_key}; tol 1e-3); one "
-        f"step launched {CLF_STEP_COUNTS}")
+        f"step launched {CLF.step_counts()}")
     say(f"[clf_check] f32 guidance gradient at B=2: card == CPU (max abs "
         f"err {g_err:.3e}, {g_err / g_scale:.2e} of its scale "
         f"{g_scale:.3e}; tol 1e-3); phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
 
-def phase_train(card, work):
-    """``cli.train_sde`` at the flagship's training point; returns the
-    path of the checkpoint it wrote and the launch counts of the run."""
+FLAGSHIP_TRAIN = ("hash dropout 0.15, HSM, Adam+warmup, clip 1, EMA "
+                  "0.9999")
+
+
+def phase_train(card, work, net=FLAGSHIP, train_args=TRAIN_ARGS,
+                tag="train", what=FLAGSHIP_TRAIN):
+    """``cli.train_sde`` at ``net``'s training point (``train_args``;
+    ``what`` says what it is); returns the path of the checkpoint it
+    wrote, the launch counts of the run and its times."""
     from psld_tpu_torch.cli import train_sde as train_cli
     from psld_tpu_torch.train.checkpoint import latest_checkpoint
 
@@ -1147,7 +1287,7 @@ def phase_train(card, work):
         epochs = n_steps * batch * accum // 512
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        return train_cli.main(FLAGSHIP_ARGS + TRAIN_ARGS + [
+        return train_cli.main(net.args + train_args + [
             f"dataset.diffusion.training.results_dir={results}",
             f"dataset.diffusion.training.batch_size={batch}",
             f"+dataset.diffusion.training.grad_accum={accum}",
@@ -1159,63 +1299,64 @@ def phase_train(card, work):
 
     t0 = time.perf_counter()
     batch, accum = TRAIN_BATCH, 1
-    results = os.path.join(work, "train")
+    results = os.path.join(work, tag)
     try:
         state, stats = run(batch, accum, results)
     except torch.cuda.OutOfMemoryError as e:
         # a finding to print, not to hide: the step does not fit at 128
-        say(f"[train] batch {TRAIN_BATCH} does not fit in the card's memory "
+        say(f"[{tag}] batch {TRAIN_BATCH} does not fit in the card's memory "
             f"({e}); running 2 x {TRAIN_BATCH // 2} through grad_accum")
         torch.cuda.empty_cache()
         batch, accum = TRAIN_BATCH // 2, 2
-        results = os.path.join(work, "train_accum")
+        results = os.path.join(work, f"{tag}_accum")
         state, stats = run(batch, accum, results)
     wall = time.perf_counter() - t0
     n = all_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(len(stats) == n_steps and state.step == n_steps,
-          f"train took {len(stats)} steps")
-    want = {k: v * n_steps * accum for k, v in STEP_COUNTS.items()}
-    check(n == want, f"training launched {n}, expected {want}")
+          f"{tag} took {len(stats)} steps")
+    want = net.step_counts(n_steps * accum)
+    check(n == want, f"{tag}: training launched {n}, expected {want}")
     losses = [r["loss"] for r in stats]
     check(all(np.isfinite(v) for v in losses)
           and all(np.isfinite(r["grad_norm"]) for r in stats),
-          f"train: non-finite loss or gradient norm: {losses}")
+          f"{tag}: non-finite loss or gradient norm: {losses}")
     first, last = np.mean(losses[:3]), np.mean(losses[-3:])
-    check(last <= 1.05 * first, f"train: loss rose from {first} to {last}")
+    check(last <= 1.05 * first, f"{tag}: loss rose from {first} to {last}")
     for tree in (state.params, state.ema_params):
         check(all(bool(torch.isfinite(v).all()) for v in tree.values()),
-              "train: non-finite parameters")
+              f"{tag}: non-finite parameters")
     ckpt = latest_checkpoint(os.path.join(results, "checkpoints"))
     check(ckpt is not None and os.path.exists(ckpt + ".meta.json"),
-          "train wrote no checkpoint")
+          f"{tag} wrote no checkpoint")
     timed = [r["ms"] for r in stats[TRAIN_WARMUP:]]
     ms_step = float(np.mean(timed))
     img_s = batch * accum / (ms_step / 1e3)
-    say(f"[train] cli.train_sde: {n_steps} steps of the flagship at batch "
-        f"{batch} x grad_accum {accum} (bf16 compute, f32 master weights, "
-        f"hash dropout 0.15, HSM, Adam+warmup, clip 1, EMA 0.9999), "
+    say(f"[{tag}] cli.train_sde: {n_steps} steps of the {net.name} at "
+        f"batch {batch} x grad_accum {accum} (bf16 compute, f32 master "
+        f"weights, {what}), "
         f"synthetic data: {ms_step:.2f} ms/step over the last {TRAIN_TIMED} "
         f"(min {min(timed):.2f}, max {max(timed):.2f}), {img_s:.2f} img/s, "
         f"peak {peak_gb:.2f} GB allocated; loss {losses[0]:.4f} -> "
         f"{losses[-1]:.4f}; entry point {wall:.1f} s; {card}")
-    say(f"[train] kernel launches in the run: {n}")
-    say(f"[train] checkpoint: {os.path.basename(ckpt)} "
+    say(f"[{tag}] kernel launches in the run: {n}")
+    say(f"[{tag}] checkpoint: {os.path.basename(ckpt)} "
         f"({os.path.getsize(ckpt) / 1e9:.2f} GB)")
     del state
     torch.cuda.empty_cache()
     return ckpt, n, {"ms_step": ms_step, "img_s": img_s, "peak_gb": peak_gb}
 
 
-def phase_sample(card, work, ckpt):
-    """``cli.sample`` from the checkpoint the train phase wrote."""
+def phase_sample(card, work, ckpt, net=FLAGSHIP, tag="sample"):
+    """``cli.sample`` of ``net``, 100-NFE EM, from the checkpoint its
+    train phase wrote."""
     from psld_tpu_torch.cli import sample as sample_cli
 
-    out_dir = os.path.join(work, "samples")
+    out_dir = os.path.join(work, tag)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    batches = sample_cli.main(FLAGSHIP_ARGS + [
+    batches = sample_cli.main(net.args + [
         f"dataset.diffusion.evaluation.chkpt_path={ckpt}",
         f"dataset.diffusion.evaluation.save_path={out_dir}",
         f"dataset.diffusion.evaluation.batch_size={BATCH}",
@@ -1237,22 +1378,20 @@ def phase_sample(card, work, ckpt):
           f"sample wrote {row['samples']} samples, {len(pngs)} PNGs")
     check(row["nonfinite"] == 0, f"{row['nonfinite']} non-finite values")
     check(row["nfe"] == SAMPLE_NFE, f"sampled with {row['nfe']} NFE")
-    check((n_gn, n_attn) == (GN_PER_FWD * SAMPLE_NFE,
-                             ATTN_PER_FWD * SAMPLE_NFE),
-          f"sampling launched {n_gn} GN and {n_attn} attention kernels for "
-          f"{SAMPLE_NFE} NFE")
-    check(n["group_norm_act_bwd"] == 0 and n["hash_dropout"] == 0,
-          f"sampling launched training kernels: {n}")
+    want = net.fwd_counts(SAMPLE_NFE)
+    check(n == want, f"{tag}: sampling launched {n} for {SAMPLE_NFE} NFE, "
+          f"expected {want}")
     ms_nfe = row["seconds"] / SAMPLE_NFE * 1e3
     img_s = BATCH / row["seconds"]
-    say(f"[sample] cli.sample from the trained checkpoint: {len(pngs)} PNGs, "
+    say(f"[{tag}] cli.sample of the {net.name} from the trained "
+        f"checkpoint: {len(pngs)} PNGs, "
         f"finite, batch {BATCH}, {SAMPLE_NFE}-NFE EM (bf16 net, gn_bf16): "
         f"{ms_nfe:.2f} ms/NFE, {img_s:.3f} img/s at {SAMPLE_NFE} NFE "
         f"(trajectory {row['seconds']:.2f} s, entry point {wall:.2f} s), "
         f"peak {peak_gb:.2f} GB allocated; {card}")
-    say(f"[sample] kernel launches in the run: GN {n_gn} "
-        f"({GN_PER_FWD}/NFE), attention {n_attn} ({ATTN_PER_FWD}/NFE)")
-    return n
+    say(f"[{tag}] kernel launches in the run: GN {n_gn} "
+        f"({net.gn}/NFE), attention {n_attn} ({net.attn}/NFE)")
+    return n, {"ms_nfe": ms_nfe, "img_s": img_s}
 
 
 def phase_train_clf(card, work):
@@ -1281,7 +1420,7 @@ def phase_train_clf(card, work):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(len(stats) == n_steps and state.step == n_steps,
           f"train_clf took {len(stats)} steps")
-    want = {k: v * n_steps for k, v in CLF_STEP_COUNTS.items()}
+    want = CLF.step_counts(n_steps)
     check(n == want, f"classifier training launched {n}, expected {want}")
     losses = [r["loss"] for r in stats]
     check(all(np.isfinite(v) for v in losses)
@@ -1433,8 +1572,7 @@ def phase_sscs(card, work, ckpt):
     row = batches[0]
     check(row["nonfinite"] == 0, f"sscs: {row['nonfinite']} non-finite")
     check(row["nfe"] == SSCS_NFE, f"sscs sampled with {row['nfe']} NFE")
-    want = expected(group_norm_act=GN_PER_FWD * SSCS_NFE,
-                    attention=ATTN_PER_FWD * SSCS_NFE)
+    want = FLAGSHIP.fwd_counts(SSCS_NFE)
     check(n == want, f"SSCS-2M sampling launched {n}, expected {want}")
     ms_nfe = row["seconds"] / SSCS_NFE * 1e3
     img_s = BATCH / row["seconds"]
@@ -1644,8 +1782,7 @@ def phase_inpaint(card, work, ckpt):
         worst = max(worst, int(np.abs(got - want)[known].max()))
     check(worst <= 1, f"inpaint: known region off the ground truth by "
           f"{worst} levels")
-    want = expected(group_norm_act=GN_PER_FWD * INPAINT_NFE,
-                    attention=ATTN_PER_FWD * INPAINT_NFE)
+    want = FLAGSHIP.fwd_counts(INPAINT_NFE)
     check(n == want, f"inpainting launched {n}, expected {want}")
     say(f"[inpaint] cli.inpaint from the trained checkpoint, synthetic set, "
         f"square masks: {BATCH} samples, ground truths and masked inputs "
@@ -1658,71 +1795,74 @@ def phase_inpaint(card, work, ckpt):
     return n
 
 
-def phase_edit(card, work, ckpt):
-    """``cli.edit`` from the checkpoint of ``train`` on the synthetic set,
-    edit_t0 0.5, batch 64, bf16, ``EDIT_NFE`` NFE."""
+def phase_edit(card, work, ckpt, net=FLAGSHIP, tag="edit"):
+    """``cli.edit`` of ``net`` from its trained checkpoint on the
+    synthetic set, edit_t0 0.5, batch 64, bf16, ``EDIT_NFE`` NFE."""
     from psld_tpu_torch.cli import edit as edit_cli
 
-    out_dir = os.path.join(work, "edit")
+    out_dir = os.path.join(work, tag)
     reset_counts()
     t0 = time.perf_counter()
-    batches = edit_cli.main(FLAGSHIP_ARGS + [
+    batches = edit_cli.main(net.args + [
         "dataset.diffusion.data.name=synthetic",
         "+dataset.diffusion.evaluation.sampler.edit_t0=0.5"] + _eval_args(
         ckpt, out_dir, EDIT_NFE))
     wall = time.perf_counter() - t0
     n = all_counts()
-    row = _one_batch(batches, EDIT_NFE, "edit")
+    row = _one_batch(batches, EDIT_NFE, tag)
     pngs = _pngs(os.path.join(out_dir, "images"))
     check(len(pngs) == BATCH and sorted(os.listdir(out_dir)) == ["images"],
-          f"edit wrote {len(pngs)} PNGs and {os.listdir(out_dir)}")
-    want = expected(group_norm_act=GN_PER_FWD * EDIT_NFE,
-                    attention=ATTN_PER_FWD * EDIT_NFE)
-    check(n == want, f"editing launched {n}, expected {want}")
-    say(f"[edit] cli.edit from the trained checkpoint, synthetic set, "
+          f"{tag} wrote {len(pngs)} PNGs and {os.listdir(out_dir)}")
+    want = net.fwd_counts(EDIT_NFE)
+    check(n == want, f"{tag}: editing launched {n}, expected {want}")
+    say(f"[{tag}] cli.edit of the {net.name} from the trained checkpoint, "
+        f"synthetic set, "
         f"edit_t0 0.5: {len(pngs)} PNGs, finite, batch {BATCH}, "
         f"{EDIT_NFE}-NFE EM over [0.5, 1 - 1e-3] (bf16 net): "
         f"{row['seconds'] / EDIT_NFE * 1e3:.2f} ms/NFE (trajectory "
         f"{row['seconds']:.2f} s, entry point {wall:.2f} s); {card}")
-    say(f"[edit] kernel launches in the run: {n}")
+    say(f"[{tag}] kernel launches in the run: {n}")
     return n
 
 
-def phase_pc(card, work, ckpt):
-    """``cli.sample`` with ``corrector=langevin`` (one step, snr 0.16) from
-    the checkpoint of ``train``, batch 64, bf16, ``PC_NFE`` NFE of EM and
-    then of SSCS-2M on the quadratic grid. A corrector step is one more
-    network forward after each step but the mean-only denoise one, so a
-    run of N NFE makes 2N - 1 forwards."""
+PC_SAMPLERS = (("em_sde", []), ("sscs2m_sde", [
+    "dataset.diffusion.evaluation.stride_type=quadratic"]))
+
+
+def phase_pc(card, work, ckpt, net=FLAGSHIP, tag="pc",
+             samplers=PC_SAMPLERS):
+    """``cli.sample`` of ``net`` with ``corrector=langevin`` (one step,
+    snr 0.16) from its trained checkpoint, batch 64, bf16, ``PC_NFE`` NFE
+    of each of ``samplers`` (the flagship: EM and SSCS-2M on the
+    quadratic grid). A corrector step is one more network forward after
+    each step but the mean-only denoise one, so a run of N NFE makes 2N -
+    1 forwards."""
     from psld_tpu_torch.cli import sample as sample_cli
 
     reset_counts()
     rows = []
-    for name, extra in (("em_sde", []), ("sscs2m_sde", [
-            "dataset.diffusion.evaluation.stride_type=quadratic"])):
-        out_dir = os.path.join(work, f"pc_{name}")
-        batches = sample_cli.main(FLAGSHIP_ARGS + extra + [
+    for name, extra in samplers:
+        out_dir = os.path.join(work, f"{tag}_{name}")
+        batches = sample_cli.main(net.args + extra + [
             f"dataset.diffusion.evaluation.sampler.name={name}",
             "+dataset.diffusion.evaluation.sampler.corrector=langevin",
             "+dataset.diffusion.evaluation.sampler.corrector_steps=1",
         ] + _eval_args(ckpt, out_dir, PC_NFE))
-        rows.append(_one_batch(batches, PC_NFE, f"pc {name}"))
+        rows.append(_one_batch(batches, PC_NFE, f"{tag} {name}"))
         check(len(_pngs(os.path.join(out_dir, "images"))) == BATCH,
-              f"pc {name} wrote no {BATCH} PNGs")
+              f"{tag} {name} wrote no {BATCH} PNGs")
     n = all_counts()
-    fwd = 2 * (2 * PC_NFE - 1)
-    want = expected(group_norm_act=GN_PER_FWD * fwd,
-                    attention=ATTN_PER_FWD * fwd)
-    check(n == want, f"predictor-corrector sampling launched {n}, expected "
-          f"{want}")
-    say(f"[pc] cli.sample + Langevin corrector (1 step), {PC_NFE} NFE of EM "
-        f"and of SSCS-2M (quadratic), batch {BATCH}, bf16 net: {BATCH} "
-        f"finite PNGs each; {rows[0]['seconds']:.2f} s and "
-        f"{rows[1]['seconds']:.2f} s a trajectory of {2 * PC_NFE - 1} "
-        f"forwards ({rows[0]['seconds'] / (2 * PC_NFE - 1) * 1e3:.2f} and "
-        f"{rows[1]['seconds'] / (2 * PC_NFE - 1) * 1e3:.2f} ms a forward); "
-        f"{card}")
-    say(f"[pc] kernel launches in the run: {n} (2 x {2 * PC_NFE - 1} "
+    fwd = 2 * PC_NFE - 1
+    want = net.fwd_counts(len(samplers) * fwd)
+    check(n == want, f"{tag}: predictor-corrector sampling launched {n}, "
+          f"expected {want}")
+    for (name, _), row in zip(samplers, rows):
+        say(f"[{tag}] cli.sample of the {net.name} + Langevin corrector (1 "
+            f"step), {PC_NFE} NFE of {name}, batch {BATCH}, bf16 net: "
+            f"{BATCH} finite PNGs; {row['seconds']:.2f} s a trajectory of "
+            f"{fwd} forwards ({row['seconds'] / fwd * 1e3:.2f} ms a "
+            f"forward); {card}")
+    say(f"[{tag}] kernel launches in the run: {n} ({len(samplers)} x {fwd} "
         f"forwards)")
     return n
 
@@ -1732,16 +1872,10 @@ def phase_ode_check(card, weights):
     card against the CPU, within 1e-4 of scale: ``rk_ode`` Heun, 2 steps;
     ``ei_ode`` order 2, 3 steps; ``adaptive_ode`` cut at 2 controller
     iterations (the same NFE on both); ``cc_ei_ode`` order 2, 2 steps,
-    with the shipped classifier (weights from a numpy seed). Then one RK4
-    step of the Hutchinson likelihood with the same probes on both: logp
-    within 1e-4 relative, and its divergence integral and terminal state
-    within 1e-4 of their scales (the GN backward kernel in its input-only
-    mode)."""
+    with the shipped classifier (weights from a numpy seed)."""
     from psld_tpu_torch.cli._common import bootstrap
     from psld_tpu_torch.eval.generate import (_merged_eval_config,
-                                              build_score_model,
                                               make_score_fn)
-    from psld_tpu_torch.eval.likelihood import make_likelihood_fn
     from psld_tpu_torch.registry import get_module
     from psld_tpu_torch.samplers import make_timesteps
     from psld_tpu_torch.train.loop import build_clf_model, build_sde
@@ -1799,60 +1933,14 @@ def phase_ode_check(card, weights):
                                    "ode_check cc_ei_ode", grad=True)
     say(f"[ode_check] f32 cc_ei_ode (2 guided steps + denoise, label 3) of "
         f"the flagship and the shipped classifier: card == CPU (max abs err "
-        f"{err:.3e}, {err / scale:.2e} of scale {scale:.3e}; tol 1e-4)")
-
-    # one Hutchinson RK4 step of the likelihood, the same probes
-    cfg = dcfg.diffusion
-    x = torch.from_numpy(np.concatenate([
-        rng.uniform(-1, 1, (2, 32, 32, 3)),
-        rng.standard_normal((2, 32, 32, 3)) * np.sqrt(sde.mm_0)],
-        axis=-1).astype(np.float32))
-    probes = torch.from_numpy(rng.choice([-1.0, 1.0], (1, 2, 32, 32, 6))
-                              .astype(np.float32))
-    logp, delta, z_t = {}, {}, {}
-    for dev in ("cpu", "cuda"):
-        net = build_score_model(cfg).eval().requires_grad_(False)
-        net.load_state_dict(weights, strict=True)
-        fn = make_likelihood_fn(sde, make_score_fn(net.to(dev)), n_steps=1,
-                                method="rk4")
-        reset_counts()
-        with torch.no_grad():
-            out = fn(None, x.to(dev), probes=probes.to(dev))
-        logp[dev], delta[dev], z_t[dev] = (
-            out[k].cpu() for k in ("logp", "delta_logp", "z_T"))
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            n = all_counts()
-            want = expected(group_norm_act=4 * GN_PER_FWD,
-                            group_norm_act_bwd=4 * GN_PER_FWD,
-                            attention=4 * ATTN_PER_FWD)
-            check(n == want, f"ode_check: one RK4 likelihood step launched "
-                  f"{n}, expected {want}")
-        del net
+        f"{err:.3e}, {err / scale:.2e} of scale {scale:.3e}; tol 1e-4); "
+        f"phase {time.perf_counter() - t0:.1f} s")
     os.environ.pop("PSLD_GN_BF16")
-    rel = float(((logp["cuda"] - logp["cpu"]).abs()
-                 / logp["cpu"].abs()).max())
-    check(bool(torch.isfinite(logp["cuda"]).all()) and rel <= 1e-4,
-          f"ode_check likelihood: logp {logp['cuda'].tolist()} on the card, "
-          f"{logp['cpu'].tolist()} on the CPU")
-    d_err = max_err(delta["cuda"], delta["cpu"]) / float(
-        delta["cpu"].abs().max())
-    z_err = max_err(z_t["cuda"], z_t["cpu"]) / float(z_t["cpu"].abs().max())
-    check(d_err <= 1e-4 and z_err <= 1e-4,
-          f"ode_check likelihood: divergence integral off by {d_err:.3e}, "
-          f"terminal state by {z_err:.3e} of scale (tol 1e-4)")
-    say(f"[ode_check] f32 Hutchinson likelihood, one RK4 step (4 forwards "
-        f"and 4 input-only backwards), B=2: card == CPU, logp {rel:.2e} "
-        f"relative (tol 1e-4; {logp['cuda'].tolist()}), divergence "
-        f"integral {d_err:.2e} of its scale "
-        f"{float(delta['cpu'].abs().max()):.3e}, z_T {z_err:.2e} of scale "
-        f"(tol 1e-4); phase {time.perf_counter() - t0:.1f} s")
-    torch.cuda.empty_cache()
 
 
-def phase_ode(card, work, ckpt):
-    """``cli.sample`` with the probability-flow ODE samplers from the
-    checkpoint of ``train``, batch 64, bf16: ``ei_ode`` order 2 at
+def phase_ode(card, work, ckpt, net=FLAGSHIP, tag="ode"):
+    """``cli.sample`` of ``net`` with the probability-flow ODE samplers
+    from its trained checkpoint, batch 64, bf16: ``ei_ode`` order 2 at
     ``EI_NFE``, ``rk_ode`` Heun with ``RK_STEPS`` steps, ``adaptive_ode``
     and ``bb_ode`` at rtol = atol = ``ODE_TOL``. One forward an NFE.
     SciPy's integrator module is imported (and its import timed) before
@@ -1880,23 +1968,22 @@ def phase_ode(card, work, ckpt):
             ("bb_ode", 2, [
                 f"+dataset.diffusion.evaluation.sampler.rtol={ODE_TOL}",
                 f"+dataset.diffusion.evaluation.sampler.atol={ODE_TOL}"])):
-        out_dir = os.path.join(work, f"ode_{name}")
-        batches = sample_cli.main(FLAGSHIP_ARGS + extra + [
+        out_dir = os.path.join(work, f"{tag}_{name}")
+        batches = sample_cli.main(net.args + extra + [
             f"dataset.diffusion.evaluation.sampler.name={name}",
         ] + _eval_args(ckpt, out_dir, nfe_arg))
         check(len(batches) == 1 and batches[0]["samples"] == BATCH
-              and batches[0]["nonfinite"] == 0, f"ode {name} drew {batches}")
+              and batches[0]["nonfinite"] == 0, f"{tag} {name} drew {batches}")
         check(len(_pngs(os.path.join(out_dir, "images"))) == BATCH,
-              f"ode {name} wrote no {BATCH} PNGs")
+              f"{tag} {name} wrote no {BATCH} PNGs")
         rows.append((name, batches[0]))
     nfes = {name: row["nfe"] for name, row in rows}
     check(nfes["ei_ode"] == EI_NFE and nfes["rk_ode"] == 2 * RK_STEPS + 1,
-          f"ode: fixed-grid NFE {nfes}")
+          f"{tag}: fixed-grid NFE {nfes}")
     n = all_counts()
     total = sum(nfes.values())
-    want = expected(group_norm_act=GN_PER_FWD * total,
-                    attention=ATTN_PER_FWD * total)
-    check(n == want, f"ODE sampling launched {n}, expected {want}")
+    want = net.fwd_counts(total)
+    check(n == want, f"{tag}: ODE sampling launched {n}, expected {want}")
     for name, row in rows:
         extra = ""
         if name == "adaptive_ode":
@@ -1907,14 +1994,15 @@ def phase_ode(card, work, ckpt):
             extra = (f"; SciPy {scipy.__version__} RK45 (scipy.integrate "
                      f"imported in {import_s:.2f} s before the run), rtol = "
                      f"atol = {ODE_TOL}, mean NFE {row['nfe']}")
-        say(f"[ode] cli.sample {name}: {BATCH} finite PNGs, batch {BATCH}, "
+        say(f"[{tag}] cli.sample of the {net.name}, {name}: {BATCH} finite "
+            f"PNGs, batch {BATCH}, "
             f"{row['nfe']} NFE (bf16 net): "
             f"{row['seconds'] / row['nfe'] * 1e3:.2f} ms/NFE, "
             f"{BATCH / row['seconds']:.3f} img/s (trajectory "
             f"{row['seconds']:.2f} s){extra}; {card}")
-    say(f"[ode] kernel launches in the run: {n} ({total} NFE, "
-        f"{GN_PER_FWD} GN and {ATTN_PER_FWD} attention an NFE)")
-    return n
+    say(f"[{tag}] kernel launches in the run: {n} ({total} NFE, "
+        f"{net.gn} GN and {net.attn} attention an NFE)")
+    return n, {name: row["seconds"] / row["nfe"] * 1e3 for name, row in rows}
 
 
 def phase_cc_ode(card, work, score_ckpt, clf_ckpt):
@@ -1939,8 +2027,8 @@ def phase_cc_ode(card, work, score_ckpt, clf_ckpt):
           == BATCH, f"cc_ode drew {batches}")
     guided = CC_ODE_NFE - 1
     want = {k: v * guided for k, v in GUIDED_NFE_COUNTS.items()}
-    want["group_norm_act"] += GN_PER_FWD
-    want["attention"] += ATTN_PER_FWD
+    want["group_norm_act"] += FLAGSHIP.gn
+    want["attention"] += FLAGSHIP.attn
     check(n == want, f"guided ODE sampling launched {n}, expected {want}")
     ms_nfe = row["seconds"] / CC_ODE_NFE * 1e3
     say(f"[cc_ode] cli.class_cond_sample cc_ei_ode (order 2), label 0: "
@@ -1953,16 +2041,49 @@ def phase_cc_ode(card, work, score_ckpt, clf_ckpt):
     return n
 
 
-def phase_likelihood(card, work, ckpt):
-    """``cli.likelihood`` from the checkpoint of ``train`` on the synthetic
-    set: one batch of 64, bf16 network, RK4 with ``LIK_STEPS`` steps (4
-    right-hand sides a step, each one forward and one vector-Jacobian
-    product into the input), one Hutchinson probe; finite bits/dim."""
+def linear_flow_bits_per_dim(args, eps: float = 1e-5):
+    """bits/dim of the synthetic set's first batch of ``BATCH`` under the
+    probability flow of a VP-SDE whose eps-prediction is 0, on the host:
+    (exact, float64; ``cli.likelihood``'s RK4 with ``LIK_STEPS`` steps,
+    float32). The drift is -beta(t) x / 2, so the flow from ``eps`` (the
+    likelihood's default) to 1 maps x to a x with log a =
+    log_mean_coeff(1) - log_mean_coeff(eps), and logp(x) = log N(a x; 0,
+    I) + D log a; a Rademacher probe's divergence of the linear drift is
+    exact, so the RK4 number differs from it by the solver's error
+    alone."""
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.data.loader import get_dataset
+    from psld_tpu_torch.eval.likelihood import (bits_per_dim,
+                                                make_likelihood_fn)
+    from psld_tpu_torch.train.loop import build_sde
+
+    cfg = bootstrap(args + [
+        "dataset.diffusion.data.name=synthetic"]).dataset.diffusion
+    sde = build_sde(cfg)
+    x = torch.from_numpy(get_dataset(cfg).batch(np.arange(BATCH)))
+    dim = math.prod(x.shape[1:])
+    t = torch.tensor([1.0, eps], dtype=torch.float64)
+    lmc = sde._log_mean_coeff(t)
+    log_a = float(lmc[0] - lmc[1])
+    exact = sde.prior_logp(x.double() * math.exp(log_a)) + dim * log_a
+    rk4 = make_likelihood_fn(sde, lambda z, tt: torch.zeros_like(z),
+                             n_steps=LIK_STEPS, eps=eps, method="rk4")(
+        torch.Generator().manual_seed(0), x)["logp"]
+    return tuple(float(np.mean(bits_per_dim(-v.numpy(), dim)))
+                 for v in (exact, rk4))
+
+
+def phase_likelihood(card, work, ckpt, net=FLAGSHIP, tag="likelihood"):
+    """``cli.likelihood`` of ``net`` from its trained checkpoint on the
+    synthetic set: one batch of 64, bf16 network, RK4 with ``LIK_STEPS``
+    steps (4 right-hand sides a step, each one forward and one
+    vector-Jacobian product into the input), one Hutchinson probe; finite
+    bits/dim (PSLD's the augmented bound, the VP-SDE's its NLL)."""
     from psld_tpu_torch.cli import likelihood as likelihood_cli
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    bpd, batches = likelihood_cli.main(FLAGSHIP_ARGS + [
+    bpd, batches = likelihood_cli.main(net.args + [
         "dataset.diffusion.data.name=synthetic",
         f"dataset.diffusion.evaluation.chkpt_path={ckpt}",
         f"dataset.diffusion.evaluation.batch_size={BATCH}",
@@ -1979,20 +2100,27 @@ def phase_likelihood(card, work, ckpt):
     rhs = 4 * LIK_STEPS
     check(len(batches) == 1 and batches[0]["samples"] == BATCH
           and batches[0]["nonfinite"] == 0 and np.isfinite(bpd)
-          and batches[0]["nfe"] == rhs, f"likelihood: {bpd}, {batches}")
-    want = expected(group_norm_act=GN_PER_FWD * rhs,
-                    group_norm_act_bwd=GN_PER_FWD * rhs,
-                    attention=ATTN_PER_FWD * rhs)
-    check(n == want, f"the likelihood launched {n}, expected {want}")
+          and batches[0]["nfe"] == rhs, f"{tag}: {bpd}, {batches}")
+    want = net.fwd_counts(rhs, input_vjps=rhs)
+    check(n == want, f"{tag}: the likelihood launched {n}, expected {want}")
     seconds = batches[0]["seconds"]
-    say(f"[likelihood] cli.likelihood from the trained checkpoint, synthetic "
+    say(f"[{tag}] cli.likelihood of the {net.name} from the trained "
+        f"checkpoint, synthetic "
         f"set, batch {BATCH}, bf16 net, RK4 x {LIK_STEPS} ({rhs} right-hand "
         f"sides), 1 Hutchinson probe: {bpd:.4f} bits/dim (finite); "
         f"{seconds / rhs * 1e3:.2f} ms a right-hand side (a forward and an "
         f"input-only VJP; batch {seconds:.2f} s), peak {peak_gb:.2f} GB "
         f"allocated; {card}")
-    say(f"[likelihood] kernel launches in the run: {n}")
-    return n
+    say(f"[{tag}] kernel launches in the run: {n}")
+    out = {"ms_rhs": seconds / rhs * 1e3, "peak_gb": peak_gb, "bpd": bpd}
+    if net is VP:
+        exact, rk4 = linear_flow_bits_per_dim(net.args)
+        out["zero_eps_bpd"] = {"exact": exact, "rk4": rk4}
+        say(f"[{tag}] the same batch under the flow of a zero "
+            f"eps-prediction, on the host: {exact:.4f} bits/dim exact, "
+            f"{rk4:.4f} through RK4 x {LIK_STEPS} (the solver's error "
+            f"alone); the network's flow: {bpd:.4f}")
+    return n, out
 
 
 def phase_bench(card):
@@ -2015,10 +2143,8 @@ def phase_bench(card):
         check(line[key] <= 1.05, f"bench: {key} = {line[key]} > 1.05")
     fwd = bench.WARMUP_NFE + BENCH_NFE
     steps = bench.TRAIN_WARMUP + bench.TRAIN_TIMED
-    want = expected(group_norm_act=GN_PER_FWD * (fwd + steps),
-                    attention=ATTN_PER_FWD * (fwd + steps),
-                    group_norm_act_bwd=GN_PER_FWD * steps,
-                    hash_dropout=2 * DROPOUT_SITES * steps)
+    want = {k: v + FLAGSHIP.fwd_counts(fwd)[k]
+            for k, v in FLAGSHIP.step_counts(steps).items()}
     check(n == want, f"the bench launched {n}, expected {want}")
     say(f"[bench] run_bench(nfe={BENCH_NFE}) in {wall:.1f} s: "
         f"{line['value']:.4f} img/s, MFU {line['mfu_vs_h100_bf16_peak']:.4f};"
@@ -2026,6 +2152,243 @@ def phase_bench(card):
         f"{line['train_mfu_vs_h100_bf16_peak']:.4f}; {line['device']}")
     say(f"[bench] kernel launches in the run: {n}")
     return n, line
+
+
+def vp_weights(seed: int = 11) -> dict:
+    """The VP-SDE network's weights, N(0, 1) * 0.02 from a numpy seed."""
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.eval.generate import build_score_model
+
+    cfg = bootstrap(VP.args).dataset.diffusion
+    with torch.device("meta"):
+        net = build_score_model(cfg)
+    n_params = sum(p.numel() for p in net.parameters())
+    check(n_params == VP_PARAMS, f"the VP-SDE net has {n_params} params")
+    return flagship_weights(net, seed=seed)
+
+
+def phase_vp_check(card, weights):
+    """Float32 paths of the VP-SDE network (``weights``) on the card
+    against the CPU with the same injected draws, beside its training step
+    and likelihood step (``phase_train_check``, ``phase_likelihood_check``):
+    3 NFE of EM, of EM with one Langevin step a step, of editing
+    (edit_t0 0.5) and of ``ei_ode`` (order 2, a 3-NFE grid) at B=2, within
+    1e-4 of scale; and the Inception features of 4 images at 32 x 32
+    resized to 299, random weights, within 1e-4 of scale, with cuDNN's
+    TF32 switched on around the call (the extractor turns it off for its
+    own scope)."""
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.eval.fid import (FIDInception, extract_features,
+                                         random_params)
+    from psld_tpu_torch.registry import get_module
+    from psld_tpu_torch.samplers import build_corrector, make_timesteps
+    from psld_tpu_torch.train.loop import build_sde
+
+    t0 = time.perf_counter()
+    set_gn_bf16(False)
+    rng = np.random.default_rng(41)
+
+    # 3-NFE trajectories
+    z0 = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(
+        np.float32))
+    x0 = torch.from_numpy(rng.uniform(-1, 1, (2, 32, 32, 3)).astype(
+        np.float32))
+    runs = [("EM", "em_sde", [], z0),
+            ("EM + Langevin", "em_sde", [
+                "+dataset.diffusion.evaluation.sampler.corrector=langevin"],
+             z0),
+            ("editing (edit_t0 0.5)", "edit_em_sde", [], x0),
+            ("ei_ode (order 2)", "ei_ode", [
+                "+dataset.diffusion.evaluation.sampler.order=2"], z0)]
+    for k, (label, name, extra, start) in enumerate(runs):
+        rcfg = bootstrap(VP.args + extra + [
+            f"dataset.diffusion.evaluation.sampler.name={name}"
+        ]).dataset.diffusion
+        sde = build_sde(rcfg)
+        draws = NamedDraws(42 + k)
+
+        def run(score, dev):
+            sampler = get_module("samplers", name)(
+                rcfg, sde, score,
+                corrector_fn=build_corrector(rcfg, sde, score))
+            return sampler.sample(None, start.to(dev),
+                                  make_timesteps(2, 1e-3), 2, denoise=True,
+                                  eps=1e-3, noise=draws)
+
+        _, _, err, scale = card_vs_cpu(rcfg, weights, run,
+                                       f"vp_check {label}")
+        say(f"[vp_check] 3-NFE f32 {label} of the VP-SDE net at B=2: card "
+            f"== CPU (max abs err {err:.3e}, {err / scale:.2e} of scale "
+            f"{scale:.3e}; tol 1e-4)")
+    os.environ.pop("PSLD_GN_BF16")
+
+    # Inception: random weights, 4 images of 32 x 32 resized to 299
+    params = random_params(torch.Generator().manual_seed(0))
+    imgs = torch.from_numpy(rng.random((4, 32, 32, 3), dtype=np.float32))
+    want = extract_features(FIDInception.from_params(params, device="cpu"),
+                            imgs)
+    net = FIDInception.from_params(params, device="cuda")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = extract_features(net, imgs.cuda()).cpu()
+        check(torch.backends.cudnn.allow_tf32,
+              "the feature extractor left cuDNN's TF32 flag changed")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    scale = float(want.abs().max())
+    err = max_err(got, want)
+    check(bool(torch.isfinite(got).all()) and err <= 1e-4 * scale,
+          f"vp_check Inception: card vs CPU max abs error {err:.3e} (scale "
+          f"{scale:.3e}, tol 1e-4)")
+    say(f"[vp_check] Inception features of 4 images 32 -> 299, random "
+        f"weights, TF32 on outside the extractor: card == CPU (max abs err "
+        f"{err:.3e}, {err / scale:.2e} of scale {scale:.3e}; tol 1e-4); "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def write_reference_pngs(work) -> str:
+    """The first 64 images of the synthetic set as PNGs: the reference
+    side of ``fid`` and ``sweep``."""
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.data.loader import get_dataset
+    from psld_tpu_torch.utils.images import save_as_images
+
+    cfg = bootstrap(VP.args + [
+        "dataset.diffusion.data.name=synthetic"]).dataset.diffusion
+    out = os.path.join(work, "reference")
+    os.makedirs(out)
+    save_as_images(get_dataset(cfg).batch(np.arange(BATCH)),
+                   os.path.join(out, "synthetic"))
+    return out
+
+
+def write_fake_inception(path, seed: int = 12) -> str:
+    """A ``pt_inception-2015-12-05`` state_dict of random values
+    (convolutions, BatchNorm statistics and the fc head, by the
+    checkpoint's keys) from a numpy seed: ``load_torch_checkpoint``'s
+    input, whose metric values mean nothing."""
+    from psld_tpu_torch.eval.fid import FID_DIM, N_LOGITS
+    from psld_tpu_torch.eval.fid.inception import all_conv_specs
+
+    rng = np.random.default_rng(seed)
+
+    def arr(shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + shift)
+                                .astype(np.float32))
+
+    sd = {}
+    for name, (i, o, (kh, kw), _, _) in all_conv_specs().items():
+        sd[f"{name}.conv.weight"] = arr((o, i, kh, kw), (i * kh * kw) ** -0.5)
+        sd[f"{name}.bn.weight"] = arr((o,), 0.1, 1.0)
+        sd[f"{name}.bn.bias"] = arr((o,), 0.1)
+        sd[f"{name}.bn.running_mean"] = arr((o,), 0.1)
+        sd[f"{name}.bn.running_var"] = arr((o,), 0.1, 1.0).abs() + 0.1
+    sd["fc.weight"] = arr((N_LOGITS, FID_DIM), FID_DIM ** -0.5)
+    sd["fc.bias"] = arr((N_LOGITS,), 0.1)
+    torch.save(sd, path)
+    return path
+
+
+def phase_fid(card, work, samples, reference):
+    """``cli.fid --fid --kid --isc --save-stats1`` on the card with random
+    Inception weights: the VP-SDE's samples (``samples``, 64 PNGs)
+    against the synthetic set's (``reference``). The three values must be
+    finite and no kernel of the port may run (Inception is cuDNN); the
+    saved ``.npz`` is read back, and FID from it as ``--input1`` must
+    equal the first. Then Inception's feature extraction is timed at
+    batch 64 (CUDA events, 32 x 32 images resized to 299)."""
+    from psld_tpu_torch.cli import fid as fid_cli
+    from psld_tpu_torch.eval.fid import (FID_DIM, FIDInception,
+                                         extract_features, load_stats,
+                                         random_params)
+
+    stats = os.path.join(work, "samples_stats.npz")
+    reset_counts()
+    t0 = time.perf_counter()
+    scores = fid_cli.main(["--input1", samples, "--input2", reference,
+                           "--fid", "--kid", "--isc", "--save-stats1",
+                           stats, "--batch", str(BATCH)])
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    check(n == expected(), f"fid launched kernels of the port: {n}")
+    check(len(scores) == 5 and all(np.isfinite(v) for v in scores.values()),
+          f"fid: {scores}")
+    mu, sigma = load_stats(stats)
+    with np.load(stats) as f:
+        count = int(f["count"])
+    check(mu.shape == (FID_DIM,) and sigma.shape == (FID_DIM, FID_DIM)
+          and count == BATCH and np.isfinite(sigma).all(),
+          f"fid: stats file {mu.shape} {sigma.shape} count {count}")
+    again = fid_cli.main(["--input1", stats, "--input2", reference,
+                          "--batch", str(BATCH)])
+    first = scores["frechet_inception_distance"]
+    check(abs(again["frechet_inception_distance"] - first)
+          <= 1e-6 * abs(first) + 1e-12,
+          f"fid: from the stats file {again}, from the images {first}")
+    net = FIDInception.from_params(random_params(
+        torch.Generator().manual_seed(0)), device="cuda")
+    imgs = torch.rand(BATCH, 32, 32, 3, device="cuda")
+    ms = cuda_ms(lambda: extract_features(net, imgs), iters=5, warmup=2)
+    say(f"[fid] cli.fid --fid --kid --isc, random Inception weights, "
+        f"{BATCH} VP-SDE samples against {BATCH} synthetic images: "
+        + ", ".join(f"{k} {v:.6g}" for k, v in scores.items())
+        + f" (finite); --save-stats1 read back (count {count}), FID from it "
+        f"{again['frechet_inception_distance']:.6g}; entry point "
+        f"{wall:.1f} s; no kernel of the port launched")
+    say(f"[fid] Inception features, f32 (TF32 off), batch {BATCH}, 32 -> "
+        f"299: {ms:.2f} ms a batch, {BATCH / ms * 1e3:.1f} images/s; {card}")
+    del net
+    torch.cuda.empty_cache()
+    return {"ms_batch": ms, "img_s": BATCH / ms * 1e3}
+
+
+def phase_sweep(card, work, ckpt, reference, weights_path):
+    """``cli.sweep_fid_nfe`` of the VP-SDE checkpoint over em_sde and
+    ei_ode at ``SWEEP_NFES`` each (uniform grid), 64 samples a point, bf16,
+    FID against ``reference`` with the fake Inception checkpoint: every
+    record has a finite ``fid`` and no ``quality_error``, each record (the
+    first stride of its (sampler, NFE)) is marked ``includes_compile`` as
+    the JAX sweep marks it (the kernels were built by earlier phases, so
+    no record here holds a build), and the launches are exactly those of
+    the points' forwards."""
+    from psld_tpu_torch.cli import sweep_fid_nfe as sweep_cli
+
+    out = os.path.join(work, "sweep")
+    reset_counts()
+    t0 = time.perf_counter()
+    records = sweep_cli.main([
+        "--samplers", "em_sde,ei_ode", "--nfes",
+        ",".join(str(v) for v in SWEEP_NFES), "--strides", "uniform",
+        "--out-dir", out, "--ref-dir", reference, "--weights", weights_path,
+        "--fid-batch", str(BATCH)] + VP.args + [
+        f"dataset.diffusion.evaluation.chkpt_path={ckpt}",
+        f"dataset.diffusion.evaluation.batch_size={BATCH}",
+        f"dataset.diffusion.evaluation.n_samples={BATCH}",
+        "dataset.diffusion.evaluation.sample_from=source",
+        "+dataset.diffusion.evaluation.bf16=True",
+        "+dataset.diffusion.evaluation.device=cuda"])
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    check(len(records) == 2 * len(SWEEP_NFES), f"sweep: {records}")
+    for rec in records:
+        check("quality_error" not in rec and np.isfinite(rec.get("fid",
+                                                               np.nan))
+              and rec["n_samples"] == BATCH, f"sweep record {rec}")
+    check([r["includes_compile"] for r in records] == [True] * len(records),
+          f"sweep: includes_compile {records}")
+    forwards = 2 * sum(SWEEP_NFES)
+    want = VP.fwd_counts(forwards)
+    check(n == want, f"sweep launched {n}, expected {want}")
+    for rec in records:
+        say(f"[sweep] {rec['sampler']} {rec['nfe']} NFE: FID {rec['fid']:.6g} "
+            f"(fake Inception checkpoint), {rec['img_per_s']} img/s over "
+            f"{rec['elapsed_s']} s, pixel delta mean "
+            f"{rec['pixel_stats']['delta']['mean']}")
+    say(f"[sweep] cli.sweep_fid_nfe: {len(records)} records in {wall:.1f} s, "
+        f"each with fid and no quality_error; kernel launches {n} "
+        f"({forwards} forwards); {card}")
+    return n
 
 
 def combine(*timings) -> dict:
@@ -2051,7 +2414,9 @@ def combine(*timings) -> dict:
 PATHS = {"sample": BATCH, "train": TRAIN_BATCH, "train_clf": CLF_TRAIN_BATCH,
          "guided": BATCH, "sscs": BATCH, "inpaint": BATCH, "edit": BATCH,
          "pc": BATCH, "ode": BATCH, "cc_ode": BATCH, "likelihood": BATCH,
-         "bench": [BATCH, TRAIN_BATCH]}
+         "vp_train": TRAIN_BATCH, "vp_sample": BATCH, "vp_pc": BATCH,
+         "vp_edit": BATCH, "vp_ode": BATCH, "vp_likelihood": BATCH,
+         "sweep": BATCH, "bench": [BATCH, TRAIN_BATCH]}
 # the kernels that run only in the bench's train phase, at its batch
 BENCH_TRAIN_ONLY = ("group_norm_act_bwd", "hash_dropout")
 
@@ -2076,26 +2441,39 @@ def main() -> int:
     fused = phase_fused_act(card)
     # each kernel at the shapes of every path that launches it: the
     # flagship's at 64 (sample, sscs, guided) and 128 (train), the
-    # classifier's at 64 (guided) and 32 (train_clf)
+    # classifier's at 64 (guided) and 32 (train_clf), the VP-SDE's at 64
+    # (vp_sample, vp_pc, vp_edit, vp_ode, vp_likelihood, sweep) and 128
+    # (vp_train)
     gn = {"flagship64": phase_gn(card, BATCH),
           "flagship128": phase_gn(card, TRAIN_BATCH),
           "clf64": phase_gn(card, BATCH, CLF_GN_CALLS, "classifier"),
           "clf32": phase_gn(card, CLF_TRAIN_BATCH, CLF_GN_CALLS,
-                            "classifier")}
+                            "classifier"),
+          "vp64": phase_gn(card, BATCH, VP_GN_CALLS, "VP-SDE"),
+          "vp128": phase_gn(card, TRAIN_BATCH, VP_GN_CALLS, "VP-SDE")}
     gn_bwd = {"flagship128": phase_gn_bwd(card),
               "flagship64_dx": phase_gn_bwd(card, BATCH, need_params=False),
               "clf64": phase_gn_bwd(card, BATCH, CLF_GN_CALLS, "classifier"),
               "clf32": phase_gn_bwd(card, CLF_TRAIN_BATCH, CLF_GN_CALLS,
-                                    "classifier")}
+                                    "classifier"),
+              "vp128": phase_gn_bwd(card, TRAIN_BATCH, VP_GN_CALLS,
+                                    "VP-SDE"),
+              "vp64_dx": phase_gn_bwd(card, BATCH, VP_GN_CALLS, "VP-SDE",
+                                      need_params=False)}
     attn = {"flagship64": phase_attention(card, BATCH),
             "flagship128": phase_attention(card, TRAIN_BATCH),
             "clf64": phase_attention(card, BATCH, CLF_ATTN_CALLS,
                                      "classifier"),
             "clf32": phase_attention(card, CLF_TRAIN_BATCH, CLF_ATTN_CALLS,
-                                     "classifier")}
+                                     "classifier"),
+            "vp64": phase_attention(card, BATCH, VP_ATTN_CALLS, "VP-SDE"),
+            "vp128": phase_attention(card, TRAIN_BATCH, VP_ATTN_CALLS,
+                                     "VP-SDE")}
     drop = {"flagship128": phase_dropout(card),
             "clf32": phase_dropout(card, CLF_TRAIN_BATCH, CLF_DROPOUT_CALLS,
-                                   "classifier")}
+                                   "classifier"),
+            "vp128": phase_dropout(card, TRAIN_BATCH, VP_DROPOUT_CALLS,
+                                   "VP-SDE", rate=VP_RATE)}
     cfg = bootstrap(FLAGSHIP_ARGS).dataset.diffusion
     weights, _ = phase_net(card, cfg)
     phase_sscs_check(card, cfg, weights)
@@ -2107,28 +2485,62 @@ def main() -> int:
     phase_train_check(card, weights)
     phase_clf_check(card)
     phase_ode_check(card, weights)
+    phase_likelihood_check(card, weights)
+    del weights
+    weights = vp_weights()
+    phase_train_check(card, weights, VP, "vp_check", seed=41)
+    phase_vp_check(card, weights)
+    phase_likelihood_check(card, weights, VP, "vp_check", seed=43)
     del weights
     work = os.path.join(REPO, "build", "smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     # each path is driven with the counts set to 0 just before it
     ckpt, n_train, _ = phase_train(card, work)
-    n_sample = phase_sample(card, work, ckpt)
+    n_sample, _ = phase_sample(card, work, ckpt)
     clf_ckpt, n_train_clf, _ = phase_train_clf(card, work)
     n_guided, _ = phase_guided(card, work, ckpt, clf_ckpt)
     n_sscs, _ = phase_sscs(card, work, ckpt)
     n_inpaint = phase_inpaint(card, work, ckpt)
     n_edit = phase_edit(card, work, ckpt)
     n_pc = phase_pc(card, work, ckpt)
-    n_ode = phase_ode(card, work, ckpt)
+    n_ode, _ = phase_ode(card, work, ckpt)
     n_cc_ode = phase_cc_ode(card, work, ckpt, clf_ckpt)
-    n_likelihood = phase_likelihood(card, work, ckpt)
+    n_likelihood, _ = phase_likelihood(card, work, ckpt)
+    # the VP-SDE baseline and the evaluation
+    vp_ckpt, n_vp_train, vp_train = phase_train(
+        card, work, VP, VP_TRAIN_ARGS, "vp_train",
+        f"hash dropout {VP_RATE} (hw_inline), eps loss, Adam+warmup, clip "
+        f"1, EMA 0.9999")
+    n_vp_sample, vp_sample = phase_sample(card, work, vp_ckpt, VP,
+                                          "vp_sample")
+    n_vp_pc = phase_pc(card, work, vp_ckpt, VP, "vp_pc", PC_SAMPLERS[:1])
+    n_vp_edit = phase_edit(card, work, vp_ckpt, VP, "vp_edit")
+    n_vp_ode, vp_ode = phase_ode(card, work, vp_ckpt, VP, "vp_ode")
+    n_vp_likelihood, vp_lik = phase_likelihood(card, work, vp_ckpt, VP,
+                                               "vp_likelihood")
+    reference = write_reference_pngs(work)
+    fid = phase_fid(card, work, os.path.join(work, "vp_sample", "images"),
+                    reference)
+    n_sweep = phase_sweep(card, work, vp_ckpt, reference,
+                          write_fake_inception(os.path.join(
+                              work, "pt_inception-fake.pth")))
     n_bench, _ = phase_bench(card)
     on_path = {"sample": n_sample, "train": n_train,
                "train_clf": n_train_clf, "guided": n_guided,
                "sscs": n_sscs, "inpaint": n_inpaint, "edit": n_edit,
                "pc": n_pc, "ode": n_ode, "cc_ode": n_cc_ode,
-               "likelihood": n_likelihood, "bench": n_bench}
+               "likelihood": n_likelihood, "vp_train": n_vp_train,
+               "vp_sample": n_vp_sample, "vp_pc": n_vp_pc,
+               "vp_edit": n_vp_edit, "vp_ode": n_vp_ode,
+               "vp_likelihood": n_vp_likelihood, "sweep": n_sweep,
+               "bench": n_bench}
+    say("[vp] " + json.dumps({
+        "train": vp_train, "sample_em_100": vp_sample, "ode_ms_nfe": vp_ode,
+        "likelihood": vp_lik, "inception_batch64": fid,
+        "launches": {"sample_nfe": VP.fwd_counts(1),
+                     "train_step": VP.step_counts(),
+                     "likelihood_rhs": VP.fwd_counts(1, input_vjps=1)}}))
     # what each path runs, at the shapes it runs it
     # the bench samples at 64 and trains at 128: its forward kernels'
     # numbers add one forward at each batch
@@ -2142,11 +2554,15 @@ def main() -> int:
             "ode": gn["flagship64"],
             "cc_ode": combine(gn["flagship64"], gn["clf64"]),
             "likelihood": gn["flagship64"],
+            "vp_train": gn["vp128"], "vp_sample": gn["vp64"],
+            "vp_pc": gn["vp64"], "vp_edit": gn["vp64"], "vp_ode": gn["vp64"],
+            "vp_likelihood": gn["vp64"], "sweep": gn["vp64"],
             "bench": combine(gn["flagship64"], gn["flagship128"])},
         "group_norm_act_bwd": {
             "train": gn_bwd["flagship128"], "train_clf": gn_bwd["clf32"],
             "guided": gn_bwd["clf64"], "cc_ode": gn_bwd["clf64"],
             "likelihood": gn_bwd["flagship64_dx"],
+            "vp_train": gn_bwd["vp128"], "vp_likelihood": gn_bwd["vp64_dx"],
             "bench": gn_bwd["flagship128"]},
         "attention": {
             "sample": attn["flagship64"], "train": attn["flagship128"],
@@ -2157,9 +2573,14 @@ def main() -> int:
             "ode": attn["flagship64"],
             "cc_ode": combine(attn["flagship64"], attn["clf64"]),
             "likelihood": attn["flagship64"],
+            "vp_train": attn["vp128"], "vp_sample": attn["vp64"],
+            "vp_pc": attn["vp64"], "vp_edit": attn["vp64"],
+            "vp_ode": attn["vp64"], "vp_likelihood": attn["vp64"],
+            "sweep": attn["vp64"],
             "bench": combine(attn["flagship64"], attn["flagship128"])},
         "hash_dropout": {"train": drop["flagship128"],
                          "train_clf": drop["clf32"],
+                         "vp_train": drop["vp128"],
                          "bench": drop["flagship128"]},
     }
     for name, paths in times.items():
@@ -2198,8 +2619,9 @@ def main() -> int:
 
     fwd = ("bf16: device ms (CUDA-graph replay) summed over the calls of "
            "one network forward at the path's batch (guided and cc_ode: the "
-           "score network's and the classifier's; bench: one forward at 64 "
-           "and one at 128), eager_ms the same calls made one by one; "
+           "score network's and the classifier's; vp_* and sweep: the "
+           "VP-SDE network's; bench: one forward at 64 and one at 128), "
+           "eager_ms the same calls made one by one; "
            "max_abs_err of the bf16 kernel against the plain version "
            "(GroupNorm: its gn_bf16 chain)")
     fused_basis = ("bf16: device ms summed over one call at each of "
@@ -2216,8 +2638,8 @@ def main() -> int:
             "psld_tpu_torch/csrc/group_norm_bwd.cu",
             "psld_tpu/ops/group_norm.py:125",
             "bf16: device ms summed over the calls of one network backward "
-            "at the path's batch (likelihood: the input-only mode, dx "
-            "alone, at B=64); max_abs_err is the largest |kernel - "
+            "at the path's batch (likelihood, vp_likelihood: the input-only "
+            "mode, dx alone, at B=64); max_abs_err is the largest |kernel - "
             "plain| over dx, dscale and dbias against autograd through the "
             "plain version's gn_bf16 chain (dscale sums 131,072 x 64 terms "
             "at B=128, so it is large in absolute terms); max_err_of_scale "
@@ -2227,7 +2649,8 @@ def main() -> int:
             "psld_tpu/ops/attention.py:34", fwd, redesigned_in=5),
         row("hash_dropout", "triton", "psld_tpu_torch/ops/dropout.py",
             "psld_tpu/ops/dropout.py:96",
-            "bf16, rate 0.15 (the classifier trains at 0.1; the kernel "
+            "bf16, rate 0.15, vp_train at its 0.1 (the classifier trains at "
+            "0.1 and is timed at 0.15; the kernel "
             "reads and writes every element at any rate): device ms summed "
             "over the launches of one training step (forward and backward) "
             "at the path's shapes; max_abs_err measured over every compared "

@@ -7,8 +7,9 @@
         [+dataset.diffusion.evaluation.likelihood.solver=rk4] \\
         [+dataset.diffusion.evaluation.likelihood.n_probes=1]
 
-Prints ``nll: <x> bits/dim``, the variational upper bound of the PSLD
-state. Runs on ``cuda`` unless ``+dataset.diffusion.evaluation.device=cpu``.
+Prints ``nll: <x> bits/dim``: the VP-SDE's NLL, or the variational upper
+bound of the PSLD state. Runs on ``cuda`` unless
+``+dataset.diffusion.evaluation.device=cpu``.
 """
 
 from psld_tpu_torch.cli._common import bootstrap

@@ -116,10 +116,12 @@ def count_flops(config, batch: int = 1, train: bool = False) -> float:
     from psld_tpu_torch.train.steps import StepRandom, make_train_step
 
     net = build_score_model(config)
+    sde = build_sde(config)
     s, c = int(config.data.image_size), int(config.data.num_channels)
     counter = FlopCounterMode(display=False)
     if not train:
-        x = torch.zeros(batch, s, s, 2 * c)
+        # PSLD's state carries the momentum half beside x
+        x = torch.zeros(batch, s, s, 2 * c if sde.is_augmented else c)
         t = torch.full((batch,), 0.5)
         with counter, torch.no_grad():
             net.eval()(x, t)
@@ -128,7 +130,6 @@ def count_flops(config, batch: int = 1, train: bool = False) -> float:
     tree = config.to_dict()
     tree["training"]["bf16"] = False
     config = ConfigDict(tree)
-    sde = build_sde(config)
     criterion = get_module("losses", config.training.loss.name)(config, sde)
     step, optimizer = make_train_step(net, sde, criterion, config)
     state = init_state(dict(net.named_parameters()), optimizer)

@@ -13,9 +13,10 @@ trajectory, one vector-Jacobian product per probe through the score
 network (reverse mode, into the input only), or the exact Jacobian trace
 for small shapes.
 
-For the augmented PSLD state the joint density ``p(x, m)`` is exact, and
-``augmented_nll_bound`` makes it the variational upper bound on the data
-NLL: with ``q(m) = N(0, mm_0 I)``,
+For the VP-SDE the NLL is ``-log p(x)`` itself. For the augmented PSLD
+state the joint density ``p(x, m)`` is exact, and ``augmented_nll_bound``
+makes it the variational upper bound on the data NLL: with ``q(m) =
+N(0, mm_0 I)``,
 
     -log p(x) <= E_{m~q}[-log p(x, m)] - H(q).
 
@@ -208,9 +209,9 @@ def evaluate_nll(config, max_batches: int | None = None):
     ``n_samples // batch_size`` (at least one). Batch ``i`` draws its
     momentum and its probes from its own generator, seeded from
     (``evaluation.seed``, i) as the samplers seed theirs. For PSLD the
-    number is the variational upper bound of :func:`augmented_nll_bound`
-    (the port builds no other SDE yet: the JAX package's exact VP-SDE
-    path waits for the port's VP-SDE).
+    number is the variational upper bound of :func:`augmented_nll_bound`;
+    for the VP-SDE it is ``-logp`` of the data, with no momentum draw and
+    no entropy term.
 
     ``evaluation.likelihood`` (all optional): n_steps (100), solver
     (rk4 | heun | euler), n_probes (1), exact_div (False), exact_chunk
@@ -254,8 +255,12 @@ def evaluate_nll(config, max_batches: int | None = None):
                 break
             t0 = time.perf_counter()
             x = torch.from_numpy(batch).to(device)
-            nll, out = augmented_nll_bound(
-                sde, lik, batch_generator(seed, i, device), x)
+            gen = batch_generator(seed, i, device)
+            if sde.is_augmented:
+                nll, out = augmented_nll_bound(sde, lik, gen, x)
+            else:
+                out = lik(gen, x)
+                nll = -out["logp"]
             nll = nll.cpu().numpy()
             dim = math.prod(x.shape[1:])
             nlls.append(nll)

@@ -1,4 +1,6 @@
-"""A JAX-package param tree -> the port's ``state_dict``.
+"""A JAX-package param tree -> the port's ``state_dict``: the score and
+classifier networks' flax trees, and (:func:`inception_state_dict`) the
+FID InceptionV3's params.
 
 The tree is nested dicts of numpy arrays (``jax.device_get`` of a flax
 ``params`` tree, with or without the top-level ``{"params": ...}``); no
@@ -92,3 +94,22 @@ def train_state_from_flax(model: torch.nn.Module, params, ema_params, mu, nu,
     return TrainState(step=int(step), params=own, ema_params=tree(ema_params),
                       opt_state={"mu": tree(mu), "nu": tree(nu),
                                  "count": int(count)})
+
+
+def inception_state_dict(params) -> dict:
+    """The JAX package's InceptionV3 params (``{name: {"w": HWIO, "b"}}``
+    and an optional ``{"fc": {"w": (2048, 1008), "b"}}``, numpy leaves)
+    as the port's ``FIDInception`` state_dict: ``<name>.weight`` OIHW,
+    ``<name>.bias``, ``fc.weight`` (1008, 2048) and ``fc.bias``."""
+    sd = {}
+    for name, leaf in params.items():
+        w, b = np.asarray(leaf["w"]), np.asarray(leaf["b"])
+        if name == "fc":
+            w = w.T
+        elif w.ndim == 4:
+            w = np.transpose(w, (3, 2, 0, 1))  # HWIO -> OIHW
+        else:
+            raise ValueError(f"{name}: kernel of rank {w.ndim}")
+        sd[f"{name}.weight"] = torch.from_numpy(np.array(w, order="C"))
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(b, order="C"))
+    return sd

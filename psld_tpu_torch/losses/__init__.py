@@ -1,4 +1,5 @@
 from psld_tpu_torch.losses.score import (  # noqa: F401
     PSLDScoreLoss,
     PSLDTimeCELoss,
+    ScoreLoss,
 )

@@ -1,5 +1,6 @@
-"""Score-matching loss of PSLD and the time-conditional cross-entropy of
-its guidance classifier (``psld_tpu/losses/score.py``).
+"""Score-matching losses of the VP-SDE and of PSLD, and the
+time-conditional cross-entropy of PSLD's guidance classifier
+(``psld_tpu/losses/score.py``).
 
 A criterion is built from (config, sde) and called with explicit
 tensors. ``score_fn`` is any ``(z, t) -> eps_pred`` callable. The random
@@ -17,10 +18,49 @@ import torch
 
 from psld_tpu_torch.registry import get_module, register_module
 from psld_tpu_torch.sde.psld import split_xm
+from psld_tpu_torch.utils.numerics import to_edge
 
 
 def _reduce(loss: torch.Tensor, strategy: str) -> torch.Tensor:
     return loss.mean() if strategy == "mean" else loss.sum()
+
+
+@register_module(category="losses", name="score_loss")
+class ScoreLoss:
+    """Epsilon-prediction loss of an SDE without a momentum half (the
+    VP-SDE). ``training.loss.weighting`` ``fid`` is the plain l2 (or l1)
+    loss on eps; ``nll`` weights the squared score error by g(t)^2 and
+    needs l2."""
+
+    def __init__(self, config, sde):
+        lcfg = config.training.loss
+        if lcfg.weighting not in ("nll", "fid"):
+            raise ValueError(f"training.loss.weighting {lcfg.weighting!r}")
+        if lcfg.weighting == "nll" and lcfg.l_type != "l2":
+            raise ValueError("l_type can only be `l2` when using nll "
+                             "weighting")
+        self.sde = sde
+        self.l_type = lcfg.l_type
+        self.weighting = lcfg.weighting
+        self.reduce_strategy = "mean" if lcfg.reduce_mean else "sum"
+
+    def __call__(self, x_0, t, score_fn, rng=None, eps=None):
+        """``x_0`` NHWC float32, ``t`` float64 [B]; ``eps`` (C channels)
+        is drawn from ``rng`` unless given."""
+        if eps is None:
+            eps = rng.normal(x_0.shape)
+        eps = eps.to(x_0.dtype)
+        x_t = self.sde.perturb_data(x_0, t, eps)
+        eps_pred = score_fn(x_t.float(),
+                            t.to(device=x_t.device, dtype=torch.float32))
+        if self.weighting == "nll":
+            gt2 = to_edge(self.sde.likelihood_weighting(t), eps_pred).float()
+            diff = self.sde.get_score(eps_pred, t) \
+                - self.sde.get_score(eps, t)
+            return _reduce(diff * diff * gt2, self.reduce_strategy)
+        diff = eps - eps_pred
+        loss = diff * diff if self.l_type == "l2" else diff.abs()
+        return _reduce(loss, self.reduce_strategy)
 
 
 def _sample_momentum(sde, x_0, mode: str, rng=None, m0=None):

@@ -7,8 +7,9 @@ After each predictor step at reverse-grid time ``t``, ``n`` steps of
 
 with one step size for the batch from the target signal-to-noise ratio,
 ``step = 2 * (snr * ||z|| / max(||score||, 1e-20))^2``, the norms taken
-per sample and averaged over the batch. In the reduced-output modes the
-half of the state that carries no score gets neither drift nor noise.
+per sample and averaged over the batch. In PSLD's reduced-output modes
+the half of the state that carries no score gets neither drift nor
+noise.
 
 Config keys, under ``evaluation.sampler``: ``corrector`` (``none`` or
 ``langevin``), ``corrector_snr`` (default 0.16), ``corrector_steps``
@@ -37,11 +38,12 @@ class LangevinCorrector:
         self.steps = int(scfg.get("corrector_steps", 1))
 
     def _live_mask(self, u):
-        """1 where the state carries a score: in the reduced-output modes
-        the other half of ``get_score`` is zero-filled, and noise there
-        would random-walk with no drift to restore it."""
+        """1 where the state carries a score: in PSLD's reduced-output
+        modes the other half of ``get_score`` is zero-filled, and noise
+        there would random-walk with no drift to restore it. An SDE
+        without modes (the VP-SDE) is live everywhere."""
         half = torch.ones_like(u[..., : u.shape[-1] // 2])
-        mode = self.sde.mode
+        mode = getattr(self.sde, "mode", None)
         if mode == "score_m":
             return join_xm(torch.zeros_like(half), half)
         if mode == "score_x":
@@ -49,9 +51,15 @@ class LangevinCorrector:
         return torch.ones_like(u)
 
     def _score(self, u, t_phys):
+        """The marginal's score from the eps network: PSLD's conversion
+        needs the stationary covariance (``mm_0``), the VP-SDE's only
+        the std."""
         eps_pred = self.score_fn(u.float(), t_phys.float())
-        return self.sde.get_score(eps_pred, 0.0, self.sde.mm_0,
-                                  t_phys).to(u.dtype)
+        if hasattr(self.sde, "mm_0"):
+            score = self.sde.get_score(eps_pred, 0.0, self.sde.mm_0, t_phys)
+        else:
+            score = self.sde.get_score(eps_pred, t_phys)
+        return score.to(u.dtype)
 
     def __call__(self, u, t: float, dt: float, draw):
         del dt

@@ -1,9 +1,9 @@
 """Probability-flow ODE samplers (``psld_tpu/samplers/ode.py``).
 
 * ``rk_ode``: fixed-grid Euler, Heun or RK4 (1, 2 or 4 NFE a step).
-* ``ei_ode``: the exponential integrator of the PSLD phase-space system,
-  orders 1 to 3 at one NFE a step; ``cc_ei_ode`` adds classifier
-  guidance in eps space.
+* ``ei_ode``: the exponential integrator of the PSLD phase-space system
+  (of the scalar system, for the VP-SDE), orders 1 to 3 at one NFE a
+  step; ``cc_ei_ode`` adds classifier guidance in eps space.
 * ``adaptive_ode``: Dormand--Prince 5(4) with SciPy's error norm and step
   controller, the state on the device and the controller on the host.
 * ``bb_ode``: SciPy's ``solve_ivp`` on the host, the drift on the device.
@@ -15,10 +15,6 @@ network evaluations it makes in ``nfe`` (cumulative over ``sample``
 calls). The JAX package's segment protocol (``evaluation.nfe_per_dispatch``)
 and the adaptive solver's bounded dispatches exist for a per-dispatch
 watchdog of its TPU runtime and are not ported.
-
-The VP-SDE branches of the JAX package's ``ei_ode`` and ``cc_ei_ode``
-wait for the port's VP-SDE: the port builds PSLD alone, and these
-samplers raise on an SDE without a momentum half.
 """
 
 from __future__ import annotations
@@ -42,13 +38,6 @@ def _pf_drift(sde, score_fn, x, t: float):
     tv = sde.timestep_vector(t, x.shape[0], x.device)
     f, _ = sde.reverse_sde(x, tv, score_fn, probability_flow=True)
     return f
-
-
-def _require_augmented(sde, name: str) -> None:
-    if not sde.is_augmented:
-        raise NotImplementedError(
-            f"{name} on an SDE without a momentum half (VP-SDE) waits for "
-            "the port's VP-SDE (ROADMAP.md, module queue: VP-SDE baseline)")
 
 
 class _ODESampler(Sampler):
@@ -267,7 +256,7 @@ def _mat2(a, b):
 
 @register_module(category="samplers", name="ei_ode")
 class EIODESampler(_ODESampler):
-    """Exponential-integrator probability-flow sampler for PSLD (the
+    """Exponential-integrator probability-flow sampler (the
     construction and its operating envelope are in the JAX package's
     ``EIODESampler`` docstring). The ODE is linear plus an eps term,
 
@@ -285,11 +274,14 @@ class EIODESampler(_ODESampler):
     nodes); a step is one network forward and a few scalar-times-tensor
     passes over the two phase-space halves. Documented regime: NFE >= 20
     at order 2, NFE >= 30 at order 3.
+
+    For the VP-SDE the system is scalar: ``A`` is 1, ``W(t) = beta(t) /
+    (2 std(t))``, the transport over ``s = int beta`` is ``exp(s / 2)``,
+    and every table holds its [0] entry (the others are zero).
     """
 
     def __init__(self, config, sde, score_fn, corrector_fn=None):
         super().__init__(config, sde, score_fn, corrector_fn=corrector_fn)
-        _require_augmented(sde, type(self).__name__)
         scfg = config.evaluation.sampler
         self.order = int(scfg.get("order", 2))
         if self.order not in (1, 2, 3):
@@ -313,7 +305,7 @@ class EIODESampler(_ODESampler):
 
     def _tables(self, ts: torch.Tensor):
         """(E, Psi0, Psi1[, Psi2]) of the grid ``ts``: float64 [n, 4] each,
-        rows row-major 2x2 matrices."""
+        rows row-major 2x2 matrices (for the VP-SDE, zero but for [0])."""
         sde = self.sde
         ts = ts.to(torch.float64)
         ta, tb = ts[:-1], ts[1:]
@@ -323,10 +315,21 @@ class EIODESampler(_ODESampler):
         taus = ta[:, None] + dtau[:, None] * rel_x[None, :]   # [n, Q]
         wq = dtau[:, None] * rel_w[None, :]
         t_phys = sde.T - taus
-        s_rem = sde.b_t(t_phys) - sde.b_t(sde.T - tb)[:, None]
-        integrand = _mat2(sde._exp_half_As(-s_rem), self._w_entries(t_phys))
-        s_full = sde.b_t(sde.T - ta) - sde.b_t(sde.T - tb)
-        e_full = torch.stack(sde._exp_half_As(-s_full), dim=-1)
+        if sde.is_augmented:
+            s_rem = sde.b_t(t_phys) - sde.b_t(sde.T - tb)[:, None]
+            integrand = _mat2(sde._exp_half_As(-s_rem),
+                              self._w_entries(t_phys))
+            s_full = sde.b_t(sde.T - ta) - sde.b_t(sde.T - tb)
+            e_full = torch.stack(sde._exp_half_As(-s_full), dim=-1)
+        else:
+            s_rem = _vpsde_b(sde, t_phys) - _vpsde_b(sde, sde.T - tb)[:, None]
+            w = 0.5 * sde.beta_t(t_phys) / sde._std(t_phys)
+            ew = torch.exp(0.5 * s_rem) * w
+            zero = torch.zeros_like(ew)
+            integrand = (ew, zero, zero, zero)
+            e0 = torch.exp(0.5 * (_vpsde_b(sde, sde.T - ta)
+                                  - _vpsde_b(sde, sde.T - tb)))
+            e_full = torch.stack([e0] + 3 * [torch.zeros_like(e0)], dim=-1)
 
         def quad(extra):
             return torch.stack([(wq * extra * m).sum(dim=1)
@@ -339,18 +342,21 @@ class EIODESampler(_ODESampler):
         return tuple(tables)
 
     # -- state ---------------------------------------------------------------
-    @staticmethod
-    def _apply(c, z):
+    def _apply(self, c, z):
         """The 2x2 matrix ``c`` (4 host floats, row-major) applied to the
-        phase-space halves of ``z``; each entry is rounded to ``z``'s
-        dtype."""
+        phase-space halves of ``z`` (for the VP-SDE its [0] entry to the
+        whole of ``z``); each entry is rounded to ``z``'s dtype."""
+        if not self.sde.is_augmented:
+            return z * c[0]
         x, m = split_xm(z)
         return join_xm(x * c[0] + m * c[1], x * c[2] + m * c[3])
 
     def _pad_eps(self, eps_hat):
-        """Zero-fill the half the network does not predict in the
+        """Zero-fill the half the network does not predict in PSLD's
         reduced-output modes, as ``get_score`` does."""
         sde = self.sde
+        if not sde.is_augmented:
+            return eps_hat
         if sde.decomp_mode == "lower" and sde.mode == "score_m":
             return join_xm(torch.zeros_like(eps_hat), eps_hat)
         if sde.decomp_mode == "upper" and sde.mode == "score_x":
@@ -417,9 +423,11 @@ class ClassCondEIODESampler(EIODESampler):
 
     def _lt_entries(self, t_phys: float):
         """L^T(t) as 4 row-major host floats: the transpose of the kernel
-        factor ``get_coeff``."""
+        factor ``get_coeff`` (for the VP-SDE, the std)."""
         sde = self.sde
         t = torch.tensor([t_phys], dtype=torch.float64)
+        if not sde.is_augmented:
+            return float(sde._std(t)), 0.0, 0.0, 0.0
         l11, l12, l21, l22 = (float(c) for c in sde.get_coeff(
             sde._cov(0.0, sde.mm_0, t)))
         return l11, l21, l12, l22
@@ -431,6 +439,12 @@ class ClassCondEIODESampler(EIODESampler):
         grad = ClassCondEulerMaruyamaSampler._guidance(self, u, t_clf)
         return eps_hat - self._apply(self._lt_entries(t_phys),
                                      grad.to(u.dtype))
+
+
+def _vpsde_b(sde, t):
+    """int_0^t beta of the VP-SDE, from its own schedule: b(t) = -2 log
+    a(t), so the transport tables follow ``_log_mean_coeff``."""
+    return -2.0 * sde._log_mean_coeff(t)
 
 
 @register_module(category="samplers", name="rk_ode")

@@ -13,9 +13,10 @@ JAX key stream's draws through it. The names:
 - ``("corrector", i, j)`` is the corrector's draw for its j-th step after
   grid row (EM) or step (SSCS) i;
 - ``"prior_x"`` and ``"prior_m"`` draw the inpainter's prior, ``"init_m"``
-  (DSM only) and ``"init_eps"`` forward-diffuse the known image (to T) or
-  the guide (to ``edit_t0``), and ``("known_m", i)`` (DSM only) and
-  ``("known_eps", i)`` forward-diffuse the known image at grid row i.
+  (PSLD's DSM only) and ``"init_eps"`` forward-diffuse the known image
+  (to T) or the guide (to ``edit_t0``), and ``("known_m", i)`` (DSM
+  only) and ``("known_eps", i)`` forward-diffuse the known image at grid
+  row i.
 
 Without a corrector a sampler asks for its integer draws alone, in the
 same order as with one.
@@ -170,13 +171,28 @@ class ClassCondEulerMaruyamaSampler(EulerMaruyamaSampler):
                           guidance=lambda xx: self._guidance(xx, t_clf))[0]
 
 
+def _require_phase_space(sde, name: str) -> None:
+    """SSCS, SSCS-2M and inpainting act on PSLD's (x, m) halves: an SDE
+    without a momentum half (the VP-SDE) is refused where the sampler is
+    built."""
+    if not sde.is_augmented:
+        raise ValueError(f"{name} runs on PSLD's phase space; {sde.type} "
+                         "has no momentum half")
+
+
 def _forward_diffuse(sampler, generator, noise, x_0, t: float, names):
-    """Forward-diffuse ``x_0`` to time ``t`` through the training kernel:
-    HSM takes m_0 = 0 with kernel variance ``mm_0``, DSM draws m_0 ~ N(0,
-    mm_0 I) with none. ``names`` are the (m_0, eps) draws' names; eps has
-    2C channels. Returns (z_t, mean)."""
+    """Forward-diffuse ``x_0`` to time ``t`` through the training kernel.
+    The VP-SDE draws eps (C channels) alone. PSLD: HSM takes m_0 = 0 with
+    kernel variance ``mm_0``, DSM draws m_0 ~ N(0, mm_0 I) with none, and
+    eps has 2C channels. ``names`` are the (m_0, eps) draws' names.
+    Returns (z_t, mean)."""
     sde = sampler.sde
     name_m, name_eps = names
+    tv = sde.timestep_vector(t, x_0.shape[0], x_0.device)
+    if not sde.is_augmented:
+        eps = _normal(generator, noise, name_eps, x_0)
+        return sde.perturb_data(x_0, tv, eps), \
+            sde.cond_marginal_prob(x_0, tv)[0]
     if str(sampler.config.training.mode) == "hsm":
         m_0, mm_0 = torch.zeros_like(x_0), sde.mm_0
     else:
@@ -184,7 +200,6 @@ def _forward_diffuse(sampler, generator, noise, x_0, t: float, names):
         mm_0 = 0.0
     eps = _normal(generator, noise, name_eps, x_0,
                   shape=x_0.shape[:-1] + (2 * x_0.shape[-1],))
-    tv = sde.timestep_vector(t, x_0.shape[0], x_0.device)
     z_t, mu_t, _ = sde.perturb_data(x_0, m_0, 0.0, mm_0, tv, eps)
     return z_t, mu_t
 
@@ -198,6 +213,10 @@ class EulerMaruyamaInpainter(EulerMaruyamaSampler):
     On the mean-only denoise row the stitched region is the kernel's mean.
     ``batch`` is ``(x_0, mask)``, NHWC with C channels each. No corrector
     runs, as in the JAX package's ``inpaint``."""
+
+    def __init__(self, config, sde, score_fn, corrector_fn=None):
+        _require_phase_space(sde, "ip_em_sde")
+        super().__init__(config, sde, score_fn, corrector_fn=corrector_fn)
 
     @staticmethod
     def _stitch(z, z_known, mask):
@@ -232,12 +251,11 @@ class EulerMaruyamaInpainter(EulerMaruyamaSampler):
 class EditEulerMaruyamaSampler(EulerMaruyamaSampler):
     """SDEdit-style editing: the guide image ``batch`` (NHWC, C channels)
     is forward-diffused to ``t0 = evaluation.sampler.edit_t0`` (the edit
-    strength) through the training kernel, with the momentum as the loss
-    draws it (HSM: m_0 = 0 with kernel variance ``mm_0``; DSM: m_0 ~ N(0,
-    mm_0 I)), and the reverse EM runs over [T - t0, T - eps] only: the
-    caller's [0, T - eps] grid is mapped onto it affinely, so its stride
-    shape is kept. The VP-SDE branch of the JAX package is not ported: the
-    port builds no VP-SDE."""
+    strength) through the training kernel (PSLD: with the momentum as the
+    loss draws it, HSM: m_0 = 0 with kernel variance ``mm_0``; DSM: m_0 ~
+    N(0, mm_0 I)), and the reverse EM runs over [T - t0, T - eps] only:
+    the caller's [0, T - eps] grid is mapped onto it affinely, so its
+    stride shape is kept."""
 
     def __init__(self, config, sde, score_fn, corrector_fn=None):
         super().__init__(config, sde, score_fn, corrector_fn=corrector_fn)
@@ -272,6 +290,10 @@ class SSCSSampler(Sampler):
     ``denoise``, one mean-only EM step at ``T - eps``. Both half-steps of
     an interval are taken at its start time ``t``, as in the JAX
     package."""
+
+    def __init__(self, config, sde, score_fn, corrector_fn=None):
+        _require_phase_space(sde, type(self).__name__)
+        super().__init__(config, sde, score_fn, corrector_fn=corrector_fn)
 
     def _coeffs(self, u, t: float, dt: float):
         """The half-step's mean map and covariance at sampler time ``t``

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import abc
 
+import torch
+
 
 class SDE(abc.ABC):
     """A forward-time Ito SDE dz = f(z,t) dt + g(t) dW on t in [0, T]."""
@@ -36,3 +38,10 @@ class SDE(abc.ABC):
     @abc.abstractmethod
     def prior_sampling(self, generator, shape, dtype=None, device=None):
         """Sample z_T from the equilibrium prior."""
+
+    def timestep_vector(self, t: float, batch: int,
+                        device=None) -> torch.Tensor:
+        """A scalar time as a float64 per-batch vector on ``device``:
+        filled there, so a sampler step copies nothing from the host."""
+        return torch.full((batch,), float(t), dtype=torch.float64,
+                          device=device)

@@ -269,10 +269,3 @@ class PSLD(SDE):
         on the x and m halves."""
         beta = self.beta_t(t)
         return beta * self.gamma, beta * self.m * self.nu
-
-    def timestep_vector(self, t: float, batch: int,
-                        device=None) -> torch.Tensor:
-        """A scalar time as a float64 per-batch vector on ``device``:
-        filled there, so a sampler step copies nothing from the host."""
-        return torch.full((batch,), float(t), dtype=torch.float64,
-                          device=device)

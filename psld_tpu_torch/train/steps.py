@@ -18,8 +18,8 @@ picks a dtype per op. Loss math, SDE coefficients, Adam moments and the
 EMA stay float32/float64.
 
 Randomness is explicit. A run has one seeded :class:`StepRandom`; a step
-draws from it, in a fixed order, t, then m0 (DSM only), then eps, then the
-dropout seed words, and every draw can be handed in instead (``t=``,
+draws from it, in a fixed order, t, then m0 (PSLD's DSM only), then eps,
+then the dropout seed words, and every draw can be handed in instead (``t=``,
 ``eps=``, ``m0=``, ``dropout_seeds=``). JAX's threefry stream is not
 reproduced: tests feed both packages the same numbers.
 """
@@ -165,8 +165,10 @@ def make_train_step(net, sde, criterion, config) -> tuple[Callable, object]:
             t = sample_times(rng, batch.shape[0], train_eps, sde.T)
         t = t.to(batch.device)
         p = compute.params(state.params)
+        # m0 is PSLD's momentum draw: the VP-SDE's criterion has none
+        draws = {"eps": eps} if m0 is None else {"eps": eps, "m0": m0}
         loss = criterion(batch, t, compute.forward_fn(p, rng, seeds), rng,
-                         eps=eps, m0=m0)
+                         **draws)
         return loss.detach().float(), compute.grads(loss, p)
 
     def step(state: TrainState, batch, rng=None, *, t=None, eps=None,

@@ -1,7 +1,8 @@
-"""Image writers (``psld_tpu/utils/images.py``), NHWC numpy.
+"""Image writers and reader (``psld_tpu/utils/images.py``), NHWC numpy.
 
 PNGs are encoded with the standard library (zlib + struct): 8-bit gray,
-RGB or RGBA, one IDAT chunk, filter 0 on every row.
+RGB or RGBA, one IDAT chunk, filter 0 on every row. Images are read with
+Pillow.
 """
 
 from __future__ import annotations
@@ -69,3 +70,18 @@ def save_as_np(batch, file_name: str = "output", denorm: bool = True):
         x = (x - lo) / np.maximum(hi - lo, 1e-8)
     for i, img in enumerate(x):
         np.save(f"{file_name}_{i}.npy", img)
+
+
+def load_images_rgb(paths) -> np.ndarray:
+    """Image files (PNG, JPEG, any mode Pillow reads) as an (N, H, W, 3)
+    uint8 batch, converted to RGB by Pillow; all must share one size."""
+    from PIL import Image
+
+    paths = list(paths)
+    if not paths:
+        return np.empty((0, 0, 0, 3), np.uint8)
+    imgs = []
+    for p in paths:
+        with Image.open(p) as img:
+            imgs.append(np.asarray(img.convert("RGB"), np.uint8))
+    return np.stack(imgs)

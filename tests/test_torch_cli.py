@@ -131,12 +131,12 @@ import psld_tpu_torch
 for m in pkgutil.walk_packages(psld_tpu_torch.__path__, "psld_tpu_torch."):
     __import__(m.name)
 from psld_tpu_torch.cli._common import bootstrap
-from psld_tpu_torch.cli import (class_cond_sample, edit, inpaint,
+from psld_tpu_torch.cli import (class_cond_sample, edit, fid, inpaint,
                                 likelihood, sample, train_clf, train_sde)
 from psld_tpu_torch.eval import bench
 from psld_tpu_torch.train.checkpoint import latest_checkpoint
 bootstrap(["+dataset=cifar10/cifar10_psld"])
-tiny, clf, guided = {tiny!r}, {clf!r}, {guided!r}
+tiny, clf, guided, vp = {tiny!r}, {clf!r}, {guided!r}, {vp!r}
 with tempfile.TemporaryDirectory() as d:
     state, stats = train_sde.main(tiny + [
         "dataset.diffusion.training.results_dir=" + d + "/results"])
@@ -170,7 +170,20 @@ with tempfile.TemporaryDirectory() as d:
         "dataset.diffusion.evaluation.chkpt_path=" + score,
         "+dataset.diffusion.evaluation.likelihood.n_steps=2",
         "+dataset.diffusion.evaluation.likelihood.solver=heun"])
+    vp_state, _ = train_sde.main(vp + [
+        "dataset.diffusion.training.results_dir=" + d + "/vp"])
+    vp_batches = sample.main(vp + [
+        "dataset.diffusion.evaluation.chkpt_path="
+        + latest_checkpoint(d + "/vp/checkpoints"),
+        "dataset.diffusion.evaluation.save_path=" + d + "/vp_out"])
+    scores = fid.main(["--input1", d + "/vp_out/images", "--input2",
+                       d + "/out/images", "--kid", "--isc", "--kid-subsets",
+                       "2", "--kid-subset-size", "2", "--isc-splits", "2",
+                       "--device", "cpu"])
 print("RAN", state.step, clf_state.step, sum(b["samples"] for b in batches))
+print("VP", vp_state.step, [(b["samples"], b["nfe"], b["nonfinite"])
+                            for b in vp_batches])
+print("FID", sorted(scores), all(math.isfinite(v) for v in scores.values()))
 print("ODE", [(b["samples"], b["nfe"], b["nonfinite"]) for b in ode])
 print("NLL", [(b["samples"], b["nfe"], b["nonfinite"]) for b in nll],
       bpd == nll[0]["bits_per_dim"] and math.isfinite(bpd))
@@ -213,6 +226,18 @@ _CLF_RUN = ["dataset.clf.data.root=/unused",
             "dataset.clf.training.batch_size=256",
             "dataset.clf.training.epochs=1",
             "+dataset.clf.training.device=cpu"]
+# the VP-SDE baseline's options at 8x8 and nf 8: 2 steps of batch 256,
+# then 3-NFE EM, as _TINY_RUN
+_VP_RUN = ["+dataset=cifar10/cifar10_vpsde",
+           "dataset.diffusion.data.root=/unused",
+           "dataset.diffusion.data.name=synthetic",
+           "dataset.diffusion.data.image_size=8",
+           "dataset.diffusion.model.score_fn.nf=8",
+           "dataset.diffusion.model.score_fn.ch_mult=[1,2]",
+           "dataset.diffusion.model.score_fn.num_res_blocks=1",
+           "dataset.diffusion.model.score_fn.attn_resolutions=[4]",
+           "+dataset.diffusion.model.score_fn.dropout_impl=hw",
+           *_TINY_RUN[-8:]]
 # guided EM, two labels over two batches of 2
 _GUIDED_RUN = ["dataset.diffusion.evaluation.sampler.name=cc_em_sde",
                "dataset.diffusion.evaluation.n_samples=4",
@@ -225,18 +250,25 @@ def test_importing_the_port_pulls_in_no_jax():
     (``cli.train_sde``, ``cli.sample`` with EM, SSCS-2M and ``ei_ode``,
     ``cli.train_clf``, ``cli.class_cond_sample``, ``cli.inpaint``,
     ``cli.edit``, ``cli.likelihood`` (two Heun steps, one batch of 2),
-    and the bench on the CPU at width 8) leave no module
+    the bench on the CPU at width 8, a VP-SDE ``cli.train_sde`` and
+    ``cli.sample``, and ``cli.fid`` (KID and ISC, random Inception
+    weights) on the samples) leave no module
     named ``psld_tpu`` or ``psld_tpu.*``, nothing of JAX and no Triton in
     ``sys.modules``."""
     r = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL.format(
-            tiny=_TINY_RUN, clf=_CLF_RUN, guided=_GUIDED_RUN)], cwd=REPO,
+            tiny=_TINY_RUN, clf=_CLF_RUN, guided=_GUIDED_RUN, vp=_VP_RUN)],
+        cwd=REPO,
         capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "RAN 2 2 12" in r.stdout, r.stdout
     assert "ODE [(2, 3, 0)]" in r.stdout, r.stdout
     assert "NLL [(2, 4, 0)] True" in r.stdout, r.stdout
     assert "BENCH 18 cpu" in r.stdout, r.stdout
+    assert "VP 2 [(2, 3, 0)]" in r.stdout, r.stdout
+    assert ("FID ['inception_score_mean', 'inception_score_std', "
+            "'kernel_inception_distance_mean', "
+            "'kernel_inception_distance_std'] True") in r.stdout, r.stdout
     assert "IMPORTED []" in r.stdout, r.stdout
 
 

@@ -3,12 +3,11 @@
 The port composes its configs with its own copy of the composer
 (``psld_tpu_torch/config.py``) and of the YAML tree
 (``psld_tpu_torch/configs``). These tests hold every composed tree equal
-to the JAX package's, so the two copies cannot drift, hold what the port
-makes of every shipped PSLD config (its score network's constructor
-arguments, the network itself, the SDE, and where the config has a
-``clf`` tree the classifier's arguments) to what the JAX package makes of
-the same config, and check that the configs of SDEs the port does not
-have yet are refused.
+to the JAX package's, so the two copies cannot drift, and hold what the
+port makes of every shipped config, PSLD's and the VP-SDE's (its score
+network's constructor arguments, the network itself, the SDE, and where
+the config has a ``clf`` tree the classifier's arguments) to what the
+JAX package makes of the same config.
 
 Tolerance of the SDE comparison: 1e-6 of the tensor's largest magnitude,
 as in ``test_torch_sde`` (float64 coefficients rounded once to float32).
@@ -26,9 +25,9 @@ from psld_tpu import config as jconfig
 from psld_tpu.models.ncsnpp import _model_kwargs as j_model_kwargs
 from psld_tpu.models.ncsnpp import _model_kwargs_clf as j_model_kwargs_clf
 from psld_tpu.sde.psld import PSLD as JPSLD
+from psld_tpu.sde.vpsde import VPSDE as JVPSDE
 from psld_tpu_torch import config as tconfig
 from psld_tpu_torch import knobs
-from psld_tpu_torch.cli import sample as sample_cli
 from psld_tpu_torch.config import compose
 from psld_tpu_torch.eval.generate import build_score_model, build_sde
 from psld_tpu_torch.models.ncsnpp import _model_kwargs, _model_kwargs_clf
@@ -40,7 +39,7 @@ GROUPS = sorted(f"{d}/{os.path.splitext(f)[0]}" for d in os.listdir(CONFIGS)
                 for f in os.listdir(os.path.join(CONFIGS, d))
                 if f.endswith(".yaml"))
 PSLD_GROUPS = [g for g in GROUPS if g.endswith("_psld")]
-OTHER_GROUPS = [g for g in GROUPS if not g.endswith("_psld")]
+VP_GROUPS = [g for g in GROUPS if not g.endswith("_psld")]
 TS = np.array([1e-3, 0.1, 0.5, 0.999])
 
 
@@ -59,7 +58,7 @@ def latched_knobs(monkeypatch):
 
 def test_every_shipped_config_is_covered():
     assert "cifar10/cifar10_psld" in PSLD_GROUPS and len(PSLD_GROUPS) == 4
-    assert OTHER_GROUPS and all(g.endswith("_vpsde") for g in OTHER_GROUPS)
+    assert VP_GROUPS and all(g.endswith("_vpsde") for g in VP_GROUPS)
     own = os.path.join(os.path.dirname(tconfig.__file__), "configs",
                        "dataset")
     assert sorted(f"{d}/{os.path.splitext(f)[0]}" for d in os.listdir(own)
@@ -99,7 +98,7 @@ def test_composer_refuses_what_the_jax_composer_refuses():
                 mod.compose(argv)
 
 
-@pytest.mark.parametrize("group", PSLD_GROUPS)
+@pytest.mark.parametrize("group", GROUPS)
 def test_score_net_of_config_matches_jax(group, latched_knobs):
     """The same constructor arguments as the JAX package, and a network
     built from them (on the meta device: no memory, full size)."""
@@ -107,31 +106,29 @@ def test_score_net_of_config_matches_jax(group, latched_knobs):
     assert _model_kwargs(cfg) == j_model_kwargs(cfg)
     with torch.device("meta"):
         net = build_score_model(cfg)
-    assert sum(p.numel() for p in net.parameters()) > 0
+    n_params = sum(p.numel() for p in net.parameters())
+    assert n_params > 0
+    if group == "cifar10/cifar10_vpsde":  # the VP-SDE baseline's network
+        assert n_params == 61_804_419
 
 
-@pytest.mark.parametrize("group", PSLD_GROUPS)
+@pytest.mark.parametrize("group", GROUPS)
 def test_sde_of_config_matches_jax(group):
+    """PSLD's drift and diffusion on the (x, m) state of 6 channels, the
+    VP-SDE's on x alone."""
     cfg = diffusion_cfg(group)
-    sde, jsde = build_sde(cfg), JPSLD(cfg)
+    sde = build_sde(cfg)
+    jsde = (JPSLD if group.endswith("_psld") else JVPSDE)(cfg)
+    assert type(sde).__name__ == type(jsde).__name__
+    assert sde.is_augmented == jsde.is_augmented \
+        == bool(cfg.model.sde.is_augmented)
     z = np.random.default_rng(0).standard_normal(
-        (len(TS), 4, 4, 6)).astype(np.float32)
+        (len(TS), 4, 4, 6 if sde.is_augmented else 3)).astype(np.float32)
     for got, want in zip(sde.sde(torch.from_numpy(z), torch.from_numpy(TS)),
                          jsde.sde(jnp.asarray(z), jnp.asarray(TS))):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6,
                                    atol=1e-6 * float(np.abs(want).max()))
-
-
-@pytest.mark.parametrize("group", OTHER_GROUPS)
-def test_sample_refuses_an_sde_not_ported(group):
-    """The entry point raises, naming the SDE, before it loads a
-    checkpoint."""
-    with pytest.raises(ValueError, match="No module named `vpsde`"):
-        sample_cli.main([f"+dataset={group}",
-                         "dataset.diffusion.data.root=/unused",
-                         "dataset.diffusion.evaluation.chkpt_path=/unused",
-                         "+dataset.diffusion.evaluation.device=cpu"])
 
 
 @pytest.mark.parametrize("impl,hashed", [("save_mask", False), ("hw", True),

@@ -316,19 +316,3 @@ def test_cc_ei_ode_on_the_network_matches_jax():
                        make_timesteps(2, EPS), 2, denoise=True, eps=EPS)
     assert np.isfinite(want).all() and s.nfe == 3
     assert_close_to_scale(got.numpy(), want, 1e-4)
-
-
-@pytest.mark.parametrize("name", ["ei_ode", "cc_ei_ode"])
-def test_exponential_integrators_refuse_an_sde_without_momentum(name):
-    """The VP-SDE branches wait for the port's VP-SDE: an SDE without a
-    momentum half is refused where the sampler is built."""
-    d = merged(cfg_dict())
-    d["evaluation"]["sampler"]["name"] = name
-    tcfg = ConfigDict(d)
-
-    class NoMomentum(PSLD):
-        is_augmented = False
-
-    kw = {"clf_fn": None} if name == "cc_ei_ode" else {}
-    with pytest.raises(NotImplementedError, match="VP-SDE"):
-        get_module("samplers", name)(tcfg, NoMomentum(tcfg), None, **kw)
