@@ -55,26 +55,44 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 13. train_clf: ``psld_tpu_torch.cli.train_clf`` at the shipped classifier's
     width and batch 32 (bf16 compute, hash dropout 0.1), one epoch of the
     synthetic set, 16 steps, a checkpoint written.
-14. guided: ``psld_tpu_torch.cli.class_cond_sample`` from the checkpoints
+14. interop: ``psld_tpu_torch.cli.export_checkpoint`` of the train
+    checkpoint to a reference (mandt-lab) Lightning ``.ckpt``, then
+    ``psld_tpu_torch.cli.convert_checkpoint`` back; the same with
+    ``--clf`` for the train_clf checkpoint: every tensor of ``params``
+    and ``ema_params`` bit-equal to the original (the classifier's
+    ``params`` in both), the step carried, no kernel launched; the
+    ``.ckpt``'s tensor count and size and the seconds each way.
+15. serve: ``psld_tpu_torch.cli.serve`` of the converted flagship
+    checkpoint in a thread of this process, batch 64, bf16 network,
+    gn_bf16, 100-NFE EM; a client sends ping, info, a request of 64
+    with the sample phase's seed, one of 96 (a full batch and a
+    partial one), a bad request, the first again into the same
+    directory, and shutdown. The first request's PNGs must equal the
+    sample phase's bit for bit, the repeat's the first's, and the
+    launches must be one forward's for every NFE of every batch (the
+    warmup's included); warmup seconds and each reply's img/s, with its
+    PNG writes and in its trajectories alone, are printed beside the
+    sample phase's img/s over the same two spans.
+16. guided: ``psld_tpu_torch.cli.class_cond_sample`` from the checkpoints
     of train and train_clf: two batches of 64, labels 0 and 1, 20-NFE
     guided EM with bf16 networks; every GroupNorm (forward and backward)
     and attention call through the kernels.
-15. sscs: ``psld_tpu_torch.cli.sample`` with SSCS-2M on the quadratic grid,
+17. sscs: ``psld_tpu_torch.cli.sample`` with SSCS-2M on the quadratic grid,
     50 NFE at batch 64, bf16, from the train checkpoint.
-16. pc_check, inpaint_check, edit_check (run right after the [sscs]
+18. pc_check, inpaint_check, edit_check (run right after the [sscs]
     check): 3-NFE float32 trajectories of the flagship at B=2 on the card
     against the CPU with the same injected draws, within 1e-4 of scale:
     EM and SSCS-2M with one Langevin corrector step a step, inpainting
     under the square mask (its known region equal to x_0 within 1e-2),
     and editing from edit_t0 = 0.5.
-17. inpaint: ``psld_tpu_torch.cli.inpaint`` from the train checkpoint on
+19. inpaint: ``psld_tpu_torch.cli.inpaint`` from the train checkpoint on
     the synthetic set with square masks, batch 64, 20-NFE bf16: 64
     samples, ground truths and masked inputs as PNGs, the known region of
     each sample within one level of its ground truth.
-18. edit: ``psld_tpu_torch.cli.edit`` the same way, edit_t0 = 0.5.
-19. pc: ``psld_tpu_torch.cli.sample`` with a Langevin corrector (one step),
+20. edit: ``psld_tpu_torch.cli.edit`` the same way, edit_t0 = 0.5.
+21. pc: ``psld_tpu_torch.cli.sample`` with a Langevin corrector (one step),
     10 NFE of EM and of SSCS-2M, batch 64, bf16.
-20. ode_check (run after clf_check): float32 probability-flow
+22. ode_check (run after clf_check): float32 probability-flow
     trajectories of the flagship at B=2 on the card against the CPU,
     within 1e-4 of scale: rk_ode (Heun, 2 steps), ei_ode (order 2, 3
     steps), adaptive_ode (2 controller iterations, the same NFE on both)
@@ -82,18 +100,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     of the Hutchinson likelihood with the same probes (logp within 1e-4
     relative, its divergence integral and terminal state within 1e-4 of
     scale).
-21. ode: ``psld_tpu_torch.cli.sample`` from the train checkpoint, batch
+23. ode: ``psld_tpu_torch.cli.sample`` from the train checkpoint, batch
     64, bf16: ei_ode (order 2, 20 NFE), rk_ode (Heun, 10 steps, 21 NFE),
     adaptive_ode and bb_ode (SciPy RK45) at rtol = atol = 1e-2; ms/NFE,
     img/s and each run's NFE.
-22. cc_ode: ``psld_tpu_torch.cli.class_cond_sample`` with cc_ei_ode
+24. cc_ode: ``psld_tpu_torch.cli.class_cond_sample`` with cc_ei_ode
     (order 2), one batch of 64, label 0, 20 NFE.
-23. likelihood: ``psld_tpu_torch.cli.likelihood`` from the train
+25. likelihood: ``psld_tpu_torch.cli.likelihood`` from the train
     checkpoint on the synthetic set, batch 64, bf16, RK4 with 2 steps (8
     right-hand sides, each a forward and an input-only vector-Jacobian
     product), one Hutchinson probe: finite bits/dim, ms a right-hand
     side, peak memory.
-24. vp_check (run after ode_check): the VP-SDE baseline
+26. vp_check (run after ode_check): the VP-SDE baseline
     (``cifar10_vpsde``, 61,804,419 parameters, weights N(0, 1) * 0.02
     from a numpy seed) in float32 on the card against the CPU: one
     training step at B=2 with hash dropout 0.1 (loss within 1e-4
@@ -106,34 +124,35 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     at the VP-SDE's shapes too: GroupNorm and attention at 64 and 128,
     the GN backward at 128 and in its input-only mode at 64, dropout at
     rate 0.1 at 128.
-25. vp_train: ``cli.train_sde`` on ``cifar10_vpsde`` at batch 128, bf16,
+27. vp_train: ``cli.train_sde`` on ``cifar10_vpsde`` at batch 128, bf16,
     ``dropout_impl=hw_inline``, synthetic set, 12 steps: ms/step, img/s,
     peak memory, a checkpoint.
-26. vp_sample, vp_pc, vp_edit, vp_ode, vp_likelihood: ``cli.sample``
+28. vp_sample, vp_pc, vp_edit, vp_ode, vp_likelihood: ``cli.sample``
     (100-NFE EM; 10 NFE of EM with one Langevin step; ``ei_ode``,
     ``rk_ode``, ``adaptive_ode`` and ``bb_ode`` as ``ode``), ``cli.edit``
     (20 NFE) and ``cli.likelihood`` (RK4 x 2, one probe; the VP-SDE's NLL
     without a momentum draw) from that checkpoint at batch 64, bf16.
-27. fid: ``cli.fid --fid --kid --isc --save-stats1`` on the card with
+29. fid: ``cli.fid --fid --kid --isc --save-stats1`` on the card with
     random Inception weights, the 64 vp_sample PNGs against 64 PNGs of
     the synthetic set: finite values, the stats file read back and FID
     from it equal, no kernel of the port launched; Inception's images/s
     at batch 64.
-28. sweep: ``cli.sweep_fid_nfe`` of the VP-SDE checkpoint over em_sde and
+30. sweep: ``cli.sweep_fid_nfe`` of the VP-SDE checkpoint over em_sde and
     ei_ode at 20 and 50 NFE, 64 samples a point, FID against the
     synthetic PNGs with a fake ``pt_inception`` checkpoint (random values
     from a numpy seed): every record has a finite ``fid`` and no
     ``quality_error``.
-29. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
+31. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
     width with 100 NFE (its default is 1000) and its train phase; its line
     is printed after ``[bench] line:``, its img/s and MFU shares must be
     positive, the shares at most 1.05.
 
-Every path (train, sample, train_clf, guided, sscs, inpaint, edit, pc,
-ode, cc_ode, likelihood, vp_train, vp_sample, vp_pc, vp_edit, vp_ode,
-vp_likelihood, fid, sweep, bench) is driven with the kernels' launch
-counts set to 0 just before it and must launch exactly the kernels its
-network calls, as many times as its forwards and steps need (fid: none).
+Every path (train, sample, train_clf, interop, serve, guided, sscs,
+inpaint, edit, pc, ode, cc_ode, likelihood, vp_train, vp_sample, vp_pc,
+vp_edit, vp_ode, vp_likelihood, fid, sweep, bench) is driven with the
+kernels' launch counts set to 0 just before it and must launch exactly
+the kernels its network calls, as many times as its forwards and steps
+need (interop and fid: none).
 
 Each kernel's time stands beside its bound (the larger of its bytes over
 3.35 TB/s and its operations over the card's peak for their type, from
@@ -1383,15 +1402,19 @@ def phase_sample(card, work, ckpt, net=FLAGSHIP, tag="sample"):
           f"expected {want}")
     ms_nfe = row["seconds"] / SAMPLE_NFE * 1e3
     img_s = BATCH / row["seconds"]
+    # the batch with its write, the span a served request times
+    img_s_written = BATCH / (row["seconds"] + row["write_seconds"])
     say(f"[{tag}] cli.sample of the {net.name} from the trained "
         f"checkpoint: {len(pngs)} PNGs, "
         f"finite, batch {BATCH}, {SAMPLE_NFE}-NFE EM (bf16 net, gn_bf16): "
         f"{ms_nfe:.2f} ms/NFE, {img_s:.3f} img/s at {SAMPLE_NFE} NFE "
-        f"(trajectory {row['seconds']:.2f} s, entry point {wall:.2f} s), "
-        f"peak {peak_gb:.2f} GB allocated; {card}")
+        f"(trajectory {row['seconds']:.2f} s, PNG writes "
+        f"{row['write_seconds']:.3f} s, {img_s_written:.3f} img/s with them; "
+        f"entry point {wall:.2f} s), peak {peak_gb:.2f} GB allocated; {card}")
     say(f"[{tag}] kernel launches in the run: GN {n_gn} "
         f"({net.gn}/NFE), attention {n_attn} ({net.attn}/NFE)")
-    return n, {"ms_nfe": ms_nfe, "img_s": img_s}
+    return n, {"ms_nfe": ms_nfe, "img_s": img_s,
+               "img_s_written": img_s_written}
 
 
 def phase_train_clf(card, work):
@@ -2391,6 +2414,209 @@ def phase_sweep(card, work, ckpt, reference, weights_path):
     return n
 
 
+def phase_interop(card, work, ckpt, clf_ckpt):
+    """``cli.export_checkpoint`` of the train checkpoint to a reference
+    Lightning ``.ckpt``, then ``cli.convert_checkpoint`` back; the same
+    with ``--clf`` for the train_clf checkpoint. Every tensor of the
+    round trip must be bit-equal to the original (a classifier's
+    ``params``, which the conversion also puts in ``ema_params``), the
+    ``.ckpt`` must carry the checkpoint's step, and nothing may launch a
+    kernel. Returns the converted flagship checkpoint."""
+    from psld_tpu_torch.cli import convert_checkpoint, export_checkpoint
+
+    reset_counts()
+    converted = None
+    for tag, src, args, flag in (
+            ("flagship", ckpt, FLAGSHIP_ARGS, []),
+            ("classifier", clf_ckpt, FLAGSHIP_ARGS + CLF_ARGS, ["--clf"])):
+        lit = os.path.join(work, "interop", f"{tag}.ckpt")
+        os.makedirs(os.path.dirname(lit), exist_ok=True)
+        t0 = time.perf_counter()
+        export_checkpoint.main([src, lit, *flag, *args])
+        t1 = time.perf_counter()
+        conv = convert_checkpoint.main(
+            [lit, os.path.join(work, "interop", f"{tag}.pt"), *flag, *args])
+        t2 = time.perf_counter()
+        orig = torch.load(src, map_location="cpu", weights_only=True)
+        back = torch.load(conv, map_location="cpu", weights_only=True)
+        ref = torch.load(lit, map_location="cpu", weights_only=True)
+        check(ref["global_step"] == orig["step"],
+              f"interop {tag}: .ckpt step {ref['global_step']}, checkpoint "
+              f"step {orig['step']}")
+        pairs = [("params", "params"), ("ema_params", "ema_params")]
+        if flag:
+            pairs[1] = ("ema_params", "params")
+        for got, want in pairs:
+            a, b = back[got], orig[want]
+            check(sorted(a) == sorted(b),
+                  f"interop {tag}: {got} keys differ from {want}")
+            bad = [k for k in b if not torch.equal(a[k], b[k])]
+            check(not bad, f"interop {tag}: {got} differs from the "
+                  f"original's {want} in {len(bad)} tensors: {bad[:3]}")
+        sd = ref["state_dict"]
+        n_el = sum(v.numel() for v in sd.values())
+        say(f"[interop] {tag}: {os.path.basename(src)} -> .ckpt "
+            f"({len(sd)} tensors, {n_el} values, "
+            f"{os.path.getsize(lit) / 1e9:.3f} GB) in {t1 - t0:.2f} s -> "
+            f"{os.path.basename(conv)} "
+            f"({os.path.getsize(conv) / 1e9:.3f} GB) in {t2 - t1:.2f} s; "
+            f"{len(b)} tensors of params"
+            f"{'' if flag else ' and ema_params'} bit-equal to the "
+            f"original; step {ref['global_step']} carried")
+        if not flag:
+            converted = conv
+        del orig, back, ref, sd
+    n = all_counts()
+    check(not any(n.values()), f"interop launched kernels: {n}")
+    say(f"[interop] kernel launches: {n}")
+    return converted
+
+
+SERVE_LARGE = 96  # a full batch and a partial one
+
+
+def phase_serve(card, work, ckpt, sampled_rates):
+    """``cli.serve`` of the converted flagship checkpoint in a thread of
+    this process (so the launch counts see it): batch 64, bf16 network,
+    gn_bf16, 100-NFE EM, as ``[sample]``. A client sends ping, info, a
+    request of 64 with ``[sample]``'s seed, one of 96, a bad request, the
+    first again into the same directory, and shutdown. The first
+    request's PNGs must equal ``[sample]``'s, the repeat's the first's;
+    the launches must be exactly one forward's per NFE of every batch
+    (the warmup's included). Rates are compared span for span with
+    ``[sample]``'s: trajectories alone, and trajectories with writes."""
+    import tempfile
+
+    sock = os.path.join(work, "serve.sock")
+    if len(sock) <= 100:  # AF_UNIX paths hold 108 bytes
+        return _serve(card, work, ckpt, sampled_rates, sock)
+    with tempfile.TemporaryDirectory(prefix="ps") as d:
+        return _serve(card, work, ckpt, sampled_rates,
+                      os.path.join(d, "serve.sock"))
+
+
+def _serve(card, work, ckpt, sampled_rates, sock):
+    import threading
+
+    from PIL import Image
+
+    from psld_tpu_torch.cli import serve as serve_cli
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.serve import request
+
+    args = FLAGSHIP_ARGS + _eval_args(ckpt, os.path.join(work, "unused"),
+                                      SAMPLE_NFE)
+    seed = int(bootstrap(args).dataset.diffusion.evaluation.seed)
+    box = {}
+    ready = threading.Event()
+
+    def up(svc):
+        box["svc"] = svc
+        ready.set()
+
+    def run():
+        try:
+            box["served"] = serve_cli.main(["--socket", sock] + args,
+                                           ready_callback=up)
+        except Exception as e:  # reported by the main thread
+            box["error"] = e
+            ready.set()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run, name="serve", daemon=True)
+    th.start()
+    check(ready.wait(timeout=600), "the server did not come up in 600 s")
+    check("error" not in box, f"the server failed: {box.get('error')!r}")
+    up_s = time.perf_counter() - t0
+    warm_s = box["svc"].warmup_s
+    out_dir = os.path.join(work, "serve")
+    first_dir = os.path.join(out_dir, "first")
+    check(request(sock, {"cmd": "ping"})["ok"], "ping failed")
+    info = request(sock, {"cmd": "info"})
+    check(info["ok"] and info["compiled"] and info["devices"] == 1
+          and info["per_dispatch_batch"] == BATCH
+          and info["n_discrete_steps"] == SAMPLE_NFE, f"info: {info}")
+    replies = [request(sock, {"cmd": "sample", "n": BATCH, "seed": seed,
+                              "out": first_dir}),
+               request(sock, {"cmd": "sample", "n": SERVE_LARGE,
+                              "seed": seed + 1,
+                              "out": os.path.join(out_dir, "large")})]
+    bad = request(sock, {"cmd": "sample", "n": 1})
+    check(not bad["ok"] and "out" in bad["error"], f"bad request: {bad}")
+    replies.append(request(sock, {"cmd": "sample", "n": BATCH,
+                                  "seed": seed, "out": first_dir}))
+    check(request(sock, {"cmd": "shutdown"})["ok"], "shutdown failed")
+    th.join(timeout=120)
+    check(not th.is_alive() and "error" not in box,
+          f"the server did not stop cleanly: {box.get('error')!r}")
+    n = all_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_b = [(BATCH, 1), (SERVE_LARGE, 2), (BATCH, 1)]
+    check(all(r["ok"] for r in replies)
+          and [(r["written"], r["batches"]) for r in replies] == want_b
+          and [r["request_id"] for r in replies] == [0, 1, 2],
+          f"sample replies: {replies}")
+    batches = 1 + sum(r["batches"] for r in replies)  # the warmup's too
+    want = FLAGSHIP.fwd_counts(SAMPLE_NFE * batches)
+    check(n == want, f"serve launched {n} for {batches} batches of "
+          f"{SAMPLE_NFE} NFE, expected {want}")
+    check(box["served"] == 7, f"the server counted {box['served']} requests")
+
+    def images(d, rid):
+        names = sorted(f for f in _pngs(d) if f.startswith(
+            f"output_tpu_{rid}_"))
+        return names, [np.asarray(Image.open(os.path.join(d, f)))
+                       for f in names]
+
+    sample_names, sampled = images(os.path.join(work, "sample", "images"), 0)
+    first_names, first = images(os.path.join(first_dir, "images"), 0)
+    again_names, again = images(os.path.join(first_dir, "images"), 2)
+    large, _ = images(os.path.join(out_dir, "large", "images"), 1)
+    check(len(large) == SERVE_LARGE, f"the large request wrote {len(large)}")
+    check(first_names == sample_names and len(first) == BATCH
+          and len(again) == BATCH, f"served {len(first)} and "
+          f"{len(again)} PNGs, [sample] {len(sampled)}")
+    gaps = []
+    for what, got in (("[sample]", first), ("the first request", again)):
+        want_imgs = sampled if what == "[sample]" else first
+        diff = [int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+                for a, b in zip(got, want_imgs)]
+        gaps.append(max(diff))
+        check(max(diff) == 0, f"served PNGs differ from {what}'s: "
+              f"{sum(d > 0 for d in diff)} of {len(diff)} images, up to "
+              f"{max(diff)} levels")
+    img_s = [r["img_per_s"] for r in replies]
+    traj_img_s = [r["written"] / r["trajectory_s"] for r in replies]
+    write_share = [r["write_s"] / r["elapsed_s"] for r in replies]
+    say(f"[serve] cli.serve of the converted flagship checkpoint, batch "
+        f"{BATCH}, {SAMPLE_NFE}-NFE EM (bf16 net, gn_bf16): up in "
+        f"{up_s:.2f} s, warmup (one batch) {warm_s:.2f} s; peak "
+        f"{peak_gb:.2f} GB allocated; {card}")
+    for what, r, tot, traj, share in zip(
+            ("first", "large", "repeat"), replies, img_s, traj_img_s,
+            write_share):
+        say(f"[serve] {what} request, {r['written']} img: {tot:.3f} img/s "
+            f"with writes ({r['elapsed_s']:.3f} s, PNG writes "
+            f"{r['write_s']:.3f} s = {share:.4f} of it), {traj:.3f} img/s "
+            f"in trajectories")
+    say(f"[serve] against [sample] in this call: with writes "
+        f"{img_s[0] / sampled_rates['img_s_written']:.3f} x "
+        f"({sampled_rates['img_s_written']:.3f} img/s), trajectories "
+        f"{traj_img_s[0] / sampled_rates['img_s']:.3f} x "
+        f"({sampled_rates['img_s']:.3f} img/s)")
+    say(f"[serve] the first request's {len(first)} PNGs equal [sample]'s "
+        f"bit for bit, the repeat's equal the first's (max gap "
+        f"{max(gaps)} levels); a bad request answered ok=false and the "
+        f"server went on; {box['served']} requests served")
+    say(f"[serve] kernel launches over {batches} batches: GN "
+        f"{n['group_norm_act']} ({FLAGSHIP.gn}/NFE), attention "
+        f"{n['attention']} ({FLAGSHIP.attn}/NFE)")
+    return n, {"warmup_s": warm_s, "img_s": img_s,
+               "trajectory_img_s": traj_img_s, "write_share": write_share}
+
+
 def combine(*timings) -> dict:
     """The timings of one path that launches a kernel at the shapes of
     two networks (guided sampling: the score network's and the
@@ -2411,9 +2637,10 @@ def combine(*timings) -> dict:
 
 
 # the paths the script drives, each with the batch its kernels run at
-PATHS = {"sample": BATCH, "train": TRAIN_BATCH, "train_clf": CLF_TRAIN_BATCH,
-         "guided": BATCH, "sscs": BATCH, "inpaint": BATCH, "edit": BATCH,
-         "pc": BATCH, "ode": BATCH, "cc_ode": BATCH, "likelihood": BATCH,
+PATHS = {"sample": BATCH, "serve": BATCH, "train": TRAIN_BATCH,
+         "train_clf": CLF_TRAIN_BATCH, "guided": BATCH, "sscs": BATCH,
+         "inpaint": BATCH, "edit": BATCH, "pc": BATCH, "ode": BATCH,
+         "cc_ode": BATCH, "likelihood": BATCH,
          "vp_train": TRAIN_BATCH, "vp_sample": BATCH, "vp_pc": BATCH,
          "vp_edit": BATCH, "vp_ode": BATCH, "vp_likelihood": BATCH,
          "sweep": BATCH, "bench": [BATCH, TRAIN_BATCH]}
@@ -2497,8 +2724,11 @@ def main() -> int:
     os.makedirs(work)
     # each path is driven with the counts set to 0 just before it
     ckpt, n_train, _ = phase_train(card, work)
-    n_sample, _ = phase_sample(card, work, ckpt)
+    n_sample, sample = phase_sample(card, work, ckpt)
     clf_ckpt, n_train_clf, _ = phase_train_clf(card, work)
+    # the reference's checkpoint format both ways, then serving
+    converted = phase_interop(card, work, ckpt, clf_ckpt)
+    n_serve, _ = phase_serve(card, work, converted, sample)
     n_guided, _ = phase_guided(card, work, ckpt, clf_ckpt)
     n_sscs, _ = phase_sscs(card, work, ckpt)
     n_inpaint = phase_inpaint(card, work, ckpt)
@@ -2526,7 +2756,7 @@ def main() -> int:
                           write_fake_inception(os.path.join(
                               work, "pt_inception-fake.pth")))
     n_bench, _ = phase_bench(card)
-    on_path = {"sample": n_sample, "train": n_train,
+    on_path = {"sample": n_sample, "serve": n_serve, "train": n_train,
                "train_clf": n_train_clf, "guided": n_guided,
                "sscs": n_sscs, "inpaint": n_inpaint, "edit": n_edit,
                "pc": n_pc, "ode": n_ode, "cc_ode": n_cc_ode,
@@ -2546,7 +2776,8 @@ def main() -> int:
     # numbers add one forward at each batch
     times = {
         "group_norm_act": {
-            "sample": gn["flagship64"], "train": gn["flagship128"],
+            "sample": gn["flagship64"], "serve": gn["flagship64"],
+            "train": gn["flagship128"],
             "train_clf": gn["clf32"],
             "guided": combine(gn["flagship64"], gn["clf64"]),
             "sscs": gn["flagship64"], "inpaint": gn["flagship64"],
@@ -2565,7 +2796,8 @@ def main() -> int:
             "vp_train": gn_bwd["vp128"], "vp_likelihood": gn_bwd["vp64_dx"],
             "bench": gn_bwd["flagship128"]},
         "attention": {
-            "sample": attn["flagship64"], "train": attn["flagship128"],
+            "sample": attn["flagship64"], "serve": attn["flagship64"],
+            "train": attn["flagship128"],
             "train_clf": attn["clf32"],
             "guided": combine(attn["flagship64"], attn["clf64"]),
             "sscs": attn["flagship64"], "inpaint": attn["flagship64"],

@@ -145,14 +145,17 @@ def _dataset_source(dataset, device, images_only: bool = False):
 
 
 def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
-                 prefix_at=None) -> list:
+                 prefix_at=None, n_samples=None, seed=None,
+                 rank: int = 0) -> list:
     """The batch loop: input batch, trajectory, write; returns one dict of
-    stats per batch (samples written, NFE, seconds, non-finite values;
-    the NFE is the grid's unless the sampler counts its own).
+    stats per batch (samples written, NFE, the trajectory's seconds with
+    its copy to the host, the write's seconds, non-finite values; the NFE
+    is the grid's unless the sampler counts its own).
     ``sampler_at(k)`` is batch k's sampler; ``batch_at(k, generator,
     width)`` its input (a prior draw, or dataset images); ``prefix_at(k)``,
     when given, its file-name prefix. An input that is a tuple (images
-    and masks) goes to the writer too."""
+    and masks) goes to the writer too. ``n_samples`` and ``seed`` default
+    to ``evaluation``'s; ``rank`` goes into the file names."""
     ecfg = config.evaluation
     denoise = bool(ecfg.denoise)
     n_steps = int(ecfg.n_discrete_steps)
@@ -161,8 +164,8 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
                         str(ecfg.stride_type))
     eps = float(ecfg.eval_eps)
     per_step = int(ecfg.batch_size)
-    n_samples = int(ecfg.n_samples)
-    seed = int(ecfg.seed)
+    n_samples = int(ecfg.n_samples if n_samples is None else n_samples)
+    seed = int(ecfg.seed if seed is None else seed)
     written, batches = 0, []
     for batch_idx in range(-(-n_samples // per_step)):
         take = min(per_step, n_samples - written)
@@ -180,11 +183,14 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
                  "nonfinite": int(out.size - np.isfinite(out).sum())}
         if prefix_at is not None:
             writer.sample_prefix = prefix_at(batch_idx)
+        t0 = time.perf_counter()
         if isinstance(z, tuple):
-            writer.write_batch(out, rank=0, batch_idx=batch_idx, batch=tuple(
-                b[:take].float().cpu().numpy() for b in z))
+            writer.write_batch(out, rank=rank, batch_idx=batch_idx,
+                               batch=tuple(b[:take].float().cpu().numpy()
+                                           for b in z))
         else:
-            writer.write_batch(out, rank=0, batch_idx=batch_idx)
+            writer.write_batch(out, rank=rank, batch_idx=batch_idx)
+        stats["write_seconds"] = time.perf_counter() - t0
         written += take
         batches.append(stats)
         logger.info("batch %(batch)d: %(samples)d samples, %(nfe)d NFE in "
@@ -192,14 +198,15 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
     return batches
 
 
-def _writer(config, cls=SimpleImageWriter, is_augmented=None):
-    """A ``cls`` writer from ``evaluation``; ``is_augmented`` defaults to
-    the SDE's."""
+def _writer(config, cls=SimpleImageWriter, is_augmented=None,
+            save_path=None):
+    """A ``cls`` writer from ``evaluation`` into ``save_path`` (default
+    ``evaluation.save_path``); ``is_augmented`` defaults to the SDE's."""
     ecfg = config.evaluation
     if is_augmented is None:
         is_augmented = bool(config.model.sde.get("is_augmented", True))
     return cls(
-        str(ecfg.save_path),
+        str(ecfg.save_path if save_path is None else save_path),
         sample_prefix=str(ecfg.sample_prefix),
         path_prefix=str(ecfg.path_prefix),
         save_mode=str(ecfg.save_mode),
@@ -208,13 +215,19 @@ def _writer(config, cls=SimpleImageWriter, is_augmented=None):
     )
 
 
-def sample(config, preloaded=None):
-    """Unconditional generation; ``preloaded`` is a score network with
-    its weights already in place (skips the checkpoint). Returns the
-    per-batch stats of ``_run_sampler``."""
+def build_unguided(config, preloaded=None):
+    """The set-up of unconditional sampling, shared by ``sample`` and
+    serving: the SDE, the ``evaluation.sampler`` (with its corrector) on
+    the score network from ``evaluation.chkpt_path`` (or ``preloaded``,
+    its weights in place) on ``evaluation.device``, the prior's batch
+    source and the device. A guided sampler, more than one device and a
+    missing card are refused before the checkpoint is read."""
     ecfg = config.evaluation
     _check_single_device(ecfg)
     device = torch.device(str(ecfg.get("device", "cuda")))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: set evaluation.device=cpu to "
+                           "sample on the CPU")
     sampler_cls = get_module("samplers", str(ecfg.sampler.name))
     if sampler_cls.guided:
         raise ValueError(f"evaluation.sampler.name={ecfg.sampler.name} is "
@@ -222,15 +235,23 @@ def sample(config, preloaded=None):
     sde = build_sde(config)
     net = preloaded if preloaded is not None else load_eval_state(config)
     net = net.eval().to(device)
-    writer = _writer(config)
+    score_fn = make_score_fn(net, bf16=eval_bf16(config))
+    sampler = sampler_cls(config, sde, score_fn, corrector_fn=(
+        build_corrector(config, sde, score_fn)))
+    return sde, sampler, _latent_source(sde, config, device), device
+
+
+def sample(config, preloaded=None):
+    """Unconditional generation; ``preloaded`` is a score network with
+    its weights already in place (skips the checkpoint). Returns the
+    per-batch stats of ``_run_sampler``."""
+    sde, sampler, batch_at, device = build_unguided(config, preloaded)
     with torch.inference_mode():
-        score_fn = make_score_fn(net, bf16=eval_bf16(config))
-        sampler = sampler_cls(config, sde, score_fn, corrector_fn=(
-            build_corrector(config, sde, score_fn)))
-        batches = _run_sampler(config, sde, lambda _: sampler, writer,
-                               _latent_source(sde, config, device), device)
+        batches = _run_sampler(config, sde, lambda _: sampler,
+                               _writer(config), batch_at, device)
     if isinstance(sampler, (BBODESampler, AdaptiveODESampler)) and batches:
-        logger.info("%s mean NFE: %.1f", ecfg.sampler.name, sampler.mean_nfe)
+        logger.info("%s mean NFE: %.1f", config.evaluation.sampler.name,
+                    sampler.mean_nfe)
     return batches
 
 
