@@ -138,18 +138,53 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     from it equal, no kernel of the port launched; Inception's images/s
     at batch 64.
 30. sweep: ``cli.sweep_fid_nfe`` of the VP-SDE checkpoint over em_sde and
-    ei_ode at 20 and 50 NFE, 64 samples a point, FID against the
+    ei_ode at 20 NFE, 64 samples a point, FID against the
     synthetic PNGs with a fake ``pt_inception`` checkpoint (random values
     from a numpy seed): every record has a finite ``fid`` and no
     ``quality_error``.
-31. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
+31. hires_gn, hires_gn_bwd, hires_attention, hires_dropout (after the
+    kernel phases 4-7): the same at the shapes of CelebA-HQ 256
+    (``celebahq256_psld``, 65,623,338 parameters) at its batch 8,
+    GroupNorm at up to 65,536 pixels, where the backward's plan holds
+    part of its rows in shared memory and reads the rest, and of AFHQv2
+    128 (``afhqv2128_psld``, 65,816,582 parameters) at its batch 32,
+    dropout at its rate 0.2.
+32. hires_check (after vp_check): one float32 training step of CelebA-HQ
+    256 at B=1 on the card against the CPU (train_check's tolerances),
+    the GN backward's partial residency in float32 too.
+33. celebahq_train: ``cli.train_sde`` of CelebA-HQ 256 at batch 8, bf16,
+    on a synthetic folder of 256 x 256 PNGs in its ``train/{male,female}``
+    layout, read through the native codec with ``prefetch`` 2, and with
+    ``profile_dir`` set: 4 profiled and 8 timed steps; one Chrome trace,
+    holding the GroupNorm forwards of the 4 profiled steps and no more,
+    and the StepTimer's ``data`` share.
+34. resume: the same entry point in a process of its own, for 2 epochs
+    with ``auto_resume=true``, gets SIGTERM after its first logged step,
+    exits 0 and leaves a checkpoint marked incomplete; the same command
+    again resumes at that checkpoint's step, replays its epoch and ends
+    at the run's last step.
+35. celebahq_sample: ``cli.sample`` of that checkpoint, batch 8, 20-NFE
+    EM, bf16: 256 x 256 PNGs.
+36. afhq_train: ``cli.train_sde`` of AFHQv2 128 at batch 32, bf16, hash
+    dropout 0.2, on a synthetic ``train/{cat,dog,wild}`` folder of 128 x
+    128 PNGs: 2 warm-up and 6 timed steps.
+37. async_ckpt: the flagship's train state saved by ``save_checkpoint``
+    against ``AsyncSaver.save()``'s return time, twice (pinned buffers
+    allocated, then reused), a training step at batch 128 after each,
+    each file bit-equal to the state at its ``save()``.
+38. fanout: ``cli.sample`` of the flagship's train checkpoint as rank 0
+    and then rank 1 of ``num_processes=2``, ``n_samples`` 64, batch 64,
+    20-NFE EM: 64 PNGs named by rank, the ranks' images apart.
+39. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
     width with 100 NFE (its default is 1000) and its train phase; its line
     is printed after ``[bench] line:``, its img/s and MFU shares must be
     positive, the shares at most 1.05.
 
 Every path (train, sample, train_clf, interop, serve, guided, sscs,
 inpaint, edit, pc, ode, cc_ode, likelihood, vp_train, vp_sample, vp_pc,
-vp_edit, vp_ode, vp_likelihood, fid, sweep, bench) is driven with the
+vp_edit, vp_ode, vp_likelihood, fid, sweep, bench, celebahq_train,
+resume, celebahq_sample, afhq_train, async_ckpt, fanout; resume counts
+in its two processes, which print their launches) is driven with the
 kernels' launch counts set to 0 just before it and must launch exactly
 the kernels its network calls, as many times as its forwards and steps
 need (interop and fid: none).
@@ -166,6 +201,7 @@ Without a CUDA device the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import ast
 import json
 import math
 import os
@@ -251,6 +287,42 @@ VP_ARGS = ["+dataset=cifar10/cifar10_vpsde",
 # the sweep's NFEs (each sampler at each) and samples a point
 SWEEP_NFES = (20, 50)
 
+# CelebA-HQ 256 (celebahq256_psld.yaml at full width: nf 128, ch_mult
+# [1,1,2,2,2,2,2], 2 BigGAN blocks a level, attention at 16^2, Fourier
+# embedding, FIR, output_skip / input_skip, no dropout, 6 channels;
+# 65,623,338 parameters) and AFHQv2 128 (afhqv2128_psld.yaml: nf 128,
+# ch_mult [1,2,2,2,3], 2 blocks a level, attention at 16^2, positional
+# embedding, dropout 0.2, 6 channels; 65,816,582 parameters): the (H*W,
+# C, calls per forward) of every GroupNorm and attention, and the (H*W,
+# C, sites) of AFHQ's dropout, as a forward of each network calls them
+HQ_GN_CALLS = [(65536, 128, 10), (65536, 256, 3), (16384, 128, 11),
+               (16384, 256, 3), (16384, 384, 1), (4096, 128, 2),
+               (4096, 256, 10), (4096, 384, 1), (4096, 512, 2),
+               (1024, 256, 12), (1024, 512, 3), (256, 256, 15),
+               (256, 512, 3), (64, 256, 12), (64, 512, 3), (16, 256, 15),
+               (16, 512, 3)]
+HQ_ATTN_CALLS = [(256, 256, 3), (16, 256, 1)]
+AFHQ_GN_CALLS = [(16384, 128, 9), (16384, 256, 3), (16384, 384, 1),
+                 (4096, 128, 2), (4096, 256, 9), (4096, 384, 1),
+                 (4096, 512, 2), (1024, 256, 11), (1024, 512, 3),
+                 (256, 256, 13), (256, 384, 1), (256, 512, 2),
+                 (256, 640, 1), (64, 256, 2), (64, 384, 12), (64, 640, 1),
+                 (64, 768, 2)]
+AFHQ_ATTN_CALLS = [(256, 256, 3), (64, 384, 1)]
+AFHQ_DROPOUT_CALLS = [(16384, 128, 5), (16384, 256, 1), (4096, 128, 1),
+                      (4096, 256, 6), (1024, 256, 7), (256, 256, 6),
+                      (256, 384, 1), (64, 256, 1), (64, 384, 7)]
+AFHQ_RATE = 0.2
+HQ_BATCH, AFHQ_BATCH = 8, 32  # the configs' training and sampling batches
+HQ_PARAMS, AFHQ_PARAMS = 65_623_338, 65_816_582
+HQ_SAMPLE_NFE = FANOUT_NFE = 20
+HQ_TIMED, AFHQ_TIMED = 8, 6  # timed steps after the warm-up ones
+HQ_ARGS = ["+dataset=celebahq/celebahq256_psld",
+           "+dataset.diffusion.model.score_fn.gn_bf16=True"]
+AFHQ_ARGS = ["+dataset=afhqv2/afhqv2128_psld",
+             "+dataset.diffusion.model.score_fn.gn_bf16=True",
+             "+dataset.diffusion.model.score_fn.dropout_impl=hw"]
+
 # the flagship option set of the bench (psld_tpu/eval/bench.py's), at
 # its full width, with gn_bf16 and the sampling SDE
 FLAGSHIP_ARGS = bench.FLAGSHIP_ARGS + [
@@ -300,6 +372,9 @@ FLAGSHIP = Net("flagship", FLAGSHIP_ARGS, 6, GN_CALLS, ATTN_CALLS,
 CLF = Net("classifier", FLAGSHIP_ARGS + CLF_ARGS, 6, CLF_GN_CALLS,
           CLF_ATTN_CALLS, CLF_DROPOUT_CALLS)
 VP = Net("VP-SDE", VP_ARGS, 3, VP_GN_CALLS, VP_ATTN_CALLS, VP_DROPOUT_CALLS)
+HQ = Net("CelebA-HQ 256", HQ_ARGS, 6, HQ_GN_CALLS, HQ_ATTN_CALLS, [])
+AFHQ = Net("AFHQv2 128", AFHQ_ARGS, 6, AFHQ_GN_CALLS, AFHQ_ATTN_CALLS,
+           AFHQ_DROPOUT_CALLS)
 
 
 class SmokeFailure(RuntimeError):
@@ -445,7 +520,7 @@ def phase_build():
 GN_BF16_EQUAL = 0.99
 
 
-def phase_gn(card, batch, calls=GN_CALLS, net="flagship"):
+def phase_gn(card, batch, calls=GN_CALLS, net="flagship", tag="gn"):
     """The forward kernel against its plain version at the (H*W, C)
     shapes of one ``net`` forward (``calls``) at ``batch``: f32 and bf16
     within tolerance, bf16 under gn_bf16 also bit-equal on at least
@@ -509,22 +584,22 @@ def phase_gn(card, batch, calls=GN_CALLS, net="flagship"):
                      n_bytes / 1e9 / (k_ms / 1e3),
                      bound(n_bytes, 12 * x.numel(), SCALAR_OPS)[0] / k_ms))
     os.environ.pop("PSLD_GN_BF16")
-    say(f"[gn] CUDA kernel == plain at all {len(calls)} {net} shapes, "
+    say(f"[{tag}] CUDA kernel == plain at all {len(calls)} {net} shapes, "
         f"B={batch}"
         f" (f32 tol 1e-5; bf16 tol 1e-2; bf16+gn_bf16 tol 1e-2 and >= "
         f"{GN_BF16_EQUAL} bit-equal) in "
         f"{time.perf_counter() - t0:.1f} s; max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f"; bf16+gn_bf16 bit-equal share at least {equal:.5f}")
-    say(f"[gn] device times (CUDA-graph replay; eager = called one by one, "
+    say(f"[{tag}] device times (CUDA-graph replay; eager = called one by one, "
         f"the host's launch cost included): bf16 swish, B={batch}, {card}")
     for hw, c, n_calls, k_ms, e_ms, p_ms, l_ms, gbps, share in rows:
-        say(f"[gn]   HW={hw:5d} C={c:3d} x{n_calls:2d}/fwd: kernel "
+        say(f"[{tag}]   HW={hw:5d} C={c:3d} x{n_calls:2d}/fwd: kernel "
             f"{k_ms:.4f} ms"
             f" ({gbps:.0f} GB/s read+write, {share:.2f} of its bound; "
             f"eager {e_ms:.4f} ms), plain "
             f"{p_ms:.4f} ms, F.group_norm+F.silu {l_ms:.4f} ms")
-    say(f"[gn]   per {net} forward at B={batch} "
+    say(f"[{tag}]   per {net} forward at B={batch} "
         f"({sum(n for _, _, n in calls)} calls): kernel "
         f"{kernel_fwd:.3f} ms (eager {eager_fwd:.3f} ms), bound "
         f"{total['bound_ms']:.3f} ms, plain {plain_fwd:.3f} ms, "
@@ -535,7 +610,7 @@ def phase_gn(card, batch, calls=GN_CALLS, net="flagship"):
 
 
 def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship",
-                 need_params=True):
+                 need_params=True, tag="gn_bwd"):
     """dx, dscale, dbias of the backward kernel against autograd through
     the plain version, at the (H*W, C) shapes of one ``net`` backward
     (``calls``) at ``batch``; with ``need_params=False`` the input-only
@@ -661,7 +736,7 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship",
     os.environ.pop("PSLD_GN_BF16")
     mode = "dx, dscale, dbias" if need_params else \
         "input-only mode (dx alone, need_params=False)"
-    say(f"[gn_bwd] CUDA C++ backward kernel, {mode}, == autograd through "
+    say(f"[{tag}] CUDA C++ backward kernel, {mode}, == autograd through "
         f"plain at all {len(calls)} {net} shapes, B={batch} (of each "
         f"gradient's scale: "
         f"f32 "
@@ -670,15 +745,15 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship",
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + "; max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in abs_errs.items()))
-    say(f"[gn_bwd] device times (CUDA-graph replay; eager = called one by "
+    say(f"[{tag}] device times (CUDA-graph replay; eager = called one by "
         f"one): bf16 swish, {mode}, B={batch}, {card}")
     for hw, c, n_calls, k_ms, e_ms, p_ms, l_ms, tbps, tflops in rows:
-        say(f"[gn_bwd]   HW={hw:5d} C={c:3d} x{n_calls:2d}/bwd: kernel "
+        say(f"[{tag}]   HW={hw:5d} C={c:3d} x{n_calls:2d}/bwd: kernel "
             f"{k_ms:.4f} ms ({tbps:.3f} TB/s of x, g, dx; {tflops:.2f} "
             f"TFLOP/s f32 at ~30 a value; eager {e_ms:.4f} "
             f"ms), plain autograd {p_ms:.4f} ms, F.group_norm+F.silu "
             f"backward {l_ms:.4f} ms")
-    say(f"[gn_bwd]   per {net} backward at B={batch} "
+    say(f"[{tag}]   per {net} backward at B={batch} "
         f"({sum(n for _, _, n in calls)} calls): kernel "
         f"{kernel_bwd:.3f} ms (eager {eager_bwd:.3f} ms), bound "
         f"{total['bound_ms']:.3f} ms, plain {plain_bwd:.3f} ms, library "
@@ -690,7 +765,7 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship",
 
 
 def phase_dropout(card, batch=TRAIN_BATCH, calls=DROPOUT_CALLS,
-                  net="flagship", rate=0.15):
+                  net="flagship", rate=0.15, tag="dropout"):
     """The hash dropout kernel against its plain version, bit for bit, at
     the (H*W, C) shapes of ``net``'s dropout sites (``calls``) at
     ``batch``, at ``net``'s ``rate`` (timed) and 0.5."""
@@ -754,17 +829,17 @@ def phase_dropout(card, batch=TRAIN_BATCH, calls=DROPOUT_CALLS,
     worst = max(worst, max_err(got, want))
     check(torch.equal(got, want),
           "dropout: odd size, 4-word seed: kernel != plain")
-    say(f"[dropout] Triton kernel == plain bit for bit in {n_cases + 1} cases"
+    say(f"[{tag}] Triton kernel == plain bit for bit in {n_cases + 1} cases"
         f" (f32 and bf16, rates {rate} and 0.5, an offset, an odd size), "
         f"{net} shapes, B={batch}; kept share within 4 sigma; backward "
         f"re-masks")
-    say(f"[dropout] device times (CUDA-graph replay; eager = called one by "
+    say(f"[{tag}] device times (CUDA-graph replay; eager = called one by "
         f"one): bf16, rate {rate}, {card}")
     for hw, c, n_calls, k_ms, e_ms, p_ms, l_ms, gbps in rows:
-        say(f"[dropout]   HW={hw:5d} C={c} x{n_calls} sites: kernel {k_ms:.4f}"
+        say(f"[{tag}]   HW={hw:5d} C={c} x{n_calls} sites: kernel {k_ms:.4f}"
             f" ms ({gbps:.0f} GB/s read+write; eager {e_ms:.4f} ms), plain "
             f"{p_ms:.4f} ms, F.dropout {l_ms:.4f} ms")
-    say(f"[dropout]   per {net} step at B={batch} "
+    say(f"[{tag}]   per {net} step at B={batch} "
         f"({2 * sum(n for _, _, n in calls)} launches): "
         f"kernel {kernel_step:.3f} ms (eager {eager_step:.3f} ms), bound "
         f"{total['bound_ms']:.3f} ms, plain {plain_step:.3f} ms, F.dropout "
@@ -774,7 +849,8 @@ def phase_dropout(card, batch=TRAIN_BATCH, calls=DROPOUT_CALLS,
             "library_ms": lib_step}
 
 
-def phase_attention(card, batch, calls=ATTN_CALLS, net="flagship"):
+def phase_attention(card, batch, calls=ATTN_CALLS, net="flagship",
+                    tag="attention"):
     """The kernel against its plain version at the (N, C) shapes of one
     ``net`` forward (``calls``) at ``batch``."""
     from psld_tpu_torch.ops import attention, attention_plain
@@ -814,18 +890,18 @@ def phase_attention(card, batch, calls=ATTN_CALLS, net="flagship"):
         rows.append((n, c, n_calls, k_ms, e_ms, p_ms, l_ms,
                      flops / (k_ms / 1e3) / 1e12,
                      4 * q.numel() * q.element_size() / 1e12 / (k_ms / 1e3)))
-    say(f"[attention] CUDA kernel == plain at {len(calls)} {net} shapes, "
+    say(f"[{tag}] CUDA kernel == plain at {len(calls)} {net} shapes, "
         f"B={batch} (f32 tol 1e-5; bf16 tol 1e-2); max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-    say(f"[attention] device times (CUDA-graph replay; eager = called one "
+    say(f"[{tag}] device times (CUDA-graph replay; eager = called one "
         f"by one): bf16, B={batch}, {card}")
     for n, c, n_calls, k_ms, e_ms, p_ms, l_ms, tflops, tbps in rows:
-        say(f"[attention]   N={n:3d} C={c} x{n_calls}/fwd: kernel "
+        say(f"[{tag}]   N={n:3d} C={c} x{n_calls}/fwd: kernel "
             f"{k_ms:.4f} ms "
             f"({tflops:.1f} TFLOP/s of 4*N*N*C a batch element, {tbps:.3f} "
             f"TB/s of q, k, v, o; eager {e_ms:.4f} ms), plain {p_ms:.4f} "
             f"ms, F.scaled_dot_product_attention {l_ms:.4f} ms")
-    say(f"[attention]   per {net} forward at B={batch} "
+    say(f"[{tag}]   per {net} forward at B={batch} "
         f"({sum(n for _, _, n in calls)} calls): kernel "
         f"{kernel_fwd:.3f} ms (eager {eager_fwd:.3f} ms), bound "
         f"{total['bound_ms']:.3f} ms, plain {plain_fwd:.3f} ms, "
@@ -1043,10 +1119,10 @@ GUIDED_NFE_COUNTS = expected(group_norm_act=FLAGSHIP.gn + CLF.gn,
 
 
 def phase_train_check(card, weights, net=FLAGSHIP, tag="train_check",
-                      seed: int = 5):
-    """One float32 optimizer step of ``net`` at B=2, with its config's
-    hash dropout, on the card against the CPU, with the same t, eps and
-    seed words. The first step's learning rate is 0 (warmup), so the
+                      seed: int = 5, batch: int = 2, extra=()):
+    """One float32 optimizer step of ``net`` at ``batch`` (2 or 1), with
+    its config's hash dropout (``extra``: more config arguments), on the
+    card against the CPU, with the same t, eps and seed words. The first step's learning rate is 0 (warmup), so the
     weights stay and Adam's first moment is (1 - beta_1) times the
     clipped gradient: it holds every parameter's gradient. Tolerances:
     the loss within 1e-4 relative, the gradient norm within 1e-3, each
@@ -1060,16 +1136,17 @@ def phase_train_check(card, weights, net=FLAGSHIP, tag="train_check",
 
     t0 = time.perf_counter()
     cfg = bootstrap(net.args + [
-        "+dataset.diffusion.model.score_fn.dropout_impl=hw"
+        "+dataset.diffusion.model.score_fn.dropout_impl=hw", *extra
     ]).dataset.diffusion
     rate = float(cfg.model.score_fn.dropout)
+    size = int(cfg.data.image_size)
     set_gn_bf16(False)
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.uniform(-1, 1, (2, 32, 32, 3)).astype(
+    x = torch.from_numpy(rng.uniform(-1, 1, (batch, size, size, 3)).astype(
         np.float32))
-    t = torch.tensor([0.3, 0.7], dtype=torch.float64)
+    t = torch.tensor([0.3, 0.7], dtype=torch.float64)[:batch]
     eps = torch.from_numpy(rng.standard_normal(
-        (2, 32, 32, net.channels)).astype(np.float32))
+        (batch, size, size, net.channels)).astype(np.float32))
     seeds = [tuple(int(w) for w in row)
              for row in rng.integers(0, 2 ** 32, (net.dropout_sites, 2))]
     want_n = net.step_counts()
@@ -1101,8 +1178,8 @@ def phase_train_check(card, weights, net=FLAGSHIP, tag="train_check",
           f"{tag}: grad_norm {g_g} on the card, {g_c} on the CPU")
     worst, worst_key = _mu_close(mu_g, mu_c, tag)
     n_params = sum(v.numel() for v in mu_c.values())
-    say(f"[{tag}] {net.name} {n_params} params, f32 step at B=2, hash "
-        f"dropout {rate}: card == CPU (loss {l_g:.7f} vs {l_c:.7f}, tol "
+    say(f"[{tag}] {net.name} {n_params} params, f32 step at B={batch}, "
+        f"{size} x {size}, hash dropout {rate}: card == CPU (loss {l_g:.7f} vs {l_c:.7f}, tol "
         f"1e-4 relative; grad_norm {g_g:.6f} vs {g_c:.6f}; worst parameter "
         f"gradient {worst:.2e} of its scale, {worst_key}; tol 1e-3); one "
         f"step launched {want_n}; phase {time.perf_counter() - t0:.1f} s")
@@ -2617,6 +2694,479 @@ def _serve(card, work, ckpt, sampled_rates, sock):
                "trajectory_img_s": traj_img_s, "write_share": write_share}
 
 
+def phase_hires_check(card):
+    """One float32 training step of CelebA-HQ 256 at B=1 on the card
+    against the CPU (``phase_train_check``'s tolerances): GroupNorm at
+    65,536 pixels in float32, where the backward's plan reads part of its
+    rows from device memory."""
+    from psld_tpu_torch.ops.group_norm import plan_backward
+
+    plans = {dt: plan_backward(65536, 128, 32, dt)
+             for dt in (torch.float32, torch.bfloat16)}
+    for dt, plan in plans.items():
+        rows = -(-65536 // plan["cluster"])
+        check(plan["resident"] < rows, f"hires_check: the {dt} backward plan"
+              f" {plan} holds every row")
+        say(f"[hires_check] GN backward plan at 65,536 pixels, C=128, "
+            f"{str(dt)[6:]}: cluster {plan['cluster']}, {plan['resident']} "
+            f"of {rows} rows a block resident, {plan['smem']} bytes")
+    phase_train_check(card, hq_weights(HQ, 51), HQ, "hires_check", seed=52,
+                      batch=1, extra=["dataset.diffusion.data.root=/unused"])
+
+
+def hq_weights(net_desc, seed: int) -> dict:
+    """A network's weights, N(0, 1) * 0.02 from a numpy seed, checked
+    against its published parameter count."""
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.eval.generate import build_score_model
+
+    cfg = bootstrap(net_desc.args).dataset.diffusion
+    with torch.device("meta"):
+        net = build_score_model(cfg)
+    n_params = sum(p.numel() for p in net.parameters())
+    want = HQ_PARAMS if net_desc is HQ else AFHQ_PARAMS
+    check(n_params == want, f"{net_desc.name} has {n_params} params")
+    return flagship_weights(net, seed=seed)
+
+
+def write_folder(root, subdirs, per_dir: int, size: int, seed: int) -> int:
+    """Synthetic images (``SyntheticDataset``'s blobs, numpy seed) as
+    PNGs at ``size`` into each of ``subdirs`` under ``root``, through the
+    native codec; returns how many were written."""
+    from psld_tpu_torch import native
+    from psld_tpu_torch.data.datasets import SyntheticDataset
+
+    for i, sub in enumerate(subdirs):
+        d = os.path.join(root, sub)
+        os.makedirs(d, exist_ok=True)
+        imgs = SyntheticDataset(None, image_size=size, n=per_dir,
+                                seed=seed + i).images
+        native.write_png_batch(imgs, os.path.join(d, "img"))
+    return per_dir * len(subdirs)
+
+
+HQ_SUBDIRS = ("train/male", "train/female")
+AFHQ_SUBDIRS = ("train/cat", "train/dog", "train/wild")
+PROFILE_STEPS = 4
+
+
+class LogLines:
+    """Captures the messages of one logger while it is installed."""
+
+    def __init__(self, name: str):
+        import logging
+
+        self.lines, self.logger = [], logging.getLogger(name)
+        self.handler = logging.Handler()
+        self.handler.emit = lambda r: self.lines.append(r.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def _folder_train_args(net, root, results, batch, epochs, log_step):
+    return net.args + [
+        f"dataset.diffusion.data.root={root}",
+        f"dataset.diffusion.training.results_dir={results}",
+        f"dataset.diffusion.training.batch_size={batch}",
+        f"dataset.diffusion.training.epochs={epochs}",
+        f"dataset.diffusion.training.chkpt_interval={epochs}",
+        f"dataset.diffusion.training.log_step={log_step}",
+        "+dataset.diffusion.training.bf16=True",
+        "+dataset.diffusion.training.device=cuda",
+    ]
+
+
+def phase_folder_train(card, work, net, subdirs, size, batch, warmup, timed,
+                       tag, what, profile: bool = False):
+    """``cli.train_sde`` of ``net`` at its config's batch on a synthetic
+    image folder of its dataset's layout (``warmup + timed`` images a
+    batch, one epoch), read through the native codec with ``prefetch``
+    2; with ``profile``, ``profile_dir`` set and ``profile_steps``
+    ``PROFILE_STEPS`` (the warm-up steps): one Chrome trace holding those
+    steps' kernels alone. Returns the checkpoint, the launches and the
+    times."""
+    from psld_tpu_torch.cli import train_sde as train_cli
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.data.loader import get_dataset
+    from psld_tpu_torch.train.checkpoint import latest_checkpoint
+
+    root = os.path.join(work, f"{tag}_data")
+    n_steps = warmup + timed
+    t0 = time.perf_counter()
+    n_imgs = write_folder(root, subdirs, -(-n_steps * batch // len(subdirs)),
+                          size, seed=61)
+    write_s = time.perf_counter() - t0
+    results = os.path.join(work, tag)
+    trace_dir = os.path.join(work, f"{tag}_trace")
+    args = _folder_train_args(net, root, results, batch, 1, n_steps) + [
+        "+dataset.diffusion.training.prefetch=2"]
+    if profile:
+        args += [f"+dataset.diffusion.training.profile_dir={trace_dir}",
+                 f"+dataset.diffusion.training.profile_steps={PROFILE_STEPS}"]
+    dataset = get_dataset(bootstrap(args).dataset.diffusion)
+    check(len(dataset) == n_imgs and dataset.native,
+          f"{tag}: the folder of {n_imgs} PNGs did not take the native "
+          "codec")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with LogLines("psld_tpu_torch.train.loop") as lines:
+        state, stats = train_cli.main(args)
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(stats) == n_steps and state.step == n_steps,
+          f"{tag} took {len(stats)} steps")
+    want = net.step_counts(n_steps)
+    check(n == want, f"{tag}: training launched {n}, expected {want}")
+    losses = [r["loss"] for r in stats]
+    check(all(np.isfinite(v) for v in losses)
+          and all(np.isfinite(r["grad_norm"]) for r in stats),
+          f"{tag}: non-finite loss or gradient norm: {losses}")
+    for tree in (state.params, state.ema_params):
+        check(all(bool(torch.isfinite(v).all()) for v in tree.values()),
+              f"{tag}: non-finite parameters")
+    ckpt = latest_checkpoint(os.path.join(results, "checkpoints"))
+    check(ckpt is not None and os.path.exists(ckpt + ".meta.json"),
+          f"{tag} wrote no checkpoint")
+    timing = [line for line in lines if line.startswith("timing: ")]
+    check(len(timing) == 1, f"{tag}: no StepTimer summary in the log")
+    summary = ast.literal_eval(timing[0][len("timing: "):])
+    total = sum(v["total_s"] for v in summary.values())
+    data_share = summary["data"]["total_s"] / total
+    timed_ms = [r["ms"] for r in stats[warmup:]]
+    ms_step = float(np.mean(timed_ms))
+    img_s = batch / (ms_step / 1e3)
+    say(f"[{tag}] cli.train_sde: {n_steps} steps of the {net.name} at batch "
+        f"{batch} (bf16 compute, f32 master weights, {what}) on {n_imgs} "
+        f"synthetic {size} x {size} PNGs (native codec, prefetch 2; written "
+        f"in {write_s:.2f} s): {ms_step:.2f} ms/step over the last {timed} "
+        f"(min {min(timed_ms):.2f}, max {max(timed_ms):.2f}), {img_s:.2f} "
+        f"img/s, peak {peak_gb:.2f} GB allocated; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; entry point {wall:.1f} s; {card}")
+    say(f"[{tag}] StepTimer: " + ", ".join(
+        f"{k} {v['total_s']:.3f} s / {v['count']}" for k, v in
+        summary.items()) + f"; data share {data_share:.4f}")
+    say(f"[{tag}] kernel launches in the run: {n}")
+    out = {"ms_step": ms_step, "img_s": img_s, "peak_gb": peak_gb,
+           "data_share": data_share}
+    if profile:
+        files = os.listdir(trace_dir) if os.path.isdir(trace_dir) else []
+        check(len(files) == 1, f"{tag}: {len(files)} trace files in "
+              f"profile_dir")
+        path = os.path.join(trace_dir, files[0])
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        gn_fwd = sum(1 for e in kernels if "gn_fwd" in e.get("name", ""))
+        check(gn_fwd == PROFILE_STEPS * net.gn,
+              f"{tag}: the trace holds {gn_fwd} GroupNorm forward kernels, "
+              f"not the {PROFILE_STEPS} x {net.gn} of {PROFILE_STEPS} steps")
+        say(f"[{tag}] trace {os.path.basename(path)} "
+            f"({os.path.getsize(path) / 1e6:.1f} MB): {len(kernels)} kernel "
+            f"events, {gn_fwd} GroupNorm forwards = {PROFILE_STEPS} steps x "
+            f"{net.gn}")
+        out["trace_kernels"] = len(kernels)
+    del state
+    torch.cuda.empty_cache()
+    return ckpt, n, out
+
+
+_RESUME_DRIVER = """
+import json, sys
+from psld_tpu_torch import ops
+from psld_tpu_torch.cli import train_sde
+state, stats = train_sde.main(sys.argv[1:])
+print("RESUME " + json.dumps({
+    "step": state.step, "rows": [[r["step"], r["epoch"]] for r in stats],
+    "launches": {k: getattr(ops, f).launches for k, f in (
+        ("group_norm_act", "group_norm_act"),
+        ("group_norm_act_bwd", "group_norm_act_backward"),
+        ("attention", "attention"), ("hash_dropout", "hash_dropout"),
+        ("fused_leaky_relu", "fused_leaky_relu"),
+        ("fused_leaky_relu_bwd", "fused_leaky_relu_backward"))}}),
+      flush=True)
+"""
+
+
+def phase_resume(card, work, net=HQ, tag="resume"):
+    """A process of ``cli.train_sde`` (CelebA-HQ 256 at batch 8 on the
+    ``celebahq_train`` folder, 2 epochs, ``auto_resume=true``) gets
+    SIGTERM after its first logged step: it must exit 0 and leave a
+    checkpoint marked incomplete. The same command, started again,
+    resumes at that checkpoint's step and replays its epoch, then runs
+    to its end. Each process prints its launches and rows."""
+    import signal
+
+    from psld_tpu_torch.train.checkpoint import latest_checkpoint
+
+    root = os.path.join(work, "celebahq_train_data")
+    results = os.path.join(work, tag)
+    per_epoch = len([f for sub in HQ_SUBDIRS
+                     for f in os.listdir(os.path.join(root, sub))]) \
+        // HQ_BATCH
+    args = _folder_train_args(net, root, results, HQ_BATCH, 2, 1) + [
+        "+dataset.diffusion.training.auto_resume=true"]
+    cmd = [sys.executable, "-c", _RESUME_DRIVER, *args]
+    env = {**os.environ, "PYTHONPATH": REPO}
+
+    def run(kill: bool):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        waited = None
+        try:
+            if kill:
+                metrics = os.path.join(results, "metrics.jsonl")
+                deadline = time.time() + 300
+                while time.time() < deadline and proc.poll() is None:
+                    if os.path.exists(metrics) and any(
+                            '"step"' in line for line in open(metrics)):
+                        break
+                    time.sleep(0.05)
+                check(proc.poll() is None, f"{tag}: the run ended before "
+                      "its first logged step")
+                waited = time.perf_counter() - t0
+                proc.send_signal(signal.SIGTERM)
+            out, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(proc.returncode == 0, f"{tag}: exit {proc.returncode}:\n"
+              + out[-3000:])
+        line = [x for x in out.splitlines() if x.startswith("RESUME ")]
+        check(len(line) == 1, f"{tag}: no result line:\n{out[-3000:]}")
+        return json.loads(line[0][len("RESUME "):]), \
+            time.perf_counter() - t0, waited
+
+    first, first_s, waited = run(kill=True)
+    ckpt = latest_checkpoint(os.path.join(results, "checkpoints"))
+    check(ckpt is not None, f"{tag}: no checkpoint after SIGTERM")
+    with open(ckpt + ".meta.json") as f:
+        meta = json.load(f)
+    saved_step = int(torch.load(ckpt, map_location="cpu",
+                                weights_only=True)["step"])
+    check(meta["complete"] is False and saved_step == first["step"]
+          and 1 <= saved_step < 2 * per_epoch,
+          f"{tag}: after SIGTERM at step {first['step']} the checkpoint "
+          f"holds step {saved_step}, meta {meta}")
+    second, second_s, _ = run(kill=False)
+    epoch = int(meta["epoch"])
+    rows = second["rows"]
+    want_steps = saved_step + (2 - epoch) * per_epoch
+    check(rows[0] == [saved_step + 1, epoch] and second["step"] == want_steps
+          and len(rows) == (2 - epoch) * per_epoch,
+          f"{tag}: the relaunch began at {rows[0]} and ended at step "
+          f"{second['step']}; expected step {saved_step + 1} of epoch "
+          f"{epoch}, ending at {want_steps}")
+    n = {k: first["launches"][k] + second["launches"][k]
+         for k in first["launches"]}
+    want = net.step_counts(first["step"] + len(rows))
+    check(n == want, f"{tag}: the two runs launched {n}, expected {want}")
+    say(f"[{tag}] cli.train_sde of the {net.name} in a process: SIGTERM "
+        f"after its first logged step ({waited:.1f} s after start) -> exit "
+        f"0 in {first_s:.1f} s at step {saved_step}, checkpoint "
+        f"{os.path.basename(ckpt)} marked incomplete (epoch {epoch}); the "
+        f"same command again (auto_resume=true) resumed at step "
+        f"{saved_step + 1} of epoch {epoch} and ended at step "
+        f"{second['step']} ({second_s:.1f} s); launches {n}")
+    return n
+
+
+def phase_async_ckpt(card, work, tag="async_ckpt"):
+    """The flagship's train state (97.6M parameters: params, EMA, two Adam
+    moments, 1.562 GB) on the card: ``save_checkpoint`` (synchronous)
+    against ``AsyncSaver.save()``'s return time, twice (the first save
+    allocates the pinned buffers, the second reuses them), with a
+    training step at batch 128 after each ``save()`` that changes every
+    tensor in place; the time of each write behind it; each file read back
+    bit-equal to the state at its ``save()``."""
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.registry import get_module
+    from psld_tpu_torch.train import checkpoint as ckpt
+    from psld_tpu_torch.train.loop import build_score_model, build_sde
+    from psld_tpu_torch.train.state import init_state
+    from psld_tpu_torch.train.steps import StepRandom, make_train_step
+
+    cfg = bootstrap(FLAGSHIP.args + TRAIN_ARGS + [
+        "dataset.diffusion.training.results_dir=/unused"]).dataset.diffusion
+    net = build_score_model(cfg)
+    net.load_state_dict(flagship_weights(net, seed=71), strict=True)
+    net.cuda()
+    sde = build_sde(cfg)
+    crit = get_module("losses", cfg.training.loss.name)(cfg, sde)
+    step, opt = make_train_step(net, sde, crit, cfg)
+    state = init_state(dict(net.named_parameters()), opt)
+    rng = StepRandom(72, "cuda")
+    x = torch.rand(TRAIN_BATCH, 32, 32, 3, device="cuda") * 2 - 1
+    state, _ = step(state, x, rng)  # non-zero moments
+    torch.cuda.synchronize()
+    out_dir = os.path.join(work, tag)
+
+    def snapshot():
+        return {name: {k: v.detach().cpu().clone() for k, v in tree.items()}
+                for name, tree in (("params", state.params),
+                                   ("ema_params", state.ema_params),
+                                   ("mu", state.opt_state["mu"]),
+                                   ("nu", state.opt_state["nu"]))}
+
+    t0 = time.perf_counter()
+    sync_path = ckpt.save_checkpoint(out_dir, "sync", state)
+    sync_s = time.perf_counter() - t0
+    size_gb = os.path.getsize(sync_path) / 1e9
+    writes = []
+    real_write = ckpt._write
+
+    def timed_write(path, payload):
+        t = time.perf_counter()
+        real_write(path, payload)
+        writes.append(time.perf_counter() - t)
+
+    ckpt._write = timed_write
+    returns = []
+    reset_counts()
+    try:
+        with ckpt.AsyncSaver() as saver:
+            for i in range(2):
+                want, step_no = snapshot(), state.step
+                t0 = time.perf_counter()
+                path = saver.save(out_dir, f"async{i}", state)
+                returns.append(time.perf_counter() - t0)
+                state, _ = step(state, x, rng)  # changes every tensor
+                torch.cuda.synchronize()
+                saver.wait()
+                raw = torch.load(path, map_location="cpu", weights_only=True)
+                check(raw["step"] == step_no, f"{tag}: file {i} holds step "
+                      f"{raw['step']}, saved at {step_no}")
+                for name, tree in want.items():
+                    got = raw[name] if name in ("params", "ema_params") \
+                        else raw["opt_state"][name]
+                    for k, v in tree.items():
+                        check(torch.equal(got[k], v), f"{tag}: file {i}, "
+                              f"{name} {k} differs from the state at save()")
+                check(any(not torch.equal(state.params[k].cpu(), v)
+                          for k, v in want["params"].items()),
+                      f"{tag}: the step after save() changed no parameter")
+    finally:
+        ckpt._write = real_write
+    torch.cuda.synchronize()
+    n = all_counts()
+    want_n = FLAGSHIP.step_counts(2)
+    check(n == want_n, f"{tag}: the two steps launched {n}, expected "
+          f"{want_n}")
+    say(f"[{tag}] flagship train state ({size_gb:.3f} GB file): "
+        f"save_checkpoint {sync_s:.3f} s; AsyncSaver.save() returned in "
+        f"{returns[0]:.3f} s (first: pinned buffers allocated) and "
+        f"{returns[1]:.3f} s (buffers reused), "
+        f"{returns[1] / sync_s:.4f} of the synchronous save; the writes "
+        f"behind them {writes[0]:.3f} and {writes[1]:.3f} s; each file "
+        f"bit-equal to the state at its save() after a step at batch "
+        f"{TRAIN_BATCH} changed it; {card}")
+    del state, step, net
+    torch.cuda.empty_cache()
+    return n, {"sync_s": sync_s, "return_s": returns, "write_s": writes,
+               "size_gb": size_gb}
+
+
+def phase_folder_sample(card, work, ckpt, net=HQ, tag="celebahq_sample",
+                        nfe: int = HQ_SAMPLE_NFE):
+    """``cli.sample`` of ``net`` from its folder-trained checkpoint: one
+    batch of ``HQ_BATCH``, ``nfe``-NFE EM, bf16."""
+    from psld_tpu_torch.cli import sample as sample_cli
+
+    out_dir = os.path.join(work, tag)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    batches = sample_cli.main(net.args + [
+        "dataset.diffusion.data.root=/unused",
+        f"dataset.diffusion.evaluation.chkpt_path={ckpt}",
+        f"dataset.diffusion.evaluation.save_path={out_dir}",
+        f"dataset.diffusion.evaluation.batch_size={HQ_BATCH}",
+        f"dataset.diffusion.evaluation.n_samples={HQ_BATCH}",
+        f"dataset.diffusion.evaluation.n_discrete_steps={nfe}",
+        "dataset.diffusion.evaluation.sample_from=source",
+        "+dataset.diffusion.evaluation.bf16=True",
+        "+dataset.diffusion.evaluation.device=cuda"])
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pngs = _pngs(os.path.join(out_dir, "images"))
+    check(len(batches) == 1 and batches[0]["samples"] == HQ_BATCH
+          and len(pngs) == HQ_BATCH, f"{tag} drew {batches}")
+    row = batches[0]
+    check(row["nonfinite"] == 0 and row["nfe"] == nfe, f"{tag}: {row}")
+    from psld_tpu_torch import native
+
+    shape = native.read_png_info(os.path.join(out_dir, "images", pngs[0]))
+    check(shape == (256, 256, 3), f"{tag}: PNGs of {shape}")
+    want = net.fwd_counts(nfe)
+    check(n == want, f"{tag}: sampling launched {n}, expected {want}")
+    ms_nfe = row["seconds"] / nfe * 1e3
+    say(f"[{tag}] cli.sample of the {net.name}: {len(pngs)} finite 256 x "
+        f"256 PNGs, batch {HQ_BATCH}, {nfe}-NFE EM (bf16, gn_bf16): "
+        f"{ms_nfe:.2f} ms/NFE, {HQ_BATCH / row['seconds']:.3f} img/s "
+        f"(entry point {wall:.2f} s), peak {peak_gb:.2f} GB; launches {n}; "
+        f"{card}")
+    return n, {"ms_nfe": ms_nfe, "img_s": HQ_BATCH / row["seconds"],
+               "peak_gb": peak_gb}
+
+
+def phase_fanout(card, work, ckpt, tag="fanout"):
+    """Per-rank fan-out: ``cli.sample`` from the flagship's train
+    checkpoint as rank 0 and then rank 1 of ``num_processes=2``,
+    ``n_samples`` 64, batch 64 (each rank draws one full-width batch and
+    keeps its 32), ``FANOUT_NFE``-NFE EM, bf16: 64 PNGs in all, named by
+    rank, and the two ranks' images differ."""
+    from PIL import Image
+
+    from psld_tpu_torch.cli import sample as sample_cli
+
+    out_dir = os.path.join(work, tag)
+    reset_counts()
+    t0 = time.perf_counter()
+    for rank in range(2):
+        batches = sample_cli.main(FLAGSHIP.args + [
+            f"dataset.diffusion.evaluation.chkpt_path={ckpt}",
+            f"dataset.diffusion.evaluation.save_path={out_dir}",
+            f"dataset.diffusion.evaluation.batch_size={BATCH}",
+            f"dataset.diffusion.evaluation.n_samples={BATCH}",
+            f"dataset.diffusion.evaluation.n_discrete_steps={FANOUT_NFE}",
+            "dataset.diffusion.evaluation.sample_from=source",
+            "+dataset.diffusion.evaluation.bf16=True",
+            "+dataset.diffusion.evaluation.device=cuda",
+            f"+dataset.diffusion.evaluation.rank={rank}",
+            "+dataset.diffusion.evaluation.num_processes=2"])
+        check([(b["samples"], b["nonfinite"]) for b in batches]
+              == [(BATCH // 2, 0)], f"{tag} rank {rank} drew {batches}")
+    wall = time.perf_counter() - t0
+    n = all_counts()
+    pngs = _pngs(os.path.join(out_dir, "images"))
+    want_names = sorted(f"output_tpu_{r}_0_{i}.png" for r in range(2)
+                        for i in range(BATCH // 2))
+    check(pngs == want_names, f"{tag}: wrote {len(pngs)} PNGs: {pngs[:4]}")
+    imgs = {r: np.stack([np.asarray(Image.open(os.path.join(
+        out_dir, "images", f"output_tpu_{r}_0_{i}.png")))
+        for i in range(BATCH // 2)]) for r in range(2)}
+    gap = float(np.abs(imgs[0].astype(np.float32) - imgs[1]).mean())
+    check(gap > 1.0, f"{tag}: the two ranks' images differ by {gap:.3f} "
+          "levels on average")
+    want = FLAGSHIP.fwd_counts(2 * FANOUT_NFE)
+    check(n == want, f"{tag}: the two ranks launched {n}, expected {want}")
+    say(f"[{tag}] cli.sample as rank 0 and rank 1 of 2, n_samples "
+        f"{BATCH}: {len(pngs)} PNGs named output_tpu_<rank>_0_<i>, 32 a "
+        f"rank; the ranks' images differ by {gap:.2f} levels on average; "
+        f"{FANOUT_NFE}-NFE EM, {wall:.2f} s for both; launches {n}")
+    return n
+
+
 def combine(*timings) -> dict:
     """The timings of one path that launches a kernel at the shapes of
     two networks (guided sampling: the score network's and the
@@ -2643,7 +3193,10 @@ PATHS = {"sample": BATCH, "serve": BATCH, "train": TRAIN_BATCH,
          "cc_ode": BATCH, "likelihood": BATCH,
          "vp_train": TRAIN_BATCH, "vp_sample": BATCH, "vp_pc": BATCH,
          "vp_edit": BATCH, "vp_ode": BATCH, "vp_likelihood": BATCH,
-         "sweep": BATCH, "bench": [BATCH, TRAIN_BATCH]}
+         "sweep": BATCH, "bench": [BATCH, TRAIN_BATCH],
+         "celebahq_train": HQ_BATCH, "resume": HQ_BATCH,
+         "celebahq_sample": HQ_BATCH, "afhq_train": AFHQ_BATCH,
+         "async_ckpt": TRAIN_BATCH, "fanout": BATCH}
 # the kernels that run only in the bench's train phase, at its batch
 BENCH_TRAIN_ONLY = ("group_norm_act_bwd", "hash_dropout")
 
@@ -2701,6 +3254,22 @@ def main() -> int:
                                    "classifier"),
             "vp128": phase_dropout(card, TRAIN_BATCH, VP_DROPOUT_CALLS,
                                    "VP-SDE", rate=VP_RATE)}
+    # CelebA-HQ 256 at its batch 8 (train, sample, resume) and AFHQv2 128
+    # at its 32 (train): GroupNorm up to 65,536 pixels, where the
+    # backward's plan holds part of its rows in shared memory
+    gn["hq8"] = phase_gn(card, HQ_BATCH, HQ_GN_CALLS, HQ.name, "hires_gn")
+    gn["afhq32"] = phase_gn(card, AFHQ_BATCH, AFHQ_GN_CALLS, AFHQ.name,
+                            "hires_gn")
+    gn_bwd["hq8"] = phase_gn_bwd(card, HQ_BATCH, HQ_GN_CALLS, HQ.name,
+                                 tag="hires_gn_bwd")
+    gn_bwd["afhq32"] = phase_gn_bwd(card, AFHQ_BATCH, AFHQ_GN_CALLS,
+                                    AFHQ.name, tag="hires_gn_bwd")
+    attn["hq8"] = phase_attention(card, HQ_BATCH, HQ_ATTN_CALLS, HQ.name,
+                                  "hires_attention")
+    attn["afhq32"] = phase_attention(card, AFHQ_BATCH, AFHQ_ATTN_CALLS,
+                                     AFHQ.name, "hires_attention")
+    drop["afhq32"] = phase_dropout(card, AFHQ_BATCH, AFHQ_DROPOUT_CALLS,
+                                   AFHQ.name, AFHQ_RATE, "hires_dropout")
     cfg = bootstrap(FLAGSHIP_ARGS).dataset.diffusion
     weights, _ = phase_net(card, cfg)
     phase_sscs_check(card, cfg, weights)
@@ -2719,6 +3288,7 @@ def main() -> int:
     phase_vp_check(card, weights)
     phase_likelihood_check(card, weights, VP, "vp_check", seed=43)
     del weights
+    phase_hires_check(card)
     work = os.path.join(REPO, "build", "smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -2755,6 +3325,26 @@ def main() -> int:
     n_sweep = phase_sweep(card, work, vp_ckpt, reference,
                           write_fake_inception(os.path.join(
                               work, "pt_inception-fake.pth")))
+    # CelebA-HQ 256 and AFHQv2 128 from image folders, preemption and
+    # resume, the asynchronous checkpoint, per-rank fan-out
+    hq_ckpt, n_hq_train, hq_train = phase_folder_train(
+        card, work, HQ, HQ_SUBDIRS, 256, HQ_BATCH, PROFILE_STEPS,
+        HQ_TIMED, "celebahq_train", "no dropout, HSM, Adam+warmup, clip 1, "
+        "EMA 0.9999", profile=True)
+    n_resume = phase_resume(card, work)
+    n_hq_sample, hq_sample = phase_folder_sample(card, work, hq_ckpt)
+    _, n_afhq_train, afhq_train = phase_folder_train(
+        card, work, AFHQ, AFHQ_SUBDIRS, 128, AFHQ_BATCH, TRAIN_WARMUP,
+        AFHQ_TIMED, "afhq_train", f"hash dropout {AFHQ_RATE}, HSM, "
+        "Adam+warmup, clip 1, EMA 0.9999")
+    n_async, async_ckpt = phase_async_ckpt(card, work)
+    n_fanout = phase_fanout(card, work, ckpt)
+    say("[hires] " + json.dumps({
+        "celebahq_train": hq_train, "celebahq_sample": hq_sample,
+        "afhq_train": afhq_train, "async_ckpt": async_ckpt,
+        "launches": {"celebahq_step": HQ.step_counts(),
+                     "celebahq_nfe": HQ.fwd_counts(1),
+                     "afhq_step": AFHQ.step_counts()}}))
     n_bench, _ = phase_bench(card)
     on_path = {"sample": n_sample, "serve": n_serve, "train": n_train,
                "train_clf": n_train_clf, "guided": n_guided,
@@ -2764,7 +3354,10 @@ def main() -> int:
                "vp_sample": n_vp_sample, "vp_pc": n_vp_pc,
                "vp_edit": n_vp_edit, "vp_ode": n_vp_ode,
                "vp_likelihood": n_vp_likelihood, "sweep": n_sweep,
-               "bench": n_bench}
+               "bench": n_bench, "celebahq_train": n_hq_train,
+               "resume": n_resume, "celebahq_sample": n_hq_sample,
+               "afhq_train": n_afhq_train, "async_ckpt": n_async,
+               "fanout": n_fanout}
     say("[vp] " + json.dumps({
         "train": vp_train, "sample_em_100": vp_sample, "ode_ms_nfe": vp_ode,
         "likelihood": vp_lik, "inception_batch64": fid,
@@ -2788,13 +3381,18 @@ def main() -> int:
             "vp_train": gn["vp128"], "vp_sample": gn["vp64"],
             "vp_pc": gn["vp64"], "vp_edit": gn["vp64"], "vp_ode": gn["vp64"],
             "vp_likelihood": gn["vp64"], "sweep": gn["vp64"],
-            "bench": combine(gn["flagship64"], gn["flagship128"])},
+            "bench": combine(gn["flagship64"], gn["flagship128"]),
+            "celebahq_train": gn["hq8"], "resume": gn["hq8"],
+            "celebahq_sample": gn["hq8"], "afhq_train": gn["afhq32"],
+            "async_ckpt": gn["flagship128"], "fanout": gn["flagship64"]},
         "group_norm_act_bwd": {
             "train": gn_bwd["flagship128"], "train_clf": gn_bwd["clf32"],
             "guided": gn_bwd["clf64"], "cc_ode": gn_bwd["clf64"],
             "likelihood": gn_bwd["flagship64_dx"],
             "vp_train": gn_bwd["vp128"], "vp_likelihood": gn_bwd["vp64_dx"],
-            "bench": gn_bwd["flagship128"]},
+            "bench": gn_bwd["flagship128"], "celebahq_train": gn_bwd["hq8"],
+            "resume": gn_bwd["hq8"], "afhq_train": gn_bwd["afhq32"],
+            "async_ckpt": gn_bwd["flagship128"]},
         "attention": {
             "sample": attn["flagship64"], "serve": attn["flagship64"],
             "train": attn["flagship128"],
@@ -2809,11 +3407,16 @@ def main() -> int:
             "vp_pc": attn["vp64"], "vp_edit": attn["vp64"],
             "vp_ode": attn["vp64"], "vp_likelihood": attn["vp64"],
             "sweep": attn["vp64"],
-            "bench": combine(attn["flagship64"], attn["flagship128"])},
+            "bench": combine(attn["flagship64"], attn["flagship128"]),
+            "celebahq_train": attn["hq8"], "resume": attn["hq8"],
+            "celebahq_sample": attn["hq8"], "afhq_train": attn["afhq32"],
+            "async_ckpt": attn["flagship128"], "fanout": attn["flagship64"]},
         "hash_dropout": {"train": drop["flagship128"],
                          "train_clf": drop["clf32"],
                          "vp_train": drop["vp128"],
-                         "bench": drop["flagship128"]},
+                         "bench": drop["flagship128"],
+                         "afhq_train": drop["afhq32"],
+                         "async_ckpt": drop["flagship128"]},
     }
     for name, paths in times.items():
         for path in paths:

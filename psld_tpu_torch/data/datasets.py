@@ -6,19 +6,24 @@ No downloads: CIFAR-10 is parsed from its standard pickles on disk, MNIST
 (the inpainting masks) from its idx file, and a ``synthetic`` dataset
 makes procedural images from a seed. All are numpy on this side and in
 the JAX package, so the same seed gives the same images. The image-folder
-datasets (CelebA, AFHQ) are not ported yet.
+datasets (``celeba64``, ``celebahq``, ``afhqv2``) read a directory of
+images a user supplies, in the JAX package's layout and sort order.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import pickle
 
 import numpy as np
 import torch
 
+from psld_tpu_torch import native
 from psld_tpu_torch.registry import register_module
 from psld_tpu_torch.utils.images import data_scaler
+
+logger = logging.getLogger(__name__)
 
 
 class ArrayDataset:
@@ -103,6 +108,153 @@ class SyntheticDataset(ArrayDataset):
                          return_target=return_target)
 
 
+class _ImageFolder:
+    """Lazy folder dataset: images resized (bilinear) to ``image_size``
+    and scaled by ``data_scaler``; the base of CelebA and AFHQ.
+
+    ``batch(idxs)`` decodes with the native codec (:mod:`psld_tpu_torch.
+    native`, threads over the batch) when the folder is the preprocessed
+    layout: every file a PNG the codec takes, RGB (or palette) and at
+    ``image_size``, which the first batch checks from every file's header.
+    Any other folder (JPEG, a resize, gray, RGBA, 16-bit) is read by
+    Pillow, as is every single item (``__getitem__``). The choice is made
+    once, logged at INFO with the first file that sent the folder to
+    Pillow, and never changes: a decode error raises."""
+
+    def __init__(self, paths, targets=None, image_size=64, norm=True,
+                 return_target=False, subsample_size=None):
+        if subsample_size is not None:
+            paths = paths[: int(subsample_size)]
+            targets = None if targets is None \
+                else targets[: int(subsample_size)]
+        self.paths = paths
+        self.targets = targets
+        self.image_size = int(image_size)
+        self.norm = norm
+        self.return_target = return_target
+        self._native = None  # decided at the first batch
+
+    def __len__(self):
+        return len(self.paths)
+
+    def _load(self, path):
+        from PIL import Image
+
+        with Image.open(path) as img:
+            img = img.convert("RGB")
+            if img.size != (self.image_size, self.image_size):
+                img = img.resize((self.image_size, self.image_size),
+                                 Image.BILINEAR)
+            return data_scaler(np.asarray(img, np.uint8), norm=self.norm)
+
+    def __getitem__(self, idx):
+        img = self._load(self.paths[idx])
+        if self.return_target:
+            return img, int(self.targets[idx])
+        return img
+
+    @property
+    def native(self) -> bool:
+        """Whether batches decode through the native codec."""
+        if self._native is None:
+            want = (self.image_size, self.image_size, 3)
+
+            def refusal(path):
+                """Why the codec does not take ``path``, or None."""
+                if not path.lower().endswith(".png"):
+                    return "not a .png"
+                try:
+                    info = native.read_png_info(path)
+                except native.UnsupportedPng:
+                    return "a PNG variant the codec does not decode"
+                return None if info == want else f"(h, w, c) {info}"
+
+            why = None
+            for path in self.paths:
+                why = refusal(path)
+                if why is not None:
+                    logger.info("%s: %d images read by Pillow: %s is %s, "
+                                "not an RGB PNG of %s", type(self).__name__,
+                                len(self.paths), path, why, want)
+                    break
+            else:
+                logger.info("%s: %d images read by the native codec",
+                            type(self).__name__, len(self.paths))
+            self._native = why is None
+        return self._native
+
+    def batch(self, idxs):
+        paths = [self.paths[i] for i in idxs]
+        if self.native:
+            imgs = data_scaler(native.read_png_batch(
+                paths, self.image_size, self.image_size, 3), norm=self.norm)
+        else:
+            imgs = np.stack([self._load(p) for p in paths])
+        if self.return_target:
+            return imgs, self.targets[idxs].astype(np.int32)
+        return imgs
+
+
+@register_module(category="datasets", name="celeba64")
+class CelebADataset(_ImageFolder):
+    """CelebA from a flat directory of images (PNG, JPEG, WebP)."""
+
+    def __init__(self, root, norm=True, image_size=64, return_target=False,
+                 subsample_size=None, **kwargs):
+        if not os.path.isdir(root):
+            raise ValueError(f"The specified root: {root} does not exist")
+        paths = sorted(
+            os.path.join(root, p) for p in os.listdir(root)
+            if p.lower().endswith((".png", ".jpg", ".jpeg", ".webp")))
+        super().__init__(paths, None, image_size=image_size, norm=norm,
+                         return_target=False, subsample_size=subsample_size)
+
+
+@register_module(category="datasets", name="celebahq")
+class CelebAHQDataset(_ImageFolder):
+    """CelebA-HQ: ``<root>/<split>/male`` then ``<root>/<split>/female``,
+    each sorted."""
+
+    def __init__(self, root, norm=True, image_size=256, return_target=False,
+                 subsample_size=None, split="train", **kwargs):
+        paths = []
+        for sub in ("male", "female"):
+            d = os.path.join(root, split, sub)
+            if os.path.isdir(d):
+                paths.extend(os.path.join(d, p) for p in sorted(os.listdir(d)))
+        if not paths:
+            raise ValueError(f"No CelebA-HQ images under {root}/{split}")
+        super().__init__(paths, None, image_size=image_size, norm=norm,
+                         subsample_size=subsample_size)
+
+
+@register_module(category="datasets", name="afhqv2")
+class AFHQv2Dataset(_ImageFolder):
+    """AFHQv2: ``cat``, ``dog`` and ``wild`` (labels 0, 1, 2) under
+    ``<root>/<split>``, or under ``<root>`` where there is no such
+    directory; each sorted."""
+
+    CLASSES = ("cat", "dog", "wild")
+
+    def __init__(self, root, norm=True, image_size=128, return_target=False,
+                 subsample_size=None, split="train", **kwargs):
+        base = os.path.join(root, split) if os.path.isdir(
+            os.path.join(root, split)) else root
+        paths, targets = [], []
+        for label, cls in enumerate(self.CLASSES):
+            d = os.path.join(base, cls)
+            if os.path.isdir(d):
+                for p in sorted(os.listdir(d)):
+                    paths.append(os.path.join(d, p))
+                    targets.append(label)
+        if not paths:
+            raise ValueError(f"No AFHQv2 images under {base}")
+        super().__init__(paths, np.asarray(targets, np.int64),
+                         image_size=image_size, norm=norm,
+                         return_target=return_target,
+                         subsample_size=subsample_size)
+
+
 def load_mnist_images(root: str) -> np.ndarray:
     """MNIST's train images, (N, 28, 28) uint8, from the standard idx file
     ``train-images-idx3-ubyte`` under ``root`` or ``root/MNIST/raw``."""
@@ -167,10 +319,15 @@ class InpaintDataset:
         return imgs, masks
 
 
-def batch_generator(seed: int, batch_idx: int, device) -> torch.Generator:
-    """The generator of one batch, seeded from (seed, batch_idx); it draws
-    both the batch's prior sample and its trajectory noise."""
-    words = np.random.SeedSequence([int(seed), int(batch_idx)])
+def batch_generator(seed: int, batch_idx: int, device,
+                    rank: int | None = None) -> torch.Generator:
+    """The generator of one batch, seeded from (seed, batch_idx), and
+    under per-rank fan-out from ``rank`` as numpy's spawn key (so rank 0
+    too draws apart from a run of one process); it draws both the
+    batch's prior sample and its trajectory noise."""
+    words = np.random.SeedSequence(
+        [int(seed), int(batch_idx)],
+        spawn_key=() if rank is None else (int(rank),))
     gen = torch.Generator(device=device)
     gen.manual_seed(int(words.generate_state(1, np.uint64)[0]))
     return gen

@@ -9,13 +9,26 @@ The ODE samplers are deterministic and ignore the batch's generator
 beyond its prior draw, and count their network evaluations: a batch's
 ``nfe`` is what its sampler counted.
 
-One device, one process: the sample count is drawn in batches of
+One device a process: the sample count is drawn in batches of
 ``evaluation.batch_size``; batch ``k`` gets its own generator seeded from
 (``evaluation.seed``, k), which draws its prior sample (or, for
 ``inpaint`` and ``edit``, the draws that forward-diffuse its dataset
 images) and its trajectory noise. A tail batch is drawn full-width and
 sliced, as in the JAX package. ``inpaint`` and ``edit`` take batch k from
 the dataset's images k * batch_size onwards, wrapping around its end.
+
+Per-rank fan-out, as the JAX package's (``_rank_info``): independent
+processes, each told ``evaluation.rank`` and ``evaluation.num_processes``
+(N), each on its own card. Rank r takes ceil(n_samples / N) samples and
+writes them as ``output_<prefix>_<r>_<batch>_<i>``; nothing is gathered.
+With N > 1 batch k of rank r draws from a generator seeded from
+(``evaluation.seed``, k) with r as numpy's spawn key
+(``data.datasets.batch_generator``): the JAX package folds the rank into
+its threefry key, which a Philox generator cannot reproduce, so this is
+the port's own rule (N = 1 keeps the seeding of one process). Guided labels
+cycle over global batch slots, batch k of rank r taking label
+``(k * N + r) mod len(labels)``; ``inpaint`` and ``edit`` take dataset
+images ``((k * batch_size + i) * N + r) mod len(dataset)``.
 
 ``evaluation.sampler.corrector`` (``langevin``, with ``corrector_snr`` and
 ``corrector_steps``) adds a corrector to ``sample``, ``class_cond_sample``
@@ -109,11 +122,23 @@ def make_score_fn(net, bf16: bool = False):
 
 
 def _check_single_device(ecfg) -> None:
-    if int(ecfg.get("num_processes", 0) or 0) > 1 or \
-            int(ecfg.get("spatial", 1) or 1) > 1:
+    if int(ecfg.get("spatial", 1) or 1) > 1:
         raise NotImplementedError(
-            "the port samples on one device: multi-process and spatial "
-            "fan-out are not ported yet")
+            "the port samples on one device a process: spatial fan-out "
+            "is not ported yet")
+
+
+def _rank_info(config) -> tuple[int, int]:
+    """(rank, num_processes) of per-rank fan-out: ``evaluation.rank``
+    (default 0) and ``evaluation.num_processes`` (default 1)."""
+    ecfg = config.evaluation
+    rank = int(ecfg.get("rank", -1))
+    nproc = int(ecfg.get("num_processes", 0))
+    nproc = max(nproc, 1)
+    rank = max(rank, 0)
+    if not rank < nproc:
+        raise ValueError(f"rank {rank} out of range for {nproc} processes")
+    return rank, nproc
 
 
 def _latent_source(sde, config, device):
@@ -124,15 +149,17 @@ def _latent_source(sde, config, device):
                                                      device=device)
 
 
-def _dataset_source(dataset, device, images_only: bool = False):
-    """Batch source of a dataset (rank 0 of one device): batch k holds
-    the images k * width onwards, wrapping around the end, as float32
-    tensors on ``device``; a tuple where the dataset gives one (images and
-    masks), unless ``images_only``, which drops a labelled dataset's
-    labels."""
+def _dataset_source(dataset, device, images_only: bool = False,
+                    rank: int = 0, nproc: int = 1):
+    """Batch source of a dataset: batch k of ``rank`` (of ``nproc``)
+    holds the images ``(k * width + i) * nproc + rank``, wrapping around
+    the end, as float32 tensors on ``device``; a tuple where the dataset
+    gives one (images and masks), unless ``images_only``, which drops a
+    labelled dataset's labels."""
     def batch_at(k, gen, width):
         del gen
-        idxs = np.arange(k * width, (k + 1) * width) % len(dataset)
+        idxs = (np.arange(k * width, (k + 1) * width) * nproc + rank) \
+            % len(dataset)
         arrays = dataset.batch(idxs)
         if isinstance(arrays, tuple) and images_only:
             arrays = arrays[0]
@@ -146,7 +173,7 @@ def _dataset_source(dataset, device, images_only: bool = False):
 
 def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
                  prefix_at=None, n_samples=None, seed=None,
-                 rank: int = 0) -> list:
+                 file_tag=None) -> list:
     """The batch loop: input batch, trajectory, write; returns one dict of
     stats per batch (samples written, NFE, the trajectory's seconds with
     its copy to the host, the write's seconds, non-finite values; the NFE
@@ -155,8 +182,16 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
     width)`` its input (a prior draw, or dataset images); ``prefix_at(k)``,
     when given, its file-name prefix. An input that is a tuple (images
     and masks) goes to the writer too. ``n_samples`` and ``seed`` default
-    to ``evaluation``'s; ``rank`` goes into the file names."""
+    to ``evaluation``'s: this rank's share of ``n_samples``, and the
+    rank's generators under fan-out (see the module's docstring).
+    ``file_tag`` (default the rank) is the number the writer puts in the
+    file names."""
     ecfg = config.evaluation
+    rank, nproc = _rank_info(config)
+    if n_samples is None:
+        n_samples = -(-int(ecfg.n_samples) // nproc)
+    if file_tag is None:
+        file_tag = rank
     denoise = bool(ecfg.denoise)
     n_steps = int(ecfg.n_discrete_steps)
     n_eff = n_steps - 1 if denoise else n_steps
@@ -164,13 +199,14 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
                         str(ecfg.stride_type))
     eps = float(ecfg.eval_eps)
     per_step = int(ecfg.batch_size)
-    n_samples = int(ecfg.n_samples if n_samples is None else n_samples)
+    n_samples = int(n_samples)
     seed = int(ecfg.seed if seed is None else seed)
     written, batches = 0, []
     for batch_idx in range(-(-n_samples // per_step)):
         take = min(per_step, n_samples - written)
         t0 = time.perf_counter()
-        gen = batch_generator(seed, batch_idx, device)
+        gen = batch_generator(seed, batch_idx, device,
+                              rank if nproc > 1 else None)
         z = batch_at(batch_idx, gen, per_step)
         sampler = sampler_at(batch_idx)
         nfe0 = getattr(sampler, "nfe", None)
@@ -185,11 +221,11 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
             writer.sample_prefix = prefix_at(batch_idx)
         t0 = time.perf_counter()
         if isinstance(z, tuple):
-            writer.write_batch(out, rank=rank, batch_idx=batch_idx,
+            writer.write_batch(out, rank=file_tag, batch_idx=batch_idx,
                                batch=tuple(b[:take].float().cpu().numpy()
                                            for b in z))
         else:
-            writer.write_batch(out, rank=rank, batch_idx=batch_idx)
+            writer.write_batch(out, rank=file_tag, batch_idx=batch_idx)
         stats["write_seconds"] = time.perf_counter() - t0
         written += take
         batches.append(stats)
@@ -220,10 +256,12 @@ def build_unguided(config, preloaded=None):
     serving: the SDE, the ``evaluation.sampler`` (with its corrector) on
     the score network from ``evaluation.chkpt_path`` (or ``preloaded``,
     its weights in place) on ``evaluation.device``, the prior's batch
-    source and the device. A guided sampler, more than one device and a
-    missing card are refused before the checkpoint is read."""
+    source and the device. A guided sampler, spatial fan-out, a rank
+    outside ``num_processes`` and a missing card are refused before the
+    checkpoint is read."""
     ecfg = config.evaluation
     _check_single_device(ecfg)
+    _rank_info(config)  # raises on a rank outside num_processes
     device = torch.device(str(ecfg.get("device", "cuda")))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: set evaluation.device=cpu to "
@@ -317,15 +355,18 @@ def class_cond_sample(config):
     score_fn = make_score_fn(net, bf16=bf16)
     clf_fn = make_score_fn(clf, bf16=bf16)
 
-    n_batches = -(-int(ecfg.n_samples) // int(ecfg.batch_size))
-    if n_batches < len(labels):
+    rank, nproc = _rank_info(dcfg)
+    per_rank = -(-int(ecfg.n_samples) // nproc)
+    n_slots = -(-per_rank // int(ecfg.batch_size)) * nproc
+    if n_slots < len(labels):
         logger.warning(
-            "label cycling is per batch: n_samples=%s fills only %d batches "
-            "for %d labels -- classes %s will NOT be sampled",
-            ecfg.n_samples, n_batches, len(labels), labels[n_batches:])
+            "label cycling is per batch: n_samples=%s fills only %d batch "
+            "slots for %d labels -- classes %s will NOT be sampled",
+            ecfg.n_samples, n_slots, len(labels), labels[n_slots:])
 
     def label_at(i):
-        return labels[i % len(labels)]
+        """Batch i's label: its global batch slot's, i * N + rank."""
+        return labels[(i * nproc + rank) % len(labels)]
 
     corrector = build_corrector(merged, sde, score_fn)
     samplers = {y: sampler_cls(merged, sde, score_fn, clf_fn=clf_fn,
@@ -349,18 +390,21 @@ def _dataset_synthesis(config, build_sampler, batch_at_of, writer) -> list:
     images: the score network from the checkpoint on
     ``evaluation.device``, the sampler ``build_sampler(sde, score_fn)``,
     batches from ``batch_at_of(dataset, device)``, written by
-    ``writer``."""
+    ``writer``; ``batch_at_of(dataset, device, rank, num_processes)``
+    gives this rank's batches."""
     ecfg = config.evaluation
     _check_single_device(ecfg)
     device = torch.device(str(ecfg.get("device", "cuda")))
     sde = build_sde(config)
     net = load_eval_state(config).to(device)
     dataset = get_dataset(config)
+    rank, nproc = _rank_info(config)
     with torch.inference_mode():
         sampler = build_sampler(sde, make_score_fn(net,
                                                    bf16=eval_bf16(config)))
         return _run_sampler(config, sde, lambda _: sampler, writer,
-                            batch_at_of(dataset, device), device)
+                            batch_at_of(dataset, device, rank, nproc),
+                            device)
 
 
 def inpaint(config) -> list:
@@ -372,8 +416,9 @@ def inpaint(config) -> list:
     return _dataset_synthesis(
         config,
         lambda sde, score_fn: EulerMaruyamaInpainter(config, sde, score_fn),
-        lambda dataset, device: _dataset_source(
-            InpaintDataset(config, dataset), device),
+        lambda dataset, device, rank, nproc: _dataset_source(
+            InpaintDataset(config, dataset), device, rank=rank,
+            nproc=nproc),
         _writer(config, InpaintingImageWriter))
 
 
@@ -387,6 +432,6 @@ def edit(config) -> list:
         lambda sde, score_fn: EditEulerMaruyamaSampler(
             config, sde, score_fn,
             corrector_fn=build_corrector(config, sde, score_fn)),
-        lambda dataset, device: _dataset_source(dataset, device,
-                                                images_only=True),
+        lambda dataset, device, rank, nproc: _dataset_source(
+            dataset, device, images_only=True, rank=rank, nproc=nproc),
         _writer(config))

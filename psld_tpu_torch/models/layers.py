@@ -127,6 +127,24 @@ class DropoutSites:
                           device=h.device) < keep
         return torch.where(mask, h / keep, torch.zeros_like(h))
 
+    def replay_point(self):
+        """Where the next site's draw starts: its index and, for the
+        saved-mask implementations, its generator's state."""
+        gen = self.generator
+        return self.site, (None if gen is None else gen.get_state())
+
+    def replay(self, point) -> "DropoutSites":
+        """Sites that draw, from ``point`` (:meth:`replay_point`) on, the
+        masks this one drew from there: a recompute's dropout."""
+        site, state = point
+        gen = None
+        if state is not None:
+            gen = torch.Generator(device=self.generator.device)
+            gen.set_state(state)
+        out = DropoutSites(self.rate, self.impl, self.seeds, gen)
+        out.site = site
+        return out
+
     def close(self) -> None:
         if self.hashed and self.seeds is not None \
                 and 0.0 < self.rate < 1.0 and self.site != len(self.seeds):

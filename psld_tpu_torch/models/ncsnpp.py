@@ -12,8 +12,16 @@ the flax ``__call__`` does, and ``forward`` walks the same order, taking
 the next module of each class; that is what lets a flax param tree map
 onto this module by path (:mod:`psld_tpu_torch.interop.from_flax`).
 
-``remat`` and ``scan_blocks`` are accepted and ignored: they change only
-how XLA compiles the JAX model, not what it computes.
+``remat=True`` recomputes each resblock's activations in the backward
+pass (``torch.utils.checkpoint``, one block at a time, as the JAX
+package's per-resblock ``nn.remat``): a memory lever that leaves the
+loss and the gradients as they are. The recompute runs on the tensors
+the first call ran on and draws the same dropout mask: the hash
+implementations take the same site's seed words, ``save_mask`` replays
+its generator from the state it had (the default generators, where no
+generator is given, through ``preserve_rng_state``). ``scan_blocks`` is
+accepted and ignored: it changes only how XLA compiles the JAX model,
+not what it computes.
 
 ``forward(..., train=True)`` drops with rate ``dropout`` once in every
 resblock (``dropout_impl``: see :class:`layers.DropoutSites`). The sites
@@ -29,6 +37,7 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from psld_tpu_torch import knobs
 from psld_tpu_torch.models import layers
@@ -128,7 +137,8 @@ class _NCSNBase(nn.Module):
             raise ValueError(f"embedding_type {embedding_type!r}")
         if resblock_type not in ("ddpm", "biggan"):
             raise ValueError(f"resblock_type {resblock_type!r}")
-        del remat, scan_blocks
+        del scan_blocks
+        self.remat = bool(remat)
         self.dropout = float(dropout)
         self.dropout_impl = layers.resolve_dropout_impl(dropout_impl)
         self.init_scale = init_scale
@@ -164,6 +174,26 @@ class _NCSNBase(nn.Module):
         return layers.DropoutSites(self.dropout, self.dropout_impl,
                                    dropout_seeds, generator) \
             if train else None
+
+    def _resblock(self, blk, h, temb, drop):
+        """``blk(h, temb, drop)``; under ``remat``, with grad enabled, its
+        activations are recomputed in the backward pass instead of kept:
+        the recompute runs on the parameters of this call (a
+        ``functional_call`` swaps in bf16 copies) and replays its
+        dropout."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return blk(h, temb, drop)
+        params = dict(blk.named_parameters())
+        point = None if drop is None else drop.replay_point()
+        calls = []
+
+        def run(h_, temb_):
+            d = drop if not calls or drop is None else drop.replay(point)
+            calls.append(1)
+            return torch.func.functional_call(blk, params, (h_, temb_, d))
+
+        return torch.utils.checkpoint.checkpoint(
+            run, h, temb, use_reentrant=False, preserve_rng_state=True)
 
     @property
     def all_resolutions(self):
@@ -266,7 +296,8 @@ class _NCSNBase(nn.Module):
         for i_level in range(n_levels):
             with_attn = self.all_resolutions[i_level] in self.attn_resolutions
             for _ in range(self.num_res_blocks):
-                h = nxt(self.block_kind)(hs[-1], temb, drop)
+                h = self._resblock(nxt(self.block_kind), hs[-1], temb,
+                                   drop)
                 if with_attn:
                     h = nxt("AttnBlock")(h)
                 hs.append(h)
@@ -275,7 +306,7 @@ class _NCSNBase(nn.Module):
             if self.ddpm:
                 h = nxt("Downsample")(hs[-1])
             else:
-                h = nxt(self.block_kind)(hs[-1], temb, drop)
+                h = self._resblock(nxt(self.block_kind), hs[-1], temb, drop)
             if self.progressive_input == "input_skip":
                 input_pyramid = nxt("Downsample")(input_pyramid)
                 h = nxt("Combine")(input_pyramid, h)
@@ -285,9 +316,9 @@ class _NCSNBase(nn.Module):
                     if self.skip_rescale else input_pyramid + h
                 h = input_pyramid
             hs.append(h)
-        h = nxt(self.block_kind)(hs[-1], temb, drop)
+        h = self._resblock(nxt(self.block_kind), hs[-1], temb, drop)
         h = nxt("AttnBlock")(h)
-        h = nxt(self.block_kind)(h, temb, drop)
+        h = self._resblock(nxt(self.block_kind), h, temb, drop)
         return h, hs
 
 
@@ -364,8 +395,9 @@ class NCSNpp(_NCSNBase):
         pyramid = None
         for i_level in reversed(range(n_levels)):
             for _ in range(self.num_res_blocks + 1):
-                h = nxt(self.block_kind)(torch.cat([h, hs.pop()], dim=1),
-                                         temb, drop)
+                h = self._resblock(nxt(self.block_kind),
+                                   torch.cat([h, hs.pop()], dim=1), temb,
+                                   drop)
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 h = nxt("AttnBlock")(h)
             if self.progressive != "none":
@@ -382,8 +414,8 @@ class NCSNpp(_NCSNBase):
                         else pyramid + h
                     h = pyramid
             if i_level != 0:
-                kind = "Upsample" if self.ddpm else self.block_kind
-                h = nxt(kind)(h) if self.ddpm else nxt(kind)(h, temb, drop)
+                h = nxt("Upsample")(h) if self.ddpm else self._resblock(
+                    nxt(self.block_kind), h, temb, drop)
         assert not hs
         if drop is not None:
             drop.close()

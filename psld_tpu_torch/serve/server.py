@@ -65,16 +65,16 @@ class SamplerService:
         self.per_step = int(ecfg.batch_size)
         self.compiled = False
         self.warmup_s = None
-        # monotonically increasing request id, used as the writer `rank` so
+        # monotonically increasing request id, the file names' tag, so
         # repeated requests into the same out dir never overwrite each other
         self._request_id = 0
 
-    def _run(self, n: int, seed: int, writer, rank: int) -> list:
+    def _run(self, n: int, seed: int, writer, file_tag: int) -> list:
         with torch.inference_mode():
             return generate._run_sampler(
                 self.config, self.sde, lambda _: self.sampler, writer,
                 self.batch_at, self.device, n_samples=n, seed=seed,
-                rank=rank)
+                file_tag=file_tag)
 
     def warmup(self) -> float:
         """Run one batch (it builds the kernels if nothing has yet);

@@ -5,9 +5,11 @@ A checkpoint is one ``torch.save`` file ``<name>.pt`` holding
 ``ema_params`` are the score network's state_dict (what
 ``eval/generate.py`` reads), ``opt_state`` is ``{"mu", "nu", "count"}``.
 ``<name>`` is the JAX package's ``<sde>-<prefix>-epoch=<N>-loss=<L>``, and
-the resume sidecar ``<file>.meta.json`` is the JAX package's too. Saves
-are synchronous; a file is written under a temporary name and renamed, so
-a run cut mid-save leaves no half-written ``.pt``.
+the resume sidecar ``<file>.meta.json`` is the JAX package's too. A file
+is written under a temporary name and renamed, so a run cut mid-save
+leaves no half-written ``.pt``. :func:`save_checkpoint` writes before it
+returns; the training loops save through :class:`AsyncSaver`, whose
+write runs on a thread while training goes on.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
 
 import torch
 
@@ -29,22 +32,130 @@ def checkpoint_name(sde_type: str, prefix: str, epoch: int,
     return f"{sde_type}-{prefix}-epoch={epoch:04d}-loss={loss:.4f}"
 
 
-def save_checkpoint(directory: str, name: str, state: TrainState) -> str:
+def _snapshot(state: TrainState, host=None) -> dict:
+    """The checkpoint's payload: every tensor of ``state`` on the host,
+    and its counters. ``host`` (see :class:`AsyncSaver`) maps
+    (tree, key) to a host tensor to copy into; without it each tensor
+    is written as it stands (a card's tensor is copied, a host tensor is
+    not). Returns once every copy has landed, so with ``host`` the state
+    may change in place right after."""
+    trees = {"params": state.params, "ema_params": state.ema_params,
+             "mu": state.opt_state["mu"], "nu": state.opt_state["nu"]}
+    out = {}
+    on_card = False
+    for tree, values in trees.items():
+        out[tree] = {}
+        for k, v in values.items():
+            v = v.detach()
+            if host is None:  # written at once: no copy of a host tensor
+                out[tree][k] = v.cpu()
+                continue
+            dst = host.get((tree, k))
+            if dst is None or dst.shape != v.shape or dst.dtype != v.dtype:
+                dst = torch.empty(v.shape, dtype=v.dtype,
+                                  pin_memory=v.is_cuda)
+                host[(tree, k)] = dst
+            dst.copy_(v, non_blocking=v.is_cuda)
+            on_card = on_card or v.is_cuda
+            out[tree][k] = dst
+    if on_card:  # the copies above were queued behind the step's work
+        torch.cuda.synchronize()
+    return {"params": out["params"], "ema_params": out["ema_params"],
+            "step": int(state.step),
+            "opt_state": {"mu": out["mu"], "nu": out["nu"],
+                          "count": int(state.opt_state["count"])}}
+
+
+def _path(directory: str, name: str) -> str:
     os.makedirs(directory, exist_ok=True)
-    path = os.path.abspath(os.path.join(directory, name + SUFFIX))
+    return os.path.abspath(os.path.join(directory, name + SUFFIX))
 
-    def cpu(tree):
-        return {k: v.detach().cpu() for k, v in tree.items()}
 
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"params": cpu(state.params),
-                "ema_params": cpu(state.ema_params),
-                "step": int(state.step),
-                "opt_state": {"mu": cpu(state.opt_state["mu"]),
-                              "nu": cpu(state.opt_state["nu"]),
-                              "count": int(state.opt_state["count"])}}, tmp)
+def _write(path: str, payload: dict) -> None:
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def save_checkpoint(directory: str, name: str, state: TrainState) -> str:
+    """Write ``state`` as ``<directory>/<name>.pt``; returns the path."""
+    path = _path(directory, name)
+    _write(path, _snapshot(state))
     return path
+
+
+class AsyncSaver:
+    """The training loops' checkpoint writer
+    (``psld_tpu/train/checkpoint.py::AsyncSaver``).
+
+    ``save()`` returns once every tensor of the state has been copied to
+    the host: the next step updates parameters, EMA and Adam moments in
+    place, and cannot change what is written. The ``torch.save`` then
+    runs on one background thread, into a temporary name that is renamed
+    at the end, so :func:`latest_checkpoint` never picks a half-written
+    file; the resume sidecar (``meta``, :func:`write_meta`'s arguments)
+    is written on the same thread after the rename, so no sidecar stands
+    beside a checkpoint that was never written. At most one write is in
+    flight: ``save()`` first waits for the previous one. ``close()``
+    waits for the last write and raises its error, if it had one; a
+    second ``close()`` does nothing.
+
+    The host copies go to buffers allocated at the first save (pinned,
+    for tensors on a card) and reused by every later one: the wait for
+    the previous write comes before the copy, so no write still reads a
+    buffer that is being filled.
+    """
+
+    def __init__(self):
+        self._host: dict = {}
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+        self._closed = False
+
+    def _run(self, path: str, payload: dict, meta: dict | None) -> None:
+        try:
+            _write(path, payload)
+            if meta is not None:
+                write_meta(path, **meta)
+        except BaseException as e:  # raised by the next wait()
+            self._error = e
+
+    def wait(self) -> None:
+        """Wait for the write in flight; raise its error, once."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def save(self, directory: str, name: str, state: TrainState,
+             meta: dict | None = None) -> str:
+        if self._closed:
+            raise RuntimeError("AsyncSaver.save after close()")
+        self.wait()
+        path = _path(directory, name)
+        payload = _snapshot(state, self._host)
+        self._thread = threading.Thread(target=self._run,
+                                        args=(path, payload, meta),
+                                        name="psld-ckpt", daemon=True)
+        self._thread.start()
+        return path
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            self.wait()
+        finally:
+            self._host.clear()
+
+    def __enter__(self) -> "AsyncSaver":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def latest_checkpoint(directory: str) -> str | None:

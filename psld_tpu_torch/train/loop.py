@@ -7,17 +7,31 @@ and raising if asked for: ``training.spatial``, ``training.fsdp``.
 Accepted without effect, and named in one log line at the start of a run
 when set (:data:`TPU_ONLY_KEYS`): ``steps_per_dispatch`` (a dispatch
 lever of the JAX package's remote runtime; eager PyTorch has no dispatch
-to widen), ``prefetch``, ``profile_dir`` and ``optimizer.flatten``.
-Graceful shutdown and ``auto_resume`` are not ported yet; ``restore_path``
-(a file, or ``latest``) is.
+to widen) and ``optimizer.flatten``.
+
+As in the JAX package:
+- ``restore_path`` (a file, or ``latest``), and ``auto_resume=true`` with
+  an empty ``restore_path``, restore a checkpoint; ``latest`` and
+  ``auto_resume`` take the newest in ``results_dir/checkpoints`` and
+  start fresh where there is none;
+- SIGTERM or SIGINT stops the run at the next step boundary with a
+  checkpoint marked incomplete (:mod:`.interrupt`), which a relaunch
+  resumes by replaying its epoch;
+- checkpoints are written on a thread (:class:`.checkpoint.AsyncSaver`);
+- ``prefetch`` (default 2; 0 turns it off) batches are loaded ahead on a
+  thread (:func:`psld_tpu_torch.utils.pipeline.prefetch_iter`);
+- ``profile_dir`` (with ``profile_steps``, default 10) writes a
+  ``torch.profiler`` trace of the first steps, and the wall clock of the
+  ``data``, ``step`` and ``ckpt`` phases is logged at the end of a run;
+- ``remat``, when set, decides the network's per-resblock
+  recomputation, over ``model.score_fn.remat``.
 """
 
 from __future__ import annotations
 
 import collections
-import json
+import itertools
 import logging
-import os
 import time
 
 import numpy as np
@@ -31,9 +45,13 @@ from psld_tpu_torch.data.loader import EpochLoader, get_dataset
 from psld_tpu_torch.models.layers import init_parameters
 from psld_tpu_torch.registry import get_module
 from psld_tpu_torch.train import checkpoint as ckpt
+from psld_tpu_torch.train.interrupt import GracefulShutdown
 from psld_tpu_torch.train.state import count_params, init_state
 from psld_tpu_torch.train.steps import (StepRandom, make_clf_train_step,
                                         make_train_step)
+from psld_tpu_torch.utils.pipeline import prefetch_iter
+from psld_tpu_torch.utils.profiling import (BoundedTrace, MetricsLogger,
+                                            StepTimer)
 
 logger = logging.getLogger(__name__)
 
@@ -41,15 +59,28 @@ logger = logging.getLogger(__name__)
 STATS_KEPT = 4096
 
 # training keys of the JAX package that tune its TPU runtime and have no
-# effect here: the host-side prefetch thread, the profiler trace window,
-# steps scanned per dispatch, and the flattened Adam pass
-TPU_ONLY_KEYS = ("prefetch", "profile_dir", "steps_per_dispatch",
-                 "optimizer.flatten")
+# effect here: steps scanned per dispatch, and the flattened Adam pass
+TPU_ONLY_KEYS = ("steps_per_dispatch", "optimizer.flatten")
 
 
 def build_score_model(config):
-    return get_module("score_fn", config.model.score_fn.name).from_config(
+    net = get_module("score_fn", config.model.score_fn.name).from_config(
         config)
+    return _apply_remat(net, config.training)
+
+
+def _apply_remat(net, tcfg):
+    """``training.remat``, when present, sets the network's per-resblock
+    recomputation (``models/ncsnpp.py``), either way."""
+    flag = tcfg.get("remat", None)
+    if flag is None:
+        return net
+    if not hasattr(net, "remat"):
+        logger.warning("training.remat=%s ignored: %s has no remat support",
+                       flag, type(net).__name__)
+        return net
+    net.remat = bool(flag)
+    return net
 
 
 def build_sde(config):
@@ -63,29 +94,6 @@ def init_score_params(net, seed: int, device="cpu") -> dict:
     init_parameters(net, torch.Generator().manual_seed(int(seed)))
     net.to(device)
     return dict(net.named_parameters())
-
-
-class MetricsLogger:
-    """Append-only JSONL metrics stream: one header record, then one
-    object per logged step."""
-
-    def __init__(self, path: str):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self._f = open(path, "a")
-
-    def _write(self, rec: dict) -> None:
-        self._f.write(json.dumps(rec) + "\n")
-        self._f.flush()
-
-    def header(self, **fields) -> None:
-        self._write({"header": True, "time": time.time(), **fields})
-
-    def log(self, step: int, **metrics) -> None:
-        self._write({"step": int(step), "time": time.time(),
-                     **{k: float(v) for k, v in metrics.items()}})
-
-    def close(self) -> None:
-        self._f.close()
 
 
 def log_ignored_keys(tcfg, where: str) -> None:
@@ -125,15 +133,19 @@ def _step_clock(device):
 
 
 def _restore(tcfg, state, what: str):
-    """``training.restore_path`` (a file, or ``latest`` in the run's
-    checkpoint directory) into ``state``; returns (state, first epoch)."""
+    """``training.restore_path`` into ``state``: a file, or, for
+    ``latest`` or an empty path with ``auto_resume`` true, the newest
+    checkpoint in the run's checkpoint directory (none: a fresh start).
+    Returns (state, first epoch)."""
     restore = str(tcfg.restore_path or "")
     ckpt_dir = f"{tcfg.results_dir}/checkpoints"
-    if restore == "latest":
+    if restore == "latest" or (not restore
+                               and bool(tcfg.get("auto_resume", False))):
+        why = "restore_path=latest" if restore else "auto_resume=true"
         restore = ckpt.latest_checkpoint(ckpt_dir) or ""
         if not restore:
-            logger.info("restore_path=latest: no %s checkpoint in %s yet, "
-                        "starting fresh", what, ckpt_dir)
+            logger.info("%s: no %s checkpoint in %s yet, starting fresh",
+                        why, what, ckpt_dir)
     if not restore:
         return state, 0
     state = ckpt.restore_checkpoint(restore, state)
@@ -142,17 +154,20 @@ def _restore(tcfg, state, what: str):
     return state, start_epoch
 
 
-def _run_epochs(tcfg, state, epoch_steps, device, ckpt_type: str,
-                run_knobs: dict, start_epoch: int, max_steps):
-    """The epoch loop both trainers share. ``epoch_steps()`` starts an
-    epoch and returns a function that takes one optimizer step from the
-    epoch's batches and returns its metrics (0-dim device tensors), or
-    None when the epoch has no full batch left. Returns the newest
-    ``STATS_KEPT`` rows (``step``, ``epoch``, the metrics as floats,
-    ``ms``: the step's span on the device's timeline). The device's
-    values are read only every ``training.log_step`` steps and at the
-    end, so nothing else waits for the device."""
+def _run_epochs(tcfg, state, epoch_batches, step_on, device, ckpt_type: str,
+                run_knobs: dict, start_epoch: int, max_steps, stop):
+    """The epoch loop both trainers share. ``epoch_batches()`` gives an
+    epoch's host batches in order, read ``training.prefetch`` ahead on a
+    thread; ``step_on(batch)`` takes one optimizer step and returns its
+    metrics (0-dim device tensors). Returns the newest ``STATS_KEPT``
+    rows (``step``, ``epoch``, the metrics as floats, ``ms``: the step's
+    span on the device's timeline). The device's values are read only
+    every ``training.log_step`` steps and at the end, so nothing else
+    waits for the device. ``stop`` (a :class:`GracefulShutdown`) or the
+    ``max_steps`` budget ends the run at a step boundary with a
+    checkpoint marked incomplete."""
     log_step = int(tcfg.log_step)
+    prefetch = int(tcfg.get("prefetch", 2))
     base_steps = state.step
     stats: collections.deque = collections.deque(maxlen=STATS_KEPT)
     if max_steps is not None and base_steps >= max_steps:
@@ -160,12 +175,17 @@ def _run_epochs(tcfg, state, epoch_steps, device, ckpt_type: str,
                     "nothing to do", max_steps, base_steps)
         return list(stats)
 
-    def budget_spent():
-        return max_steps is not None and state.step >= max_steps
+    def interrupted():
+        return stop.requested or (max_steps is not None
+                                  and state.step >= max_steps)
 
     ckpt_dir = f"{tcfg.results_dir}/checkpoints"
     mlog = MetricsLogger(f"{tcfg.results_dir}/metrics.jsonl")
     mlog.header(knobs=run_knobs, device=str(device))
+    timer = StepTimer()
+    btrace = BoundedTrace(str(tcfg.get("profile_dir", "") or ""),
+                          int(tcfg.get("profile_steps", 10)), device)
+    saver = ckpt.AsyncSaver()
     mark, span_ms = _step_clock(device)
     last_mark = mark()
     last_loss = float("nan")
@@ -181,45 +201,76 @@ def _run_epochs(tcfg, state, epoch_steps, device, ckpt_type: str,
             row["ms"] = span_ms(before, after)
         pending.clear()
 
+    finished = False
     try:
         for epoch in range(start_epoch, int(tcfg.epochs)):
             t_epoch = time.time()
-            step_once = epoch_steps()
-            while True:
-                metrics = step_once()
-                if metrics is None:
-                    break
-                row = {"step": state.step, "epoch": epoch, **metrics}
-                before, last_mark = last_mark, mark()
-                pending.append((row, before, last_mark))
-                stats.append(row)
-                taken = state.step - base_steps
-                if taken % log_step == 0:
-                    settle()
-                    last_loss = row["loss"]
-                    mlog.log(taken, epoch=epoch, **{
-                        k: v for k, v in row.items()
-                        if k not in ("step", "epoch", "ms")})
-                elif len(pending) >= STATS_KEPT:
-                    settle()
-                if budget_spent():
-                    break
+            batches = epoch_batches()
+            if prefetch > 0:
+                batches = prefetch_iter(batches, depth=prefetch)
+            try:
+                while True:
+                    with timer.phase("data"):
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
+                    with timer.phase("step"):
+                        metrics = step_on(batch)
+                    taken = state.step - base_steps
+                    # the trace's sync and write land in the span of its
+                    # last step, not of the next one
+                    if btrace.maybe_stop(taken):
+                        logger.info("profiler trace (%d steps): %s", taken,
+                                    btrace.path)
+                    row = {"step": state.step, "epoch": epoch, **metrics}
+                    before, last_mark = last_mark, mark()
+                    pending.append((row, before, last_mark))
+                    stats.append(row)
+                    if taken % log_step == 0:
+                        settle()
+                        last_loss = row["loss"]
+                        mlog.log(taken, epoch=epoch, **{
+                            k: v for k, v in row.items()
+                            if k not in ("step", "epoch", "ms")})
+                    elif len(pending) >= STATS_KEPT:
+                        settle()
+                    if interrupted():
+                        break
+            finally:
+                if prefetch > 0:
+                    batches.close()  # stops the producer thread
             logger.info("epoch %d: loss=%.4f (%.1fs)", epoch, last_loss,
                         time.time() - t_epoch)
-            # a budget that ends mid-epoch marks the checkpoint incomplete,
-            # so a resume replays the epoch instead of skipping its tail
-            interrupted = budget_spent()
-            if interrupted or (epoch + 1) % int(tcfg.chkpt_interval) == 0:
-                name = ckpt.checkpoint_name(ckpt_type, str(tcfg.chkpt_prefix),
-                                            epoch, last_loss)
-                path = ckpt.save_checkpoint(ckpt_dir, name, state)
-                ckpt.write_meta(path, epoch, complete=not interrupted,
-                                extra={"knobs": run_knobs})
+            # a stop mid-epoch marks the checkpoint incomplete, so a
+            # resume replays the epoch instead of skipping its tail
+            cut = interrupted()
+            if cut or (epoch + 1) % int(tcfg.chkpt_interval) == 0:
+                with timer.phase("ckpt"):
+                    name = ckpt.checkpoint_name(
+                        ckpt_type, str(tcfg.chkpt_prefix), epoch, last_loss)
+                    path = saver.save(ckpt_dir, name, state, meta={
+                        "epoch": epoch, "complete": not cut,
+                        "extra": {"knobs": run_knobs}})
                 logger.info("checkpoint: %s", path)
-            if interrupted:
+            if cut:
+                if stop.requested:
+                    logger.warning("graceful shutdown: checkpointed at "
+                                   "epoch %d (step %d)", epoch, state.step)
                 break
+        finished = True
     finally:
-        mlog.close()
+        try:
+            btrace.stop()
+            try:
+                saver.close()  # waits for the write in flight
+            except Exception:
+                if finished:
+                    raise
+                # the loop's own error is the one that propagates
+                logger.exception("checkpoint write failed")
+        finally:
+            logger.info("timing: %s", timer.summary())
+            mlog.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     settle()
@@ -230,7 +281,14 @@ def train_sde(config, max_steps: int | None = None):
     """Unconditional score training. Returns ``(state, stats)``: the final
     TrainState and one dict per optimizer step, the newest ``STATS_KEPT``
     of them (``step``, ``epoch``, ``loss``, ``grad_norm``, ``ms``; see
-    :func:`_run_epochs`)."""
+    :func:`_run_epochs`). The shutdown handler is in place before the
+    network is built, so a signal during the set-up still ends in a
+    resumable exit."""
+    with GracefulShutdown() as stop:
+        return _train_sde(config, stop, max_steps)
+
+
+def _train_sde(config, stop, max_steps):
     tcfg = config.training
     _check_single_device(tcfg)
     log_ignored_keys(tcfg, "training")
@@ -253,36 +311,37 @@ def train_sde(config, max_steps: int | None = None):
                          seed=seed)
     rng = StepRandom(seed, device)
 
-    def epoch_steps():
+    def epoch_batches():
+        """An epoch's optimizer-step batches: ``grad_accum`` loader
+        batches stacked; a tail that fills no group is dropped."""
         batches = iter(loader)
-
-        def step_once():
-            chunk = [b for b in (next(batches, None) for _ in range(accum))
-                     if b is not None]
+        while True:
+            chunk = list(itertools.islice(batches, accum))
             if len(chunk) < accum:
                 if chunk:
                     logger.info("dropping %d tail microbatches "
                                 "(< grad_accum=%d)", len(chunk), accum)
-                return None
-            arr = np.stack(chunk) if accum > 1 else chunk[0]
-            batch = torch.from_numpy(arr).to(device, non_blocking=True)
-            return step_fn(state, batch, rng)[1]
+                return
+            yield np.stack(chunk) if accum > 1 else chunk[0]
 
-        return step_once
+    def step_on(arr):
+        batch = torch.from_numpy(arr).to(device, non_blocking=True)
+        return step_fn(state, batch, rng)[1]
 
     run_knobs = knobs.resolved(config)
     run_knobs["bf16"] = bool(tcfg.get("bf16", False))
-    stats = _run_epochs(tcfg, state, epoch_steps, device, sde.type,
-                        run_knobs, start_epoch, max_steps)
+    stats = _run_epochs(tcfg, state, epoch_batches, step_on, device,
+                        sde.type, run_knobs, start_epoch, max_steps, stop)
     return state, stats
 
 
 def build_clf_model(ccfg, seed: int = 0, device="cpu"):
     """The noise-conditional classifier of the ``clf`` config subtree,
-    initialized (``default_init``, seeded) on ``device``."""
+    initialized (``default_init``, seeded) on ``device``;
+    ``clf.training.remat`` applies as ``training.remat`` does."""
     net = get_module("clf_fn", str(ccfg.model.clf_fn.name)).from_config(ccfg)
     init_parameters(net, torch.Generator().manual_seed(int(seed)))
-    return net.to(device)
+    return _apply_remat(net, ccfg.training).to(device)
 
 
 def train_clf(config, max_steps: int | None = None):
@@ -290,7 +349,13 @@ def train_clf(config, max_steps: int | None = None):
     ``diffusion`` tree (the SDE that perturbs the images, the loss's mode)
     and the ``clf`` tree. Returns ``(state, stats)`` as
     :func:`train_sde`, with ``top1`` in place of ``grad_norm``. The
-    checkpoint is named ``clf-<prefix>-epoch=<N>-loss=<L>.pt``."""
+    checkpoint is named ``clf-<prefix>-epoch=<N>-loss=<L>.pt``.
+    Preemption-safe as :func:`train_sde`."""
+    with GracefulShutdown() as stop:
+        return _train_clf(config, stop, max_steps)
+
+
+def _train_clf(config, stop, max_steps):
     ccfg = config.clf
     tcfg = ccfg.training
     _check_single_device(tcfg)
@@ -312,26 +377,18 @@ def train_clf(config, max_steps: int | None = None):
                          seed=seed)
     rng = StepRandom(seed, device)
 
-    def epoch_steps():
-        batches = iter(loader)
-
-        def step_once():
-            b = next(batches, None)
-            if b is None:
-                return None
-            if not isinstance(b, tuple):
-                raise ValueError("classifier training needs labelled "
-                                 "batches: set clf.data.return_target=true")
-            imgs, targets = b
-            x = torch.from_numpy(imgs).to(device, non_blocking=True)
-            y = torch.from_numpy(targets.astype(np.int64)).to(device)
-            return step_fn(state, x, y, rng)[1]
-
-        return step_once
+    def step_on(b):
+        if not isinstance(b, tuple):
+            raise ValueError("classifier training needs labelled "
+                             "batches: set clf.data.return_target=true")
+        imgs, targets = b
+        x = torch.from_numpy(imgs).to(device, non_blocking=True)
+        y = torch.from_numpy(targets.astype(np.int64)).to(device)
+        return step_fn(state, x, y, rng)[1]
 
     run_knobs = knobs.resolved(ccfg)
     run_knobs["bf16"] = bool(tcfg.get(
         "bf16", config.diffusion.training.get("bf16", False)))
-    stats = _run_epochs(tcfg, state, epoch_steps, device, "clf", run_knobs,
-                        start_epoch, max_steps)
+    stats = _run_epochs(tcfg, state, lambda: iter(loader), step_on, device,
+                        "clf", run_knobs, start_epoch, max_steps, stop)
     return state, stats

@@ -1,19 +1,16 @@
 """Image writers and reader (``psld_tpu/utils/images.py``), NHWC numpy.
 
-PNGs are encoded with the standard library (zlib + struct): 8-bit gray,
-RGB or RGBA, one IDAT chunk, filter 0 on every row. Images are read with
-Pillow.
+PNGs are written by the native codec (:mod:`psld_tpu_torch.native`: 8-bit
+gray, RGB or RGBA, one IDAT chunk, filter 0 on every row, a thread an
+image), so the image-folder datasets read them back through it. Images
+are read with Pillow.
 """
 
 from __future__ import annotations
 
-import struct
-import zlib
-
 import numpy as np
 
-_PNG_SIG = b"\x89PNG\r\n\x1a\n"
-_COLOR_TYPE = {1: 0, 3: 2, 4: 6}
+from psld_tpu_torch import native
 
 
 def data_scaler(img, norm: bool = True) -> np.ndarray:
@@ -32,30 +29,9 @@ def to_uint8(batch: np.ndarray, denorm: bool = True) -> np.ndarray:
     return (x * 255.0).clip(0, 255).astype(np.uint8)
 
 
-def _chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-
-def encode_png(img: np.ndarray) -> bytes:
-    """(H, W, C) uint8 with C in {1, 3, 4} -> PNG bytes."""
-    h, w, c = img.shape
-    if img.dtype != np.uint8 or c not in _COLOR_TYPE:
-        raise ValueError(f"encode_png takes (H, W, 1|3|4) uint8, got "
-                         f"{img.shape} {img.dtype}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           img.reshape(h, w * c)], axis=1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
-    return (_PNG_SIG + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + _chunk(b"IEND", b""))
-
-
 def save_as_images(batch, file_name: str = "output", denorm: bool = True):
     """Save an NHWC float batch as ``<file_name>_<i>.png``."""
-    for i, img in enumerate(to_uint8(batch, denorm=denorm)):
-        with open(f"{file_name}_{i}.png", "wb") as f:
-            f.write(encode_png(img))
+    native.write_png_batch(to_uint8(batch, denorm=denorm), file_name)
 
 
 def save_as_np(batch, file_name: str = "output", denorm: bool = True):

@@ -87,17 +87,22 @@ def test_sample_cli_writes_the_jax_writers_files(tmp_path, one_thread):
         assert img.shape == (16, 16, 3) and img.dtype == np.uint8
 
 
-@pytest.mark.parametrize("override", [
-    "+dataset.diffusion.evaluation.spatial=2",
-    "+dataset.diffusion.evaluation.num_processes=2",
+@pytest.mark.parametrize("overrides,error", [
+    pytest.param(["+dataset.diffusion.evaluation.spatial=2"],
+                 NotImplementedError,
+                 id="+dataset.diffusion.evaluation.spatial=2"),
+    pytest.param(["+dataset.diffusion.evaluation.num_processes=2",
+                  "+dataset.diffusion.evaluation.rank=2"], ValueError,
+                 id="+dataset.diffusion.evaluation.num_processes=2"),
 ])
-def test_sample_refuses_what_is_not_ported(override):
-    """Multi-device fan-out is not ported: asked for, the entry point
-    raises before it loads anything. (Correctors are ported:
-    ``test_torch_corrector``.)"""
-    with pytest.raises(NotImplementedError):
+def test_sample_refuses_what_is_not_ported(overrides, error):
+    """Spatial fan-out is not ported, and per-rank fan-out refuses a rank
+    outside ``num_processes`` (``test_torch_fanout`` holds the fan-out
+    itself): the entry point raises before it loads anything.
+    (Correctors are ported: ``test_torch_corrector``.)"""
+    with pytest.raises(error):
         sample_cli.main(["+dataset=cifar10/cifar10_psld",
-                         "dataset.diffusion.data.root=/unused", override,
+                         "dataset.diffusion.data.root=/unused", *overrides,
                          "dataset.diffusion.evaluation.chkpt_path=/unused"])
 
 
@@ -180,6 +185,16 @@ with tempfile.TemporaryDirectory() as d:
                        d + "/out/images", "--kid", "--isc", "--kid-subsets",
                        "2", "--kid-subset-size", "2", "--isc-splits", "2",
                        "--device", "cpu"])
+    import numpy as np
+    from psld_tpu_torch.utils.images import save_as_images
+    for sub in ("male", "female"):
+        os.makedirs(d + "/hq/train/" + sub)
+        save_as_images(np.zeros((2, 8, 8, 3)), d + "/hq/train/" + sub + "/i")
+    folder_state, _ = train_sde.main(tiny + [
+        "dataset.diffusion.data.name=celebahq",
+        "dataset.diffusion.data.root=" + d + "/hq",
+        "dataset.diffusion.training.results_dir=" + d + "/hq_results"])
+print("FOLDER", folder_state.step)
 print("RAN", state.step, clf_state.step, sum(b["samples"] for b in batches))
 print("VP", vp_state.step, [(b["samples"], b["nfe"], b["nonfinite"])
                             for b in vp_batches])
@@ -251,8 +266,9 @@ def test_importing_the_port_pulls_in_no_jax():
     ``cli.train_clf``, ``cli.class_cond_sample``, ``cli.inpaint``,
     ``cli.edit``, ``cli.likelihood`` (two Heun steps, one batch of 2),
     the bench on the CPU at width 8, a VP-SDE ``cli.train_sde`` and
-    ``cli.sample``, and ``cli.fid`` (KID and ISC, random Inception
-    weights) on the samples) leave no module
+    ``cli.sample``, ``cli.fid`` (KID and ISC, random Inception
+    weights) on the samples, and ``cli.train_sde`` from a CelebA-HQ
+    folder of PNGs, read through the native codec) leave no module
     named ``psld_tpu`` or ``psld_tpu.*``, nothing of JAX and no Triton in
     ``sys.modules``."""
     r = subprocess.run(
@@ -269,6 +285,7 @@ def test_importing_the_port_pulls_in_no_jax():
     assert ("FID ['inception_score_mean', 'inception_score_std', "
             "'kernel_inception_distance_mean', "
             "'kernel_inception_distance_std'] True") in r.stdout, r.stdout
+    assert "FOLDER 1" in r.stdout, r.stdout
     assert "IMPORTED []" in r.stdout, r.stdout
 
 
@@ -298,12 +315,14 @@ def test_train_clf_then_guided_and_sscs2m_sampling(tmp_path, caplog,
     classifier checkpoint and its sidecar; ``cli.class_cond_sample`` loads
     it beside a score checkpoint and writes each batch under its label's
     prefix; ``cli.sample`` with SSCS-2M writes its images. Both trainers
-    name the TPU-only keys they were given in one log line."""
+    name the TPU-only keys they were given in one log line; ``prefetch``
+    and ``profile_dir`` are honoured, not named (a trace is written)."""
     caplog.set_level("INFO")
     state, stats = train_sde_cli.main(_TINY_RUN + [
         f"dataset.diffusion.training.results_dir={tmp_path}/score",
         "+dataset.diffusion.training.steps_per_dispatch=4",
-        "+dataset.diffusion.training.profile_dir=/unused"])
+        f"+dataset.diffusion.training.profile_dir={tmp_path}/trace"])
+    assert len(os.listdir(tmp_path / "trace")) == 1
     score = latest_checkpoint(f"{tmp_path}/score/checkpoints")
     clf_state, clf_stats = train_clf_cli.main(_TINY_RUN + _CLF_RUN + [
         f"dataset.clf.training.results_dir={tmp_path}/clf",
@@ -313,9 +332,9 @@ def test_train_clf_then_guided_and_sscs2m_sampling(tmp_path, caplog,
              if "accepted and ignored" in r.getMessage()]
     assert lines == [
         "accepted and ignored (TPU-only, no effect in the port): "
-        "training.profile_dir=/unused, training.steps_per_dispatch=4",
+        "training.steps_per_dispatch=4",
         "accepted and ignored (TPU-only, no effect in the port): "
-        "clf.training.prefetch=2, clf.training.optimizer.flatten=True"]
+        "clf.training.optimizer.flatten=True"]
     assert clf_state.step == 2 and len(clf_stats) == 2
     assert all(np.isfinite(r["loss"]) and 0 <= r["top1"] <= 1
                for r in clf_stats)

@@ -222,6 +222,57 @@ def test_group_norm_act_backward_kernel_matches_plain(card, shape, groups,
             assert err <= tol * ref, (act, err, ref)
 
 
+# CelebA-HQ's 256 x 256 level at C = 256, batch 72: 1.21e9 elements,
+# 2.42e9 bytes in bf16, past 2**31, where a byte offset held in a 32-bit
+# int would wrap (a sampling batch of 64 is 2**31 bytes exactly)
+HUGE = (72, 256, 256, 256)
+HUGE_CHUNK = 8  # batch elements a plain version's call takes
+
+
+def test_kernels_past_two_to_the_31_bytes(card):
+    """The GroupNorm forward and backward and the dropout kernels on a
+    bf16 tensor of 2**31 bytes, against their plain versions, which run
+    ``HUGE_CHUNK`` batch elements at a time (GroupNorm normalizes each
+    batch element alone; dropout is held with each chunk's element
+    offset; dscale and dbias are the chunks' sums): the tolerances of the
+    tests above, dropout bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(HUGE, generator=gen, device=card,
+                    dtype=torch.bfloat16) * 2 + 0.5
+    g = torch.randn(HUGE, generator=gen, device=card, dtype=torch.bfloat16)
+    c, groups = HUGE[-1], 32
+    scale = rand((c,), 1, torch.float32, card, 0.1, 1.0)
+    bias = rand((c,), 2, torch.float32, card, 0.1)
+    assert x.numel() * x.element_size() > 2 ** 31
+    y = ops.group_norm_act(x, scale, bias, groups, 1e-6, "swish")
+    dx, ds, db = ops.group_norm_act_backward(x, scale, bias, g, groups, 1e-6,
+                                             "swish")
+    seed = (12345, 678910)
+    drop = ops.hash_dropout(x, seed, 0.2)
+    torch.cuda.synchronize()
+    sums = [torch.zeros_like(scale), torch.zeros_like(bias)]
+    dx_err = dx_ref = 0.0
+    per = HUGE_CHUNK * x[0].numel()
+    for i in range(0, HUGE[0], HUGE_CHUNK):
+        sl = slice(i, i + HUGE_CHUNK)
+        want = ops.group_norm_act_plain(x[sl], scale, bias, groups, 1e-6,
+                                        "swish")
+        assert_close(y[sl], want, TOL[torch.bfloat16])
+        wdx, wds, wdb = ops.group_norm_act_backward_plain(
+            x[sl], scale, bias, g[sl], groups, 1e-6, "swish")
+        dx_err = max(dx_err, float((dx[sl].float() - wdx.float()).abs()
+                                   .max()))
+        dx_ref = max(dx_ref, float(wdx.float().abs().max()))
+        sums[0] += wds
+        sums[1] += wdb
+        assert torch.equal(drop[sl], ops.hash_dropout_plain(
+            x[sl], seed, 0.2, elem_off=(i // HUGE_CHUNK) * per))
+    assert dx_err <= 2e-2 * dx_ref, (dx_err, dx_ref)
+    for got, want in zip((ds, db), sums):
+        ref = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 2e-2 * ref
+
+
 @pytest.mark.parametrize("gn16", [False, True], ids=["f32chain", "gn_bf16"])
 @pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
 @pytest.mark.parametrize("shape,groups",
@@ -486,3 +537,41 @@ def test_fused_leaky_relu_kernel_refuses_what_it_does_not_take(card):
             ops.fused_leaky_relu(bad_x, bad_b)
     with pytest.raises(ValueError):
         ops.fused_leaky_relu_backward(x, b, x.bfloat16())
+
+
+@pytest.mark.parametrize("impl", ["hw", "save_mask"])
+def test_remat_recomputes_the_same_dropout_on_the_card(card, monkeypatch,
+                                                       impl):
+    """Per-resblock ``remat`` on the card: the hash kernel takes its
+    site's seed words again, the saved-mask dropout replays its CUDA
+    (Philox) generator; output and gradients equal those without remat,
+    bit for bit (cuDNN held to its deterministic algorithms), and the
+    resblocks' GroupNorm kernels launch again in the recompute."""
+    from psld_tpu_torch.models.ncsnpp import NCSNpp
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+
+    kw = dict(image_size=16, in_ch=6, out_ch=6, nf=32, ch_mult=(1, 2),
+              num_res_blocks=1, attn_resolutions=(8,), dropout=0.3,
+              dropout_impl=impl)
+    out = {}
+    for remat in (False, True):
+        torch.manual_seed(0)
+        net = NCSNpp(**kw, remat=remat).to(card)
+        with torch.no_grad():
+            for p in net.parameters():
+                p.normal_().mul_(0.1)
+        x = rand((2, 16, 16, 6), 5, torch.float32, card)
+        t = torch.tensor([0.3, 0.7], device=card)
+        gen = torch.Generator(device=card).manual_seed(7)
+        seeds = [(i, 2 * i + 1) for i in range(net.dropout_sites)]
+        n = ops.group_norm_act.launches
+        y = net(x, t, train=True, dropout_seeds=seeds, generator=gen)
+        grads = torch.autograd.grad(y.square().sum(), list(net.parameters()))
+        torch.cuda.synchronize()
+        out[remat] = (y, grads, ops.group_norm_act.launches - n)
+    assert torch.equal(out[True][0], out[False][0])
+    assert out[True][2] > out[False][2]
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)
