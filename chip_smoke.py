@@ -175,7 +175,37 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 38. fanout: ``cli.sample`` of the flagship's train checkpoint as rank 0
     and then rank 1 of ``num_processes=2``, ``n_samples`` 64, batch 64,
     20-NFE EM: 64 PNGs named by rank, the ranks' images apart.
-39. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
+39. ddp: one process launched by ``torch.distributed.run --standalone
+    --nproc_per_node=1`` drives ``cli.train_sde`` at [train]'s point
+    three times, cuDNN held to its deterministic algorithms: without a
+    process group, then under ``PSLD_MULTIHOST=1`` on NCCL at world
+    size 1 (the gradient all-reduce, the loss all-reduce, the stop
+    agreement), then with ``training.fsdp=true`` (every leaf of 2**14
+    elements or more all-gathered and reduce-scattered). The three
+    checkpoints must be bit-equal; the NCCL run's is also held against
+    [train]'s (bit-equal, or the difference printed beside the first
+    run's); ms/step beside [train]'s, and the device ms of the all-reduce
+    (and of the whole reduction with its copies) at the flagship's
+    gradient shapes.
+40. ddp2, fsdp2: two ranks on the one card (NCCL takes one rank a card,
+    so they join a gloo group on CUDA tensors; each collective gloo does
+    not take on them is staged through the host in this script alone,
+    and the choice printed), ``cli.train_sde`` of the flagship in float32
+    at 64 a rank, hash dropout 0.15, one epoch of 4 steps, no flips
+    (the JAX package's loader draws them per process): data parallel,
+    then FSDP. Each state within 1e-4 of each tree's scale of a
+    one-process float32 run at batch 128 (FSDP's also of the data
+    parallel one); FSDP's bytes a rank beside the JAX package's
+    ``per_device_bytes`` rule computed here on the CPU. The dropout
+    phase holds the kernel on the rows of a rank at their offset
+    ``row0 * H*W*C`` (and at that offset plus 77) against the whole
+    batch's dropout.
+41. lockstep: two ranks of ``cli.sample`` on the one card (gloo), the
+    flagship in float32, 64 rows a rank of global batches of 128, 20 NFE
+    of EM with the Langevin corrector (its step size a mean over both
+    ranks): 128 distinct PNGs tagged with the rank, each rank's rows
+    within 1e-4 of scale of a one-process run's at batch 128.
+42. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
     width with 100 NFE (its default is 1000) and its train phase; its line
     is printed after ``[bench] line:``, its img/s and MFU shares must be
     positive, the shares at most 1.05.
@@ -183,8 +213,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 Every path (train, sample, train_clf, interop, serve, guided, sscs,
 inpaint, edit, pc, ode, cc_ode, likelihood, vp_train, vp_sample, vp_pc,
 vp_edit, vp_ode, vp_likelihood, fid, sweep, bench, celebahq_train,
-resume, celebahq_sample, afhq_train, async_ckpt, fanout; resume counts
-in its two processes, which print their launches) is driven with the
+resume, celebahq_sample, afhq_train, async_ckpt, fanout, ddp, fsdp,
+ddp2, fsdp2, lockstep; resume and the multi-process paths count in
+their processes, which print their launches) is driven with the
 kernels' launch counts set to 0 just before it and must launch exactly
 the kernels its network calls, as many times as its forwards and steps
 need (interop and fid: none).
@@ -800,6 +831,21 @@ def phase_dropout(card, batch=TRAIN_BATCH, calls=DROPOUT_CALLS,
                 check(abs(kept - (1 - p)) < 4 * sigma,
                       f"{what}: kept share {kept:.6f}")
                 n_cases += 1
+            # a rank's rows of the batch at their offset (data parallel),
+            # and mid-row, 77 positions on
+            half = batch // 2
+            whole = hash_dropout(x, seed, rate)
+            for off in (half * hw * c, half * hw * c + 77):
+                got = hash_dropout(x[half:], seed, rate, elem_off=off)
+                what = f"dropout {hw}x{c} {dt} rows {half}: off={off}"
+                check(torch.equal(got, hash_dropout_plain(
+                    x[half:], seed, rate, elem_off=off)),
+                    f"{what}: kernel != plain")
+                check(off != half * hw * c or torch.equal(got, whole[half:]),
+                      f"{what}: the rows' dropout != the batch's")
+                worst = max(worst, max_err(got, hash_dropout_plain(
+                    x[half:], seed, rate, elem_off=off)))
+                n_cases += 1
         x = x32.bfloat16().permute(0, 3, 1, 2)
         xg = x.detach().requires_grad_()
         ct = torch.randn_like(x)
@@ -830,7 +876,9 @@ def phase_dropout(card, batch=TRAIN_BATCH, calls=DROPOUT_CALLS,
     check(torch.equal(got, want),
           "dropout: odd size, 4-word seed: kernel != plain")
     say(f"[{tag}] Triton kernel == plain bit for bit in {n_cases + 1} cases"
-        f" (f32 and bf16, rates {rate} and 0.5, an offset, an odd size), "
+        f" (f32 and bf16, rates {rate} and 0.5, an offset, the rows "
+        f"{batch // 2}.. at their offset (= the batch's rows) and 77 "
+        f"positions on, an odd size), "
         f"{net} shapes, B={batch}; kept share within 4 sigma; backward "
         f"re-masks")
     say(f"[{tag}] device times (CUDA-graph replay; eager = called one by "
@@ -3167,6 +3215,557 @@ def phase_fanout(card, work, ckpt, tag="fanout"):
     return n
 
 
+# -- multi-process paths ------------------------------------------------------
+_RANK_SCRIPT = r'''
+"""One rank of a multi-process phase of chip_smoke.py: the runs of a spec
+file, each with the kernels' launch counts set to 0 before it, and one
+line "DIST <json>" of what they did."""
+import json, os, sys, time
+spec = json.load(open(sys.argv[1]))
+rank = int(os.environ.get("RANK", "0"))
+import numpy as np
+import torch
+# as in the smoke's own process: float32 is float32, not TF32
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+if spec.get("deterministic"):
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+from psld_tpu_torch import ops
+from psld_tpu_torch.parallel import distributed, fsdp
+from psld_tpu_torch.train import loop
+
+NAMES = (("group_norm_act", "group_norm_act"),
+         ("group_norm_act_bwd", "group_norm_act_backward"),
+         ("attention", "attention"), ("hash_dropout", "hash_dropout"),
+         ("fused_leaky_relu", "fused_leaky_relu"),
+         ("fused_leaky_relu_bwd", "fused_leaky_relu_backward"))
+result = {"rank": rank, "runs": {}}
+
+
+def staged(name, fn):
+    """``fn`` on host copies of its CUDA tensors."""
+    if name in ("all_reduce_", "broadcast_"):
+        def run(t, *args, **kwargs):
+            h = t.cpu()
+            fn(h, *args, **kwargs)
+            t.copy_(h)
+    else:
+        def run(out, inp):
+            h = out.cpu()
+            fn(h, inp.cpu())
+            out.copy_(h)
+    return run
+
+
+if spec.get("gloo"):
+    # NCCL takes one rank a card: two ranks on one card join over gloo
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group("gloo")
+    world = torch.distributed.get_world_size()
+    dev = torch.device("cuda", 0)
+    probes = {
+        "all_reduce_": lambda: distributed.all_reduce_(
+            torch.ones(4, device=dev)),
+        "broadcast_": lambda: distributed.broadcast_(
+            torch.full((4,), float(rank), device=dev), 0),
+        "all_gather_flat": lambda: distributed.all_gather_flat(
+            torch.empty(4 * world, device=dev),
+            torch.full((4,), float(rank), device=dev)),
+        "reduce_scatter_flat": lambda: distributed.reduce_scatter_flat(
+            torch.empty(4, device=dev), torch.ones(4 * world, device=dev)),
+    }
+    result["gloo"] = {}
+    for name, probe in probes.items():
+        try:
+            probe()
+            torch.cuda.synchronize()
+            result["gloo"][name] = "gloo on CUDA tensors"
+        except Exception as e:  # the smoke's own choice, printed
+            result["gloo"][name] = ("staged through the host: "
+                                    f"{type(e).__name__}: {str(e)[:120]}")
+            setattr(distributed, name, staged(name, getattr(distributed,
+                                                            name)))
+    # the staged or direct collectives give the right numbers
+    t = torch.ones(4, device=dev)
+    distributed.all_reduce_(t)
+    g = torch.empty(4 * world, device=dev)
+    distributed.all_gather_flat(g, torch.full((4,), float(rank), device=dev))
+    r = torch.empty(4, device=dev)
+    distributed.reduce_scatter_flat(
+        r, torch.arange(4 * world, device=dev, dtype=torch.float32))
+    assert float(t[0]) == world, t
+    assert g.view(world, 4)[:, 0].tolist() == list(map(float, range(world)))
+    assert r.tolist() == [float(world * (4 * rank + i)) for i in range(4)]
+
+captured = {}
+real_place = loop._place
+
+
+def place(state, net, layout):
+    out = real_place(state, net, layout)
+    captured["state_bytes"] = fsdp.per_device_bytes(out)
+    captured["rule_bytes"] = None if layout is None \
+        else layout.bytes_per_rank()
+    captured["sharded_leaves"] = None if layout is None \
+        else len(layout.sharded)
+    return out
+
+
+loop._place = place
+kept = None
+for run in spec["runs"]:
+    if run.get("group"):
+        os.environ["PSLD_MULTIHOST"] = "1"
+    else:
+        os.environ.pop("PSLD_MULTIHOST", None)
+    torch.cuda.synchronize()
+    for _, f in NAMES:
+        getattr(ops, f).launches = 0
+    captured.clear()
+    t0 = time.perf_counter()
+    if run["kind"] == "train":
+        from psld_tpu_torch.cli import train_sde
+        state, stats = train_sde.main(run["argv"])
+        torch.cuda.synchronize()
+        rec = {"step": state.step, "ms": [r["ms"] for r in stats],
+               "loss": [r["loss"] for r in stats],
+               "grad_norm": [r["grad_norm"] for r in stats]}
+        if run.get("keep"):
+            kept = state.params
+        del state
+    else:
+        from psld_tpu_torch.cli import sample
+        from psld_tpu_torch.eval.writers import SimpleImageWriter
+        real = SimpleImageWriter.write_batch
+
+        def recording(self, samples, rank, batch_idx):
+            np.save(os.path.join(run["rows_dir"],
+                                 f"rows_{rank}_{batch_idx}.npy"), samples)
+            return real(self, samples, rank, batch_idx)
+
+        os.makedirs(run["rows_dir"], exist_ok=True)
+        SimpleImageWriter.write_batch = recording
+        batches = sample.main(run["argv"])
+        SimpleImageWriter.write_batch = real
+        torch.cuda.synchronize()
+        rec = {"batches": [[b["samples"], b["nfe"], b["nonfinite"],
+                            b["seconds"]] for b in batches]}
+    rec.update(launches={k: getattr(ops, f).launches for k, f in NAMES},
+               seconds=time.perf_counter() - t0,
+               world=distributed.process_info()[1], **captured)
+    result["runs"][run["tag"]] = rec
+    torch.cuda.empty_cache()
+
+if spec.get("time_reduce") and distributed.initialized():
+    # the gradient reduction of one step at the trained network's shapes
+    grads = [torch.zeros_like(v) for v in kept.values() if v.requires_grad]
+    grads.append(torch.zeros((), device=grads[0].device))
+    reducer = distributed.GradReducer(True)
+    reducer(grads)
+
+    def timed(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+
+    def all_reduce():
+        for bucket in reducer.buckets:
+            distributed.all_reduce_(bucket)
+
+    result["reduce"] = {"all_reduce_ms": timed(all_reduce),
+                        "reducer_ms": timed(lambda: reducer(grads)),
+                        "buckets": len(reducer.buckets),
+                        "bytes": reducer.flat.numel() * 4}
+print("DIST " + json.dumps(result), flush=True)
+'''
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(work, tag, spec, world: int, torchrun: bool = False):
+    """Run the rank script on ``spec`` in ``world`` processes (through
+    ``torch.distributed.run`` when ``torchrun``, else as ranks of a gloo
+    group on card 0); every process must exit 0. Returns each rank's
+    result, in rank order."""
+    script = os.path.join(work, "rank_script.py")
+    with open(script, "w") as f:
+        f.write(_RANK_SCRIPT)
+    spec_path = os.path.join(work, f"{tag}_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    env = {**os.environ, "PYTHONPATH": REPO}
+    env.pop("PSLD_MULTIHOST", None)
+    if torchrun:
+        cmds = [([sys.executable, "-m", "torch.distributed.run",
+                  "--standalone", f"--nproc_per_node={world}", script,
+                  spec_path], env)]
+    else:
+        port = str(_free_port())
+        cmds = [([sys.executable, script, spec_path],
+                 {**env, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port,
+                  "RANK": str(r), "WORLD_SIZE": str(world),
+                  "LOCAL_RANK": "0"}) for r in range(world)]
+    procs = [subprocess.Popen(cmd, cwd=REPO, env=e, text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for cmd, e in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for p, out in zip(procs, outs):
+        check(p.returncode == 0, f"{tag}: a rank exited {p.returncode}:\n"
+              + out[-4000:])
+        lines = [x for x in out.splitlines() if x.startswith("DIST ")]
+        check(len(lines) == 1, f"{tag}: no result line:\n{out[-3000:]}")
+        results.append(json.loads(lines[0][len("DIST "):]))
+    return sorted(results, key=lambda r: r["rank"])
+
+
+def _trees(path):
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    return {"params": raw["params"], "ema": raw["ema_params"],
+            "mu": raw["opt_state"]["mu"], "nu": raw["opt_state"]["nu"]}, \
+        (int(raw["step"]), int(raw["opt_state"]["count"]))
+
+
+def compare_states(path_a, path_b):
+    """(bit-equal, worst error over each tree's largest magnitude, and
+    where it is) of two checkpoints' params, EMA and Adam moments."""
+    (a, ca), (b, cb) = _trees(path_a), _trees(path_b)
+    equal, worst, where = ca == cb, 0.0, ""
+    for name in a:
+        check(set(a[name]) == set(b[name]), f"{name}: keys differ")
+        scale = max(float(v.abs().max()) for v in b[name].values())
+        for k, v in b[name].items():
+            equal = equal and torch.equal(a[name][k], v)
+            err = max_err(a[name][k], v) / max(scale, 1e-30)
+            if err > worst:
+                worst, where = err, f"{name} {k}"
+    return equal, worst, where
+
+
+def _ckpt_of(results):
+    from psld_tpu_torch.train.checkpoint import latest_checkpoint
+
+    path = latest_checkpoint(os.path.join(results, "checkpoints"))
+    check(path is not None, f"no checkpoint in {results}")
+    return path
+
+
+def _train_argv(batch, epochs, results, bf16=True, fsdp=False,
+                hflip=True):
+    """``cli.train_sde`` of the flagship on the synthetic set. Without
+    ``hflip``: the loader of N processes draws its flips per local batch
+    from the same seed in each (the JAX package's rule), which a run of
+    one process does not, so a comparison across the two turns it off."""
+    return FLAGSHIP.args + [
+        "dataset.diffusion.data.name=synthetic",
+        f"dataset.diffusion.data.hflip={hflip}",
+        "+dataset.diffusion.model.score_fn.dropout_impl=hw",
+        f"+dataset.diffusion.training.bf16={bf16}",
+        f"dataset.diffusion.training.results_dir={results}",
+        f"dataset.diffusion.training.batch_size={batch}",
+        "+dataset.diffusion.training.grad_accum=1",
+        f"dataset.diffusion.training.epochs={epochs}",
+        f"dataset.diffusion.training.chkpt_interval={epochs}",
+        f"dataset.diffusion.training.log_step={epochs * 512 // 128}",
+        "+dataset.diffusion.training.device=cuda",
+    ] + (["+dataset.diffusion.training.fsdp=true"] if fsdp else [])
+
+
+def phase_ddp(card, work, train_ckpt, train_ms):
+    """[ddp] and [fsdp] at world size 1 on NCCL (see the module's
+    docstring); returns the launch counts of the NCCL run and of the FSDP
+    run."""
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    epochs = n_steps * TRAIN_BATCH // 512
+    dirs = {t: os.path.join(work, t) for t in ("ddp_plain", "ddp", "fsdp")}
+    runs = [{"tag": "plain", "kind": "train", "group": False,
+             "argv": _train_argv(TRAIN_BATCH, epochs, dirs["ddp_plain"])},
+            {"tag": "ddp", "kind": "train", "group": True, "keep": True,
+             "argv": _train_argv(TRAIN_BATCH, epochs, dirs["ddp"])},
+            {"tag": "fsdp", "kind": "train", "group": True,
+             "argv": _train_argv(TRAIN_BATCH, epochs, dirs["fsdp"],
+                                 fsdp=True)}]
+    t0 = time.perf_counter()
+    res = launch_ranks(work, "ddp", {"deterministic": True, "runs": runs,
+                                     "time_reduce": True}, 1,
+                       torchrun=True)[0]
+    wall = time.perf_counter() - t0
+    want = FLAGSHIP.step_counts(n_steps)
+    ms = {}
+    for tag, rec in res["runs"].items():
+        check(rec["step"] == n_steps, f"[ddp] {tag} took {rec['step']} "
+              "steps")
+        check(rec["launches"] == want, f"[ddp] {tag} launched "
+              f"{rec['launches']}, expected {want}")
+        check(all(np.isfinite(rec["loss"])), f"[ddp] {tag}: non-finite "
+              "loss")
+        ms[tag] = float(np.mean(rec["ms"][TRAIN_WARMUP:]))
+    check(res["runs"]["plain"]["world"] == 1
+          and res["runs"]["ddp"]["world"] == 1
+          and res["runs"]["fsdp"]["world"] == 1, "[ddp] world size")
+    ckpts = {t: _ckpt_of(d) for t, d in dirs.items()}
+    same_plain, err_plain, _ = compare_states(ckpts["ddp"],
+                                              ckpts["ddp_plain"])
+    check(same_plain, f"[ddp] NCCL at world size 1 differs from one "
+          f"process by {err_plain:.3e} of scale: not bit-equal")
+    same_fsdp, err_fsdp, _ = compare_states(ckpts["fsdp"], ckpts["ddp"])
+    check(same_fsdp, f"[fsdp] FSDP at world size 1 differs from [ddp] by "
+          f"{err_fsdp:.3e} of scale: not bit-equal")
+    same_train, err_train, _ = compare_states(ckpts["ddp"], train_ckpt)
+    same_ref, err_ref, _ = compare_states(ckpts["ddp_plain"], train_ckpt)
+    check(same_train == same_ref and err_train == err_ref,
+          "[ddp] the NCCL run and the one-process run stand apart from "
+          "[train]'s checkpoint")
+    red = res["reduce"]
+    fs = res["runs"]["fsdp"]
+    say(f"[ddp] cli.train_sde of the flagship under torch.distributed.run "
+        f"(--standalone, 1 process), NCCL, world size 1, batch "
+        f"{TRAIN_BATCH}, bf16, hash dropout 0.15, {n_steps} steps, cuDNN "
+        f"deterministic: checkpoint bit-equal to the same process's run "
+        f"without a process group; against [train]'s checkpoint (default "
+        f"cuDNN algorithms): "
+        + ("bit-equal" if same_train else
+           f"{err_train:.3e} of scale apart, as the run without a group "
+           f"is") + f"; ms/step {ms['ddp']:.2f} (no group "
+        f"{ms['plain']:.2f}, [train] {train_ms:.2f}); all-reduce "
+        f"{red['all_reduce_ms']:.3f} ms a step ({red['buckets']} buckets, "
+        f"{red['bytes'] / 1e6:.1f} MB), with the copy in and the division "
+        f"{red['reducer_ms']:.3f} ms; ranks' process {wall:.1f} s; {card}")
+    say(f"[fsdp] the same with training.fsdp=true at world size 1: "
+        f"checkpoint bit-equal to [ddp]'s; {fs['sharded_leaves']} leaves "
+        f"sharded, {fs['state_bytes'] / 1e9:.4f} GB of state a rank (the "
+        f"JAX package's per_device_bytes rule: "
+        f"{fs['rule_bytes'] / 1e9:.4f} GB); ms/step {ms['fsdp']:.2f}; "
+        f"{card}")
+    say(f"[ddp] kernel launches: ddp {res['runs']['ddp']['launches']}, "
+        f"fsdp {fs['launches']}")
+    return res["runs"]["ddp"]["launches"], fs["launches"], {
+        "ms_step": ms["ddp"], "ms_step_plain": ms["plain"],
+        "ms_step_fsdp": ms["fsdp"], **red}
+
+
+def _tree_gate(path_a, path_b, what: str) -> float:
+    _, err, where = compare_states(path_a, path_b)
+    check(err <= 1e-4, f"{what}: states {err:.3e} of scale apart at "
+          f"{where} (tol 1e-4)")
+    return err
+
+
+def phase_ddp2(card, work):
+    """[ddp2] and [fsdp2]: two ranks on the one card against one process
+    (see the module's docstring); returns the launch counts of both
+    paths, summed over the ranks, and the FSDP bytes."""
+    from psld_tpu_torch.cli import train_sde as train_cli
+    from psld_tpu_torch.parallel import fsdp
+    from psld_tpu_torch.train.loop import build_score_model
+
+    steps = 512 // TRAIN_BATCH
+    ref_dir = os.path.join(work, "ddp2_ref")
+    t0 = time.perf_counter()
+    train_cli.main(_train_argv(TRAIN_BATCH, 1, ref_dir, bf16=False,
+                               hflip=False))
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    dirs = {t: os.path.join(work, t) for t in ("ddp2", "fsdp2")}
+    runs = [{"tag": "ddp2", "kind": "train",
+             "argv": _train_argv(BATCH, 1, dirs["ddp2"], bf16=False,
+                                 hflip=False)},
+            {"tag": "fsdp2", "kind": "train",
+             "argv": _train_argv(BATCH, 1, dirs["fsdp2"], bf16=False,
+                                 fsdp=True, hflip=False)}]
+    t0 = time.perf_counter()
+    res = launch_ranks(work, "ddp2", {"gloo": True, "runs": runs}, 2)
+    wall = time.perf_counter() - t0
+    want = FLAGSHIP.step_counts(steps)
+    n = {}
+    for tag in dirs:
+        for r in res:
+            rec = r["runs"][tag]
+            check(rec["world"] == 2 and rec["step"] == steps,
+                  f"[{tag}] rank {r['rank']}: world {rec['world']}, "
+                  f"{rec['step']} steps")
+            check(rec["launches"] == want, f"[{tag}] rank {r['rank']} "
+                  f"launched {rec['launches']}, expected {want} (one "
+                  f"process's at batch {BATCH})")
+        check(res[0]["runs"][tag]["loss"] == res[1]["runs"][tag]["loss"],
+              f"[{tag}] the ranks logged different losses")
+        n[tag] = {k: sum(r["runs"][tag]["launches"][k] for r in res)
+                  for k in want}
+    ref = _ckpt_of(ref_dir)
+    err_ddp = _tree_gate(_ckpt_of(dirs["ddp2"]), ref,
+                         "[ddp2] two ranks vs one process")
+    err_fsdp = _tree_gate(_ckpt_of(dirs["fsdp2"]), _ckpt_of(dirs["ddp2"]),
+                          "[fsdp2] FSDP vs data parallel")
+    err_fsdp_ref = _tree_gate(_ckpt_of(dirs["fsdp2"]), ref,
+                              "[fsdp2] FSDP vs one process")
+    with torch.device("meta"):
+        net = build_score_model(bootstrap_cfg(FLAGSHIP.args))
+    rule = fsdp.Layout(dict(net.named_parameters()), rank=0,
+                       world=2).bytes_per_rank()
+    rec = [r["runs"]["fsdp2"] for r in res]
+    check(all(r["state_bytes"] == rule == r["rule_bytes"] for r in rec),
+          f"[fsdp2] bytes a rank {[r['state_bytes'] for r in rec]}, JAX's "
+          f"rule {rule}")
+    ms = {tag: float(np.mean(res[0]["runs"][tag]["ms"][1:])) for tag in dirs}
+    say(f"[ddp2] gloo collectives on CUDA tensors: {res[0]['gloo']}")
+    time_save_mask(card)
+    say(f"[ddp2] two ranks of cli.train_sde on the one card (gloo), the "
+        f"flagship in float32 at {BATCH} a rank, hash dropout 0.15 (kernel "
+        f"at elem_off = rank * {BATCH} * H*W*C), {steps} steps: params, "
+        f"EMA and Adam moments {err_ddp:.3e} of scale from one process at "
+        f"batch {TRAIN_BATCH} (tol 1e-4); ranks' losses equal; "
+        f"{ms['ddp2']:.1f} ms/step on rank 0 (two ranks share the card and "
+        f"gloo stages through the host: not a speed); ranks {wall:.1f} s, "
+        f"reference {ref_s:.1f} s; {card}")
+    replicated = 4 * 4 * sum(math.prod(v.shape) for v in net.parameters())
+    say(f"[fsdp2] the same under training.fsdp=true: {err_fsdp:.3e} of "
+        f"scale from [ddp2], {err_fsdp_ref:.3e} from one process; "
+        f"{rec[0]['sharded_leaves']} leaves sharded, "
+        f"{rec[0]['state_bytes'] / 1e9:.4f} GB of state a rank = the JAX "
+        f"package's per_device_bytes rule {rule / 1e9:.4f} GB (replicated: "
+        f"{replicated / 1e9:.4f} GB); {ms['fsdp2']:.1f} ms/step on rank 0; "
+        f"{card}")
+    say(f"[ddp2] kernel launches over both ranks: ddp2 {n['ddp2']}, fsdp2 "
+        f"{n['fsdp2']}")
+    return n["ddp2"], n["fsdp2"]
+
+
+def time_save_mask(card):
+    """The ``save_mask`` dropout of a rank of two: the mask of the global
+    batch (128) drawn from the card's generator and its rows kept, as
+    ``DropoutSites`` does, against a mask drawn at the rank's 64 rows
+    alone, over the flagship's dropout sites of one forward; returns
+    the two times."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def draw(rows):
+        def fn():
+            for hw, c, n in DROPOUT_CALLS:
+                s = int(round(hw ** 0.5))
+                for _ in range(n):
+                    torch.rand((rows, c, s, s), generator=gen,
+                               device="cuda")[:BATCH]
+        return fn
+
+    glob_ms = cuda_ms(draw(TRAIN_BATCH), iters=5, warmup=1)
+    local_ms = cuda_ms(draw(BATCH), iters=5, warmup=1)
+    say(f"[ddp2] save_mask dropout of a rank of two (one forward's "
+        f"{sum(n for _, _, n in DROPOUT_CALLS)} sites): the global batch's "
+        f"mask drawn and sliced {glob_ms:.3f} ms against {local_ms:.3f} ms "
+        f"for the rank's rows alone; {card}")
+    return glob_ms, local_ms
+
+
+def bootstrap_cfg(args):
+    from psld_tpu_torch.cli._common import bootstrap
+
+    return bootstrap(args).dataset.diffusion
+
+
+LOCKSTEP_NFE = 20
+
+
+def phase_lockstep(card, work, ckpt):
+    """[lockstep]: two ranks of cli.sample on the one card against one
+    process (see the module's docstring); returns the launch counts
+    summed over the ranks."""
+    from PIL import Image
+
+    from psld_tpu_torch.cli import sample as sample_cli
+    from psld_tpu_torch.eval.writers import SimpleImageWriter
+
+    n_samples = 2 * BATCH
+    base = FLAGSHIP.args + [
+        f"dataset.diffusion.evaluation.chkpt_path={ckpt}",
+        f"dataset.diffusion.evaluation.n_samples={n_samples}",
+        f"dataset.diffusion.evaluation.n_discrete_steps={LOCKSTEP_NFE}",
+        "dataset.diffusion.evaluation.sample_from=source",
+        "+dataset.diffusion.evaluation.sampler.corrector=langevin",
+        "+dataset.diffusion.evaluation.device=cuda"]
+    real, ref = SimpleImageWriter.write_batch, {}
+
+    def recording(self, samples, rank, batch_idx):
+        ref[batch_idx] = np.asarray(samples)
+        return real(self, samples, rank, batch_idx)
+
+    SimpleImageWriter.write_batch = recording
+    try:
+        sample_cli.main(base + [
+            f"dataset.diffusion.evaluation.batch_size={n_samples}",
+            f"dataset.diffusion.evaluation.save_path={work}/lockstep_one"])
+    finally:
+        SimpleImageWriter.write_batch = real
+    torch.cuda.empty_cache()
+    out_dir, rows_dir = (os.path.join(work, t)
+                         for t in ("lockstep", "lockstep_rows"))
+    t0 = time.perf_counter()
+    res = launch_ranks(work, "lockstep", {"gloo": True, "runs": [{
+        "tag": "lockstep", "kind": "sample", "rows_dir": rows_dir,
+        "argv": base + [f"dataset.diffusion.evaluation.batch_size={BATCH}",
+                        f"dataset.diffusion.evaluation.save_path={out_dir}"]
+    }]}, 2)
+    wall = time.perf_counter() - t0
+    fwd = 2 * LOCKSTEP_NFE - 1
+    want = FLAGSHIP.fwd_counts(fwd)
+    worst = 0.0
+    for r in res:
+        rec = r["runs"]["lockstep"]
+        check([b[:3] for b in rec["batches"]] == [[BATCH, LOCKSTEP_NFE, 0]],
+              f"[lockstep] rank {r['rank']} drew {rec['batches']}")
+        check(rec["launches"] == want, f"[lockstep] rank {r['rank']} "
+              f"launched {rec['launches']}, expected {want}")
+        got = np.load(os.path.join(rows_dir, f"rows_{r['rank']}_0.npy"))
+        w = ref[0][r["rank"] * BATCH:(r["rank"] + 1) * BATCH]
+        scale = float(np.abs(w).max())
+        err = float(np.abs(got - w).max()) / scale
+        check(err <= 1e-4, f"[lockstep] rank {r['rank']}'s rows "
+              f"{err:.3e} of scale from one process's (tol 1e-4)")
+        worst = max(worst, err)
+    pngs = _pngs(os.path.join(out_dir, "images"))
+    names = sorted(f"output_tpu_{r}_0_{i}.png" for r in range(2)
+                   for i in range(BATCH))
+    check(pngs == names, f"[lockstep] wrote {len(pngs)} PNGs: {pngs[:4]}")
+    digests = {Image.open(os.path.join(out_dir, "images", p)).tobytes()
+               for p in pngs}
+    check(len(digests) == n_samples, f"[lockstep] {len(digests)} distinct "
+          f"images of {n_samples}")
+    n = {k: sum(r["runs"]["lockstep"]["launches"][k] for r in res)
+         for k in want}
+    secs = [r["runs"]["lockstep"]["batches"][0][3] for r in res]
+    say(f"[lockstep] two ranks of cli.sample on the one card (gloo), the "
+        f"flagship in float32, {BATCH} rows a rank of a global batch of "
+        f"{n_samples}, {LOCKSTEP_NFE} NFE of EM with the Langevin corrector "
+        f"({fwd} forwards): {len(pngs)} distinct PNGs tagged with the rank; "
+        f"rows {worst:.3e} of scale from one process at batch {n_samples} "
+        f"(tol 1e-4); trajectories {secs[0]:.2f} s and {secs[1]:.2f} s (two "
+        f"ranks share the card); ranks {wall:.1f} s; {card}")
+    say(f"[lockstep] kernel launches over both ranks: {n}")
+    return n
+
+
 def combine(*timings) -> dict:
     """The timings of one path that launches a kernel at the shapes of
     two networks (guided sampling: the score network's and the
@@ -3196,7 +3795,9 @@ PATHS = {"sample": BATCH, "serve": BATCH, "train": TRAIN_BATCH,
          "sweep": BATCH, "bench": [BATCH, TRAIN_BATCH],
          "celebahq_train": HQ_BATCH, "resume": HQ_BATCH,
          "celebahq_sample": HQ_BATCH, "afhq_train": AFHQ_BATCH,
-         "async_ckpt": TRAIN_BATCH, "fanout": BATCH}
+         "async_ckpt": TRAIN_BATCH, "fanout": BATCH, "ddp": TRAIN_BATCH,
+         "fsdp": TRAIN_BATCH, "ddp2": BATCH, "fsdp2": BATCH,
+         "lockstep": BATCH}
 # the kernels that run only in the bench's train phase, at its batch
 BENCH_TRAIN_ONLY = ("group_norm_act_bwd", "hash_dropout")
 
@@ -3232,6 +3833,8 @@ def main() -> int:
           "vp64": phase_gn(card, BATCH, VP_GN_CALLS, "VP-SDE"),
           "vp128": phase_gn(card, TRAIN_BATCH, VP_GN_CALLS, "VP-SDE")}
     gn_bwd = {"flagship128": phase_gn_bwd(card),
+              # a rank's step of [ddp2] and [fsdp2]
+              "flagship64": phase_gn_bwd(card, BATCH),
               "flagship64_dx": phase_gn_bwd(card, BATCH, need_params=False),
               "clf64": phase_gn_bwd(card, BATCH, CLF_GN_CALLS, "classifier"),
               "clf32": phase_gn_bwd(card, CLF_TRAIN_BATCH, CLF_GN_CALLS,
@@ -3250,6 +3853,7 @@ def main() -> int:
             "vp128": phase_attention(card, TRAIN_BATCH, VP_ATTN_CALLS,
                                      "VP-SDE")}
     drop = {"flagship128": phase_dropout(card),
+            "flagship64": phase_dropout(card, BATCH),
             "clf32": phase_dropout(card, CLF_TRAIN_BATCH, CLF_DROPOUT_CALLS,
                                    "classifier"),
             "vp128": phase_dropout(card, TRAIN_BATCH, VP_DROPOUT_CALLS,
@@ -3293,7 +3897,7 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     # each path is driven with the counts set to 0 just before it
-    ckpt, n_train, _ = phase_train(card, work)
+    ckpt, n_train, train_t = phase_train(card, work)
     n_sample, sample = phase_sample(card, work, ckpt)
     clf_ckpt, n_train_clf, _ = phase_train_clf(card, work)
     # the reference's checkpoint format both ways, then serving
@@ -3339,6 +3943,10 @@ def main() -> int:
         "Adam+warmup, clip 1, EMA 0.9999")
     n_async, async_ckpt = phase_async_ckpt(card, work)
     n_fanout = phase_fanout(card, work, ckpt)
+    # several processes: world size 1 on NCCL, then two ranks on the card
+    n_ddp, n_fsdp, _ = phase_ddp(card, work, ckpt, train_t["ms_step"])
+    n_ddp2, n_fsdp2 = phase_ddp2(card, work)
+    n_lockstep = phase_lockstep(card, work, ckpt)
     say("[hires] " + json.dumps({
         "celebahq_train": hq_train, "celebahq_sample": hq_sample,
         "afhq_train": afhq_train, "async_ckpt": async_ckpt,
@@ -3357,7 +3965,8 @@ def main() -> int:
                "bench": n_bench, "celebahq_train": n_hq_train,
                "resume": n_resume, "celebahq_sample": n_hq_sample,
                "afhq_train": n_afhq_train, "async_ckpt": n_async,
-               "fanout": n_fanout}
+               "fanout": n_fanout, "ddp": n_ddp, "fsdp": n_fsdp,
+               "ddp2": n_ddp2, "fsdp2": n_fsdp2, "lockstep": n_lockstep}
     say("[vp] " + json.dumps({
         "train": vp_train, "sample_em_100": vp_sample, "ode_ms_nfe": vp_ode,
         "likelihood": vp_lik, "inception_batch64": fid,
@@ -3384,7 +3993,10 @@ def main() -> int:
             "bench": combine(gn["flagship64"], gn["flagship128"]),
             "celebahq_train": gn["hq8"], "resume": gn["hq8"],
             "celebahq_sample": gn["hq8"], "afhq_train": gn["afhq32"],
-            "async_ckpt": gn["flagship128"], "fanout": gn["flagship64"]},
+            "async_ckpt": gn["flagship128"], "fanout": gn["flagship64"],
+            "ddp": gn["flagship128"], "fsdp": gn["flagship128"],
+            "ddp2": gn["flagship64"], "fsdp2": gn["flagship64"],
+            "lockstep": gn["flagship64"]},
         "group_norm_act_bwd": {
             "train": gn_bwd["flagship128"], "train_clf": gn_bwd["clf32"],
             "guided": gn_bwd["clf64"], "cc_ode": gn_bwd["clf64"],
@@ -3392,7 +4004,9 @@ def main() -> int:
             "vp_train": gn_bwd["vp128"], "vp_likelihood": gn_bwd["vp64_dx"],
             "bench": gn_bwd["flagship128"], "celebahq_train": gn_bwd["hq8"],
             "resume": gn_bwd["hq8"], "afhq_train": gn_bwd["afhq32"],
-            "async_ckpt": gn_bwd["flagship128"]},
+            "async_ckpt": gn_bwd["flagship128"],
+            "ddp": gn_bwd["flagship128"], "fsdp": gn_bwd["flagship128"],
+            "ddp2": gn_bwd["flagship64"], "fsdp2": gn_bwd["flagship64"]},
         "attention": {
             "sample": attn["flagship64"], "serve": attn["flagship64"],
             "train": attn["flagship128"],
@@ -3410,13 +4024,20 @@ def main() -> int:
             "bench": combine(attn["flagship64"], attn["flagship128"]),
             "celebahq_train": attn["hq8"], "resume": attn["hq8"],
             "celebahq_sample": attn["hq8"], "afhq_train": attn["afhq32"],
-            "async_ckpt": attn["flagship128"], "fanout": attn["flagship64"]},
+            "async_ckpt": attn["flagship128"], "fanout": attn["flagship64"],
+            "ddp": attn["flagship128"], "fsdp": attn["flagship128"],
+            "ddp2": attn["flagship64"], "fsdp2": attn["flagship64"],
+            "lockstep": attn["flagship64"]},
         "hash_dropout": {"train": drop["flagship128"],
                          "train_clf": drop["clf32"],
                          "vp_train": drop["vp128"],
                          "bench": drop["flagship128"],
                          "afhq_train": drop["afhq32"],
-                         "async_ckpt": drop["flagship128"]},
+                         "async_ckpt": drop["flagship128"],
+                         "ddp": drop["flagship128"],
+                         "fsdp": drop["flagship128"],
+                         "ddp2": drop["flagship64"],
+                         "fsdp2": drop["flagship64"]},
     }
     for name, paths in times.items():
         for path in paths:

@@ -30,6 +30,20 @@ cycle over global batch slots, batch k of rank r taking label
 ``(k * N + r) mod len(labels)``; ``inpaint`` and ``edit`` take dataset
 images ``((k * batch_size + i) * N + r) mod len(dataset)``.
 
+Lockstep sampling, as the JAX package's under its multi-process runtime:
+under a process group of N ranks (``torchrun``, or ``PSLD_MULTIHOST=1``)
+with ``evaluation.rank`` and ``evaluation.num_processes`` unset, every
+rank runs the same loop over global batches of ``batch_size * N`` with
+the generators one process would use, and keeps its own rows: rank r
+takes rows ``r * batch_size`` onwards of the prior draw and of every
+trajectory draw (drawn at the global width and sliced), and writes them
+as ``output_<prefix>_<r>_<batch>_<i>``. ``n_samples`` is the total; a
+tail batch is drawn full-width, and a rank writes only its rows below
+the tail's count. The batch statistics some samplers take (the
+corrector's step size, ``adaptive_ode``'s error norm) are means over the
+global batch (``distributed.global_mean``). Inpainting, editing and
+``bb_ode`` refuse lockstep, as in the JAX package.
+
 ``evaluation.sampler.corrector`` (``langevin``, with ``corrector_snr`` and
 ``corrector_steps``) adds a corrector to ``sample``, ``class_cond_sample``
 and ``edit``; ``inpaint`` runs without one, as in the JAX package.
@@ -64,6 +78,8 @@ from psld_tpu_torch.data.datasets import (InpaintDataset, SDELatentDataset,
 from psld_tpu_torch.data.loader import get_dataset
 from psld_tpu_torch.eval.writers import (InpaintingImageWriter,
                                          SimpleImageWriter)
+from psld_tpu_torch.parallel import distributed
+from psld_tpu_torch.parallel.mesh import shard_batch
 from psld_tpu_torch.registry import get_module
 from psld_tpu_torch.samplers.base import make_timesteps
 from psld_tpu_torch.samplers.correctors import build_corrector
@@ -124,21 +140,62 @@ def make_score_fn(net, bf16: bool = False):
 def _check_single_device(ecfg) -> None:
     if int(ecfg.get("spatial", 1) or 1) > 1:
         raise NotImplementedError(
-            "the port samples on one device a process: spatial fan-out "
-            "is not ported yet")
+            "evaluation.spatial (height parallelism) is not ported yet: "
+            "a rank samples on one device (ROADMAP.md, queue 1)")
+
+
+def _lockstep(config):
+    """(rank, world) when the run samples lockstep: a process group of
+    more than one rank, ``evaluation.rank`` and
+    ``evaluation.num_processes`` unset; else None."""
+    ecfg = config.evaluation
+    if int(ecfg.get("num_processes", 0)) > 0 or int(ecfg.get("rank", -1)) >= 0:
+        return None
+    rank, world = distributed.process_info()
+    return (rank, world) if world > 1 else None
+
+
+def _refuse_lockstep(config, what: str) -> None:
+    if _lockstep(config) is not None:
+        raise NotImplementedError(
+            "under a process group only prior-seeded samplers run lockstep "
+            "(em_sde/sscs_sde/sscs2m_sde/rk_ode/adaptive_ode/ei_ode and the "
+            f"guided ones), not {what}; for inpainting, editing or bb_ode "
+            "launch one single-process job per rank with evaluation.rank=R "
+            "evaluation.num_processes=N")
 
 
 def _rank_info(config) -> tuple[int, int]:
-    """(rank, num_processes) of per-rank fan-out: ``evaluation.rank``
-    (default 0) and ``evaluation.num_processes`` (default 1)."""
+    """(rank, num_processes) of per-rank fan-out: ``evaluation.rank`` and
+    ``evaluation.num_processes``, which default to the process group's
+    (0 and 1 without one). Lockstep sampling counts as one process."""
     ecfg = config.evaluation
+    if _lockstep(config) is not None:
+        return 0, 1
     rank = int(ecfg.get("rank", -1))
     nproc = int(ecfg.get("num_processes", 0))
-    nproc = max(nproc, 1)
-    rank = max(rank, 0)
+    group_rank, world = distributed.process_info()
+    nproc = nproc if nproc > 0 else world
+    rank = rank if rank >= 0 else group_rank
     if not rank < nproc:
         raise ValueError(f"rank {rank} out of range for {nproc} processes")
     return rank, nproc
+
+
+def _rows(x, rank: int, world: int):
+    """Rank ``rank``'s rows (of ``world``) of ``x``, a tensor or a
+    tuple."""
+    if isinstance(x, tuple):
+        return tuple(_rows(v, rank, world) for v in x)
+    return shard_batch(x, rank, world)
+
+
+def _lockstep_means(sampler) -> None:
+    """The sampler's and its corrector's batch means over the global
+    batch."""
+    for obj in (sampler, getattr(sampler, "corrector_fn", None)):
+        if hasattr(obj, "batch_mean"):
+            obj.batch_mean = distributed.global_mean
 
 
 def _latent_source(sde, config, device):
@@ -185,13 +242,17 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
     to ``evaluation``'s: this rank's share of ``n_samples``, and the
     rank's generators under fan-out (see the module's docstring).
     ``file_tag`` (default the rank) is the number the writer puts in the
-    file names."""
+    file names. Lockstep (see the module's docstring): the batches are
+    global, each of ``world`` times ``evaluation.batch_size``, and the
+    stats count this rank's rows."""
     ecfg = config.evaluation
     rank, nproc = _rank_info(config)
+    lock = _lockstep(config)
+    lock_rank, world = (0, 1) if lock is None else lock
     if n_samples is None:
         n_samples = -(-int(ecfg.n_samples) // nproc)
     if file_tag is None:
-        file_tag = rank
+        file_tag = lock_rank if lock is not None else rank
     denoise = bool(ecfg.denoise)
     n_steps = int(ecfg.n_discrete_steps)
     n_eff = n_steps - 1 if denoise else n_steps
@@ -201,18 +262,32 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
     per_step = int(ecfg.batch_size)
     n_samples = int(n_samples)
     seed = int(ecfg.seed if seed is None else seed)
+    width = per_step * world
     written, batches = 0, []
-    for batch_idx in range(-(-n_samples // per_step)):
-        take = min(per_step, n_samples - written)
+    for batch_idx in range(-(-n_samples // width)):
+        take = min(width, n_samples - written)
+        mine = min(max(take - lock_rank * per_step, 0), per_step)
         t0 = time.perf_counter()
         gen = batch_generator(seed, batch_idx, device,
                               rank if nproc > 1 else None)
-        z = batch_at(batch_idx, gen, per_step)
+        z = batch_at(batch_idx, gen, width)
         sampler = sampler_at(batch_idx)
+        noise = None
+        if lock is not None:
+            z = _rows(z, lock_rank, world)
+            _lockstep_means(sampler)
+
+            def noise(k, like, gen=gen):
+                """Draw ``k`` at the global width; this rank's rows."""
+                return _rows(torch.randn(
+                    (like.shape[0] * world,) + tuple(like.shape[1:]),
+                    generator=gen, dtype=like.dtype, device=like.device),
+                    lock_rank, world)
         nfe0 = getattr(sampler, "nfe", None)
-        out = sampler.sample(gen, z, ts, n_eff, denoise=denoise, eps=eps)
-        out = out[:take].float().cpu().numpy()
-        stats = {"batch": batch_idx, "samples": take, "width": per_step,
+        out = sampler.sample(gen, z, ts, n_eff, denoise=denoise, eps=eps,
+                             noise=noise)
+        out = out[:mine].float().cpu().numpy()
+        stats = {"batch": batch_idx, "samples": mine, "width": per_step,
                  "nfe": (len(ts) - 1 + int(denoise) if nfe0 is None
                          else sampler.nfe - nfe0),
                  "seconds": time.perf_counter() - t0,
@@ -222,7 +297,7 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
         t0 = time.perf_counter()
         if isinstance(z, tuple):
             writer.write_batch(out, rank=file_tag, batch_idx=batch_idx,
-                               batch=tuple(b[:take].float().cpu().numpy()
+                               batch=tuple(b[:mine].float().cpu().numpy()
                                            for b in z))
         else:
             writer.write_batch(out, rank=file_tag, batch_idx=batch_idx)
@@ -262,7 +337,7 @@ def build_unguided(config, preloaded=None):
     ecfg = config.evaluation
     _check_single_device(ecfg)
     _rank_info(config)  # raises on a rank outside num_processes
-    device = torch.device(str(ecfg.get("device", "cuda")))
+    device = distributed.run_device(ecfg.get("device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: set evaluation.device=cpu to "
                            "sample on the CPU")
@@ -270,6 +345,8 @@ def build_unguided(config, preloaded=None):
     if sampler_cls.guided:
         raise ValueError(f"evaluation.sampler.name={ecfg.sampler.name} is "
                          "guided: use cli.class_cond_sample")
+    if issubclass(sampler_cls, BBODESampler):
+        _refuse_lockstep(config, "bb_ode (a SciPy host loop)")
     sde = build_sde(config)
     net = preloaded if preloaded is not None else load_eval_state(config)
     net = net.eval().to(device)
@@ -340,7 +417,7 @@ def class_cond_sample(config):
     dcfg = config.diffusion
     ecfg = dcfg.evaluation
     _check_single_device(ecfg)
-    device = torch.device(str(ecfg.get("device", "cuda")))
+    device = distributed.run_device(ecfg.get("device", "cuda"))
     sampler_cls = get_module("samplers", str(ecfg.sampler.name))
     if not sampler_cls.guided:
         raise ValueError(f"class_cond_sample needs a guided sampler "
@@ -394,7 +471,8 @@ def _dataset_synthesis(config, build_sampler, batch_at_of, writer) -> list:
     gives this rank's batches."""
     ecfg = config.evaluation
     _check_single_device(ecfg)
-    device = torch.device(str(ecfg.get("device", "cuda")))
+    _refuse_lockstep(config, "inpainting or editing (dataset images)")
+    device = distributed.run_device(ecfg.get("device", "cuda"))
     sde = build_sde(config)
     net = load_eval_state(config).to(device)
     dataset = get_dataset(config)

@@ -90,15 +90,24 @@ class DropoutSites:
       ``generator`` and saved for the backward (``remat`` recomputes the
       same mask in the JAX package, a memory lever of its compiler).
 
+    ``batch_shard = (index, count)`` says that the forward runs on rows
+    ``index * B`` to ``(index + 1) * B`` of a global batch of ``count *
+    B`` (B the local batch; a rank's share under data parallelism): each
+    site then drops as the global batch's forward would drop these rows.
+    The hash implementations add the rows' flat NHWC offset
+    (``elem_off``), the saved masks draw the global batch's mask and keep
+    the rows.
+
     ``close()`` raises unless every seed was used: a seed list of the
     wrong length means the sites were numbered differently."""
 
     def __init__(self, rate: float, impl: str = "save_mask", seeds=None,
-                 generator=None):
+                 generator=None, batch_shard=(0, 1)):
         self.rate = float(rate)
         self.impl = resolve_dropout_impl(impl)
         self.seeds = seeds
         self.generator = generator
+        self.batch_shard = tuple(int(v) for v in batch_shard)
         self.site = 0
         if not 0.0 <= self.rate <= 1.0:
             raise ValueError(f"dropout rate must be in [0, 1]; got {rate}")
@@ -113,6 +122,7 @@ class DropoutSites:
 
     def __call__(self, h):
         i, self.site = self.site, self.site + 1
+        index, count = self.batch_shard
         if self.rate == 0.0:
             return h
         if self.rate == 1.0:
@@ -121,10 +131,16 @@ class DropoutSites:
             if i >= len(self.seeds):
                 raise ValueError(f"dropout site {i}: only "
                                  f"{len(self.seeds)} seeds were given")
-            return hash_dropout(h, self.seeds[i], self.rate)
+            # the shard's first element in the global tensor, mod 2**32
+            # as the JAX package's uint32 offset
+            off = (index * h.numel()) & 0xFFFFFFFF
+            return hash_dropout(h, self.seeds[i], self.rate, elem_off=off)
         keep = 1.0 - self.rate
-        mask = torch.rand(h.shape, generator=self.generator,
-                          device=h.device) < keep
+        b = h.shape[0]
+        draw = torch.rand((b * count,) + tuple(h.shape[1:]),
+                          generator=self.generator, device=h.device)
+        mask = (draw if count == 1 else draw[index * b:(index + 1) * b]) \
+            < keep
         return torch.where(mask, h / keep, torch.zeros_like(h))
 
     def replay_point(self):
@@ -141,7 +157,8 @@ class DropoutSites:
         if state is not None:
             gen = torch.Generator(device=self.generator.device)
             gen.set_state(state)
-        out = DropoutSites(self.rate, self.impl, self.seeds, gen)
+        out = DropoutSites(self.rate, self.impl, self.seeds, gen,
+                           self.batch_shard)
         out.site = site
         return out
 

@@ -170,9 +170,9 @@ class _NCSNBase(nn.Module):
         return sum(1 for name, _ in self.named_children()
                    if name.startswith(self.block_kind + "_"))
 
-    def _dropout(self, train, dropout_seeds, generator):
+    def _dropout(self, train, dropout_seeds, generator, batch_shard):
         return layers.DropoutSites(self.dropout, self.dropout_impl,
-                                   dropout_seeds, generator) \
+                                   dropout_seeds, generator, batch_shard) \
             if train else None
 
     def _resblock(self, blk, h, temb, drop):
@@ -377,13 +377,14 @@ class NCSNpp(_NCSNBase):
         return cls(**_model_kwargs(config))
 
     def forward(self, x, time_cond, train: bool = False, dropout_seeds=None,
-                generator=None):
+                generator=None, batch_shard=(0, 1)):
         """NHWC ``x`` (B, H, W, in_ch), noise level ``time_cond`` (B,) ->
         NHWC (B, H, W, out_ch). ``train=True`` turns dropout on:
         ``dropout_seeds`` holds one tuple of uint32 words per site for the
         hash implementations, ``generator`` draws the masks of the
-        others."""
-        drop = self._dropout(train, dropout_seeds, generator)
+        others; ``batch_shard`` (index, count) places ``x`` in a global
+        batch (:class:`layers.DropoutSites`)."""
+        drop = self._dropout(train, dropout_seeds, generator, batch_shard)
         nxt = _Next(self)
         n_levels = len(self.ch_mult)
         h = x.permute(0, 3, 1, 2)
@@ -451,11 +452,11 @@ class NCSNppClassifier(_NCSNBase):
         return cls(**_model_kwargs_clf(config))
 
     def forward(self, x, time_cond, train: bool = False, dropout_seeds=None,
-                generator=None):
+                generator=None, batch_shard=(0, 1)):
         """NHWC ``x`` (B, H, W, in_ch), noise level ``time_cond`` (B,) ->
         logits (B, n_cls); ``train`` and the dropout arguments as for
         :class:`NCSNpp`."""
-        drop = self._dropout(train, dropout_seeds, generator)
+        drop = self._dropout(train, dropout_seeds, generator, batch_shard)
         nxt = _Next(self)
         h = x.permute(0, 3, 1, 2)
         temb = self._time_embedding(time_cond, nxt)

@@ -36,6 +36,8 @@ class LangevinCorrector:
         self.score_fn = score_fn
         self.snr = float(scfg.get("corrector_snr", 0.16))
         self.steps = int(scfg.get("corrector_steps", 1))
+        # the batch's mean; lockstep sampling takes it over every rank
+        self.batch_mean = torch.mean
 
     def _live_mask(self, u):
         """1 where the state carries a score: in PSLD's reduced-output
@@ -74,8 +76,8 @@ class LangevinCorrector:
             # batch-mean norms give one scalar step: per-sample norms
             # blow the step up for samples near a mode, where the score
             # goes to 0
-            g_norm = torch.sqrt((score * score).sum(dims)).mean()
-            z_norm = torch.sqrt((z * z).sum(dims)).mean()
+            g_norm = self.batch_mean(torch.sqrt((score * score).sum(dims)))
+            z_norm = self.batch_mean(torch.sqrt((z * z).sum(dims)))
             step = 2.0 * (self.snr * z_norm
                           / torch.clamp_min(g_norm, 1e-20)) ** 2
             u_mean = u + step * score

@@ -159,13 +159,15 @@ class AdaptiveODESampler(_ODESampler):
         solver = str(scfg.get("solver", "RK45"))
         if solver not in ("RK45", "dopri5"):
             raise ValueError(f"adaptive_ode runs RK45 (dopri5), not {solver}")
+        # the RMS norms' mean; lockstep sampling takes it over every rank
+        self.batch_mean = torch.mean
 
     def _norm_and_factor(self, err, y_old, y_new):
         """(error norm, step factor) as two host floats: the one read of a
         controller iteration."""
         scale = self.atol + self.rtol * torch.maximum(y_old.abs(),
                                                       y_new.abs())
-        norm = torch.sqrt(torch.mean(torch.square(err / scale)))
+        norm = torch.sqrt(self.batch_mean(torch.square(err / scale)))
         norm = torch.where(torch.isnan(norm), torch.full_like(norm, np.inf),
                            norm)
         raw = self.SAFETY * norm ** -0.2
@@ -182,8 +184,8 @@ class AdaptiveODESampler(_ODESampler):
         final guard as it does in IEEE arithmetic."""
         scale = self.atol + self.rtol * y0.abs()
         d0, d1 = (np.float64(v) for v in torch.stack([
-            torch.sqrt(torch.mean(torch.square(y0 / scale))),
-            torch.sqrt(torch.mean(torch.square(f0 / scale)))]).tolist())
+            torch.sqrt(self.batch_mean(torch.square(y0 / scale))),
+            torch.sqrt(self.batch_mean(torch.square(f0 / scale)))]).tolist())
         span = np.float64(t_end - t0)
         with np.errstate(all="ignore"):
             h0 = np.float64(1e-6) if d0 < 1e-5 or d1 < 1e-5 \
@@ -193,7 +195,7 @@ class AdaptiveODESampler(_ODESampler):
             h0 = np.minimum(h0, 0.5 * span)
             f1 = self._drift(y0 + _in_dtype(float(h0), y0) * f0,
                              t0 + float(h0))
-            d2 = np.float64(float(torch.sqrt(torch.mean(torch.square(
+            d2 = np.float64(float(torch.sqrt(self.batch_mean(torch.square(
                 (f1 - f0) / scale))))) / h0
             dmax = np.maximum(d1, d2)
             h1 = np.maximum(1e-6, h0 * 1e-3) if dmax <= 1e-15 \

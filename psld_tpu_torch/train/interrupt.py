@@ -6,12 +6,20 @@ checkpoint marked incomplete, and returns, so the process exits with 0.
 Relaunching the same command with ``training.auto_resume=true`` (or
 ``restore_path=latest``) replays the interrupted epoch from that
 checkpoint.
+
+Under a process group a signal reaches the ranks at different moments,
+and a rank that left while the others wait in a collective would hang
+the job. The loop therefore reads :meth:`GracefulShutdown.agreed` once a
+step: the flag OR-ed over the ranks, so all of them checkpoint and exit
+at the same step.
 """
 
 from __future__ import annotations
 
 import logging
 import signal
+
+from psld_tpu_torch.parallel import distributed
 
 logger = logging.getLogger(__name__)
 
@@ -29,6 +37,7 @@ class GracefulShutdown:
         self._signals = signals
         self._previous = {}
         self.requested = False
+        self._agreed = False
 
     def _handle(self, signum, frame):
         if self.requested and signum == signal.SIGINT:
@@ -37,6 +46,13 @@ class GracefulShutdown:
             "received %s: finishing the current step and checkpointing",
             signal.Signals(signum).name)
         self.requested = True
+
+    def agreed(self) -> bool:
+        """True on every rank once the flag is up on any. Every rank must
+        call it at the same points (the loop: once a step); after it
+        first returns True it asks no rank again."""
+        self._agreed = self._agreed or distributed.any_rank(self.requested)
+        return self._agreed
 
     def install(self) -> "GracefulShutdown":
         for s in self._signals:

@@ -1,9 +1,17 @@
 """The training loops (``psld_tpu/train/loop.py::train_sde`` and
 ``train_clf``): build the components from a config through the registry,
-run the epoch loop on one device, checkpoint.
+run the epoch loop, checkpoint.
 
-``training.device`` (default ``cuda``) is where the run lives. Not ported,
-and raising if asked for: ``training.spatial``, ``training.fsdp``.
+``training.device`` (default ``cuda``) is where the run lives. Under a
+process group (:mod:`psld_tpu_torch.parallel.distributed`; ``torchrun``
+or ``PSLD_MULTIHOST=1``) of N ranks, rank r works on ``cuda:LOCAL_RANK``
+(or the CPU), as the JAX package's loop on an N-device mesh:
+``batch_size`` is per rank and the global batch is ``batch_size * N``,
+each rank loads its rows of every global batch, the state starts as rank
+0's, and only rank 0 writes ``metrics.jsonl``, checkpoints and the
+profiler trace. ``training.fsdp=true`` shards the state
+(:mod:`psld_tpu_torch.parallel.fsdp`); its checkpoints hold the full
+state. Not ported, and raising if asked for: ``training.spatial``.
 Accepted without effect, and named in one log line at the start of a run
 when set (:data:`TPU_ONLY_KEYS`): ``steps_per_dispatch`` (a dispatch
 lever of the JAX package's remote runtime; eager PyTorch has no dispatch
@@ -16,7 +24,9 @@ As in the JAX package:
   start fresh where there is none;
 - SIGTERM or SIGINT stops the run at the next step boundary with a
   checkpoint marked incomplete (:mod:`.interrupt`), which a relaunch
-  resumes by replaying its epoch;
+  resumes by replaying its epoch; the ranks of a process group agree on
+  the stop at every step, so a signal that reaches one rank stops them
+  all at the same step;
 - checkpoints are written on a thread (:class:`.checkpoint.AsyncSaver`);
 - ``prefetch`` (default 2; 0 turns it off) batches are loaded ahead on a
   thread (:func:`psld_tpu_torch.utils.pipeline.prefetch_iter`);
@@ -43,6 +53,8 @@ import psld_tpu_torch.sde  # noqa: F401  (registers the SDEs)
 from psld_tpu_torch import knobs
 from psld_tpu_torch.data.loader import EpochLoader, get_dataset
 from psld_tpu_torch.models.layers import init_parameters
+from psld_tpu_torch.parallel import distributed, fsdp
+from psld_tpu_torch.parallel.mesh import replicate_
 from psld_tpu_torch.registry import get_module
 from psld_tpu_torch.train import checkpoint as ckpt
 from psld_tpu_torch.train.interrupt import GracefulShutdown
@@ -113,10 +125,40 @@ def log_ignored_keys(tcfg, where: str) -> None:
 
 
 def _check_single_device(tcfg) -> None:
-    if int(tcfg.get("spatial", 1) or 1) > 1 or bool(tcfg.get("fsdp", False)):
+    if int(tcfg.get("spatial", 1) or 1) > 1:
         raise NotImplementedError(
-            "the port trains on one device: training.spatial and "
-            "training.fsdp are not ported yet")
+            "training.spatial (height parallelism) is not ported yet: "
+            "ROADMAP.md, queue 1")
+
+
+def _run_device(tcfg):
+    """``training.device``; under a process group, this rank's card."""
+    return distributed.run_device(tcfg.get("device", "cuda"))
+
+
+def _layout(tcfg, params):
+    """The FSDP layout of ``params`` under ``training.fsdp``, else None."""
+    if not bool(tcfg.get("fsdp", False)):
+        return None
+    return fsdp.Layout(params)
+
+
+def _place(state, net, layout):
+    """Rank 0's state on every rank (``replicate_``); under FSDP, this
+    rank's shards of it. The network's own storage of the sharded leaves
+    is released: the forward runs on the step's compute copies."""
+    replicate_(state)
+    if layout is None:
+        return state
+    state = fsdp.shard_state(state, layout)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if layout.is_sharded(name):
+                p.data = p.data.new_empty(0)
+    logger.info("fsdp: %d of %d leaves sharded over %d ranks, %.1f MB of "
+                "state a rank", len(layout.sharded), len(layout.shapes),
+                layout.world, fsdp.per_device_bytes(state) / 1e6)
+    return state
 
 
 def _step_clock(device):
@@ -142,7 +184,9 @@ def _restore(tcfg, state, what: str):
     if restore == "latest" or (not restore
                                and bool(tcfg.get("auto_resume", False))):
         why = "restore_path=latest" if restore else "auto_resume=true"
-        restore = ckpt.latest_checkpoint(ckpt_dir) or ""
+        # rank 0 picks the file, so every rank restores the same one
+        restore = distributed.broadcast_object(
+            ckpt.latest_checkpoint(ckpt_dir) or "")
         if not restore:
             logger.info("%s: no %s checkpoint in %s yet, starting fresh",
                         why, what, ckpt_dir)
@@ -155,7 +199,8 @@ def _restore(tcfg, state, what: str):
 
 
 def _run_epochs(tcfg, state, epoch_batches, step_on, device, ckpt_type: str,
-                run_knobs: dict, start_epoch: int, max_steps, stop):
+                run_knobs: dict, start_epoch: int, max_steps, stop,
+                layout=None):
     """The epoch loop both trainers share. ``epoch_batches()`` gives an
     epoch's host batches in order, read ``training.prefetch`` ahead on a
     thread; ``step_on(batch)`` takes one optimizer step and returns its
@@ -165,7 +210,12 @@ def _run_epochs(tcfg, state, epoch_batches, step_on, device, ckpt_type: str,
     every ``training.log_step`` steps and at the end, so nothing else
     waits for the device. ``stop`` (a :class:`GracefulShutdown`) or the
     ``max_steps`` budget ends the run at a step boundary with a
-    checkpoint marked incomplete."""
+    checkpoint marked incomplete; the ranks of a process group agree on
+    ``stop`` once a step (:meth:`GracefulShutdown.agreed`, over the
+    host), so all stop at the same step. Only rank 0 writes the metrics,
+    the trace and the checkpoints; under FSDP (``layout``) every rank
+    takes part in gathering the state a checkpoint holds."""
+    lead = distributed.process_info()[0] == 0
     log_step = int(tcfg.log_step)
     prefetch = int(tcfg.get("prefetch", 2))
     base_steps = state.step
@@ -176,15 +226,16 @@ def _run_epochs(tcfg, state, epoch_batches, step_on, device, ckpt_type: str,
         return list(stats)
 
     def interrupted():
-        return stop.requested or (max_steps is not None
-                                  and state.step >= max_steps)
+        return stop.agreed() or (max_steps is not None
+                                 and state.step >= max_steps)
 
     ckpt_dir = f"{tcfg.results_dir}/checkpoints"
-    mlog = MetricsLogger(f"{tcfg.results_dir}/metrics.jsonl")
+    mlog = MetricsLogger(f"{tcfg.results_dir}/metrics.jsonl" if lead else "")
     mlog.header(knobs=run_knobs, device=str(device))
     timer = StepTimer()
-    btrace = BoundedTrace(str(tcfg.get("profile_dir", "") or ""),
-                          int(tcfg.get("profile_steps", 10)), device)
+    btrace = BoundedTrace(
+        str(tcfg.get("profile_dir", "") or "") if lead else "",
+        int(tcfg.get("profile_steps", 10)), device)
     saver = ckpt.AsyncSaver()
     mark, span_ms = _step_clock(device)
     last_mark = mark()
@@ -246,14 +297,19 @@ def _run_epochs(tcfg, state, epoch_batches, step_on, device, ckpt_type: str,
             cut = interrupted()
             if cut or (epoch + 1) % int(tcfg.chkpt_interval) == 0:
                 with timer.phase("ckpt"):
-                    name = ckpt.checkpoint_name(
-                        ckpt_type, str(tcfg.chkpt_prefix), epoch, last_loss)
-                    path = saver.save(ckpt_dir, name, state, meta={
-                        "epoch": epoch, "complete": not cut,
-                        "extra": {"knobs": run_knobs}})
-                logger.info("checkpoint: %s", path)
+                    full = state if layout is None \
+                        else fsdp.gather_state(state, layout)
+                    if lead:
+                        name = ckpt.checkpoint_name(
+                            ckpt_type, str(tcfg.chkpt_prefix), epoch,
+                            last_loss)
+                        path = saver.save(ckpt_dir, name, full, meta={
+                            "epoch": epoch, "complete": not cut,
+                            "extra": {"knobs": run_knobs}})
+                        logger.info("checkpoint: %s", path)
+                    del full
             if cut:
-                if stop.requested:
+                if stop.agreed():
                     logger.warning("graceful shutdown: checkpointed at "
                                    "epoch %d (step %d)", epoch, state.step)
                 break
@@ -293,7 +349,8 @@ def _train_sde(config, stop, max_steps):
     _check_single_device(tcfg)
     log_ignored_keys(tcfg, "training")
     seed = int(tcfg.seed)
-    device = torch.device(str(tcfg.get("device", "cuda")))
+    device = _run_device(tcfg)
+    rank, world = distributed.process_info()
 
     dataset = get_dataset(config)
     net = build_score_model(config)
@@ -303,13 +360,17 @@ def _train_sde(config, stop, max_steps):
     logger.info("score_fn: %.1fM params", count_params(params) / 1e6)
 
     accum = int(tcfg.get("grad_accum", 1))
-    step_fn, optimizer = make_train_step(net, sde, criterion, config)
+    layout = _layout(tcfg, params)
+    step_fn, optimizer = make_train_step(net, sde, criterion, config,
+                                         fsdp=layout)
     state, start_epoch = _restore(tcfg, init_state(params, optimizer),
                                   "score")
-    loader = EpochLoader(dataset, int(tcfg.batch_size), shuffle=True,
-                         drop_last=True, hflip=bool(config.data.hflip),
-                         seed=seed)
-    rng = StepRandom(seed, device)
+    state = _place(state, net, layout)
+    loader = EpochLoader(dataset, int(tcfg.batch_size) * world,
+                         shuffle=True, drop_last=True,
+                         hflip=bool(config.data.hflip), seed=seed,
+                         process_index=rank, process_count=world)
+    rng = StepRandom(seed, device, shard=(rank, world))
 
     def epoch_batches():
         """An epoch's optimizer-step batches: ``grad_accum`` loader
@@ -331,7 +392,10 @@ def _train_sde(config, stop, max_steps):
     run_knobs = knobs.resolved(config)
     run_knobs["bf16"] = bool(tcfg.get("bf16", False))
     stats = _run_epochs(tcfg, state, epoch_batches, step_on, device,
-                        sde.type, run_knobs, start_epoch, max_steps, stop)
+                        sde.type, run_knobs, start_epoch, max_steps, stop,
+                        layout)
+    if layout is not None:
+        state = fsdp.gather_state(state, layout)
     return state, stats
 
 
@@ -361,7 +425,8 @@ def _train_clf(config, stop, max_steps):
     _check_single_device(tcfg)
     log_ignored_keys(tcfg, "clf.training")
     seed = int(tcfg.seed)
-    device = torch.device(str(tcfg.get("device", "cuda")))
+    device = _run_device(tcfg)
+    rank, world = distributed.process_info()
 
     dataset = get_dataset(ccfg)
     net = build_clf_model(ccfg, seed, device)
@@ -369,13 +434,17 @@ def _train_clf(config, stop, max_steps):
     logger.info("clf_fn: %.1fM params", count_params(params) / 1e6)
     sde = build_sde(config.diffusion)
     criterion = get_module("losses", tcfg.loss.name)(config, sde)
-    step_fn, optimizer = make_clf_train_step(net, sde, criterion, config)
+    layout = _layout(tcfg, params)
+    step_fn, optimizer = make_clf_train_step(net, sde, criterion, config,
+                                             fsdp=layout)
     state, start_epoch = _restore(tcfg, init_state(params, optimizer),
                                   "classifier")
-    loader = EpochLoader(dataset, int(tcfg.batch_size), shuffle=True,
-                         drop_last=True, hflip=bool(ccfg.data.hflip),
-                         seed=seed)
-    rng = StepRandom(seed, device)
+    state = _place(state, net, layout)
+    loader = EpochLoader(dataset, int(tcfg.batch_size) * world,
+                         shuffle=True, drop_last=True,
+                         hflip=bool(ccfg.data.hflip), seed=seed,
+                         process_index=rank, process_count=world)
+    rng = StepRandom(seed, device, shard=(rank, world))
 
     def step_on(b):
         if not isinstance(b, tuple):
@@ -390,5 +459,8 @@ def _train_clf(config, stop, max_steps):
     run_knobs["bf16"] = bool(tcfg.get(
         "bf16", config.diffusion.training.get("bf16", False)))
     stats = _run_epochs(tcfg, state, lambda: iter(loader), step_on, device,
-                        "clf", run_knobs, start_epoch, max_steps, stop)
+                        "clf", run_knobs, start_epoch, max_steps, stop,
+                        layout)
+    if layout is not None:
+        state = fsdp.gather_state(state, layout)
     return state, stats

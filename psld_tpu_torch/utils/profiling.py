@@ -44,13 +44,18 @@ class StepTimer:
 
 class MetricsLogger:
     """Append-only JSONL metrics stream: one header record, then one
-    object per logged step."""
+    object per logged step. An empty ``path`` writes nothing (a rank
+    other than 0)."""
 
     def __init__(self, path: str):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self._f = open(path, "a")
+        self._f = None
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self._f = open(path, "a")
 
     def _write(self, rec: dict) -> None:
+        if self._f is None:
+            return
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
 
@@ -62,7 +67,8 @@ class MetricsLogger:
                      **{k: float(v) for k, v in metrics.items()}})
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class BoundedTrace:

@@ -289,6 +289,25 @@ def test_importing_the_port_pulls_in_no_jax():
     assert "IMPORTED []" in r.stdout, r.stdout
 
 
+def test_a_distributed_worker_imports_no_jax(tmp_path):
+    """The same check in the ranks of a process group: two gloo workers
+    of ``cli.train_sde`` (tests/test_torch_parallel.py's, joined through
+    ``bootstrap`` under ``PSLD_MULTIHOST=1``; one epoch of 2 steps at
+    8x8, 128 images a rank) each leave nothing of JAX and no module of
+    ``psld_tpu`` in ``sys.modules``."""
+    from test_torch_parallel import TRAIN_RUN, launch, line
+
+    args = [a for a in TRAIN_RUN if "epochs=" not in a
+            and "batch_size=" not in a] + [
+        "dataset.diffusion.training.epochs=1",
+        "dataset.diffusion.training.batch_size=128",
+        f"dataset.diffusion.training.results_dir={tmp_path / 'results'}"]
+    outs = launch(tmp_path, "train", {"min_size": 256, "kill_rank": -1,
+                                      "train_args": args})
+    assert [line(out, "TRAINED")["step"] for out in outs] == [2, 2]
+    assert all("IMPORTED []" in out for out in outs)
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     """No CUDA device: the smoke exits non-zero and prints no result,
     from the repo and from a directory holding only the script."""

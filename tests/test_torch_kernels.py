@@ -438,6 +438,44 @@ def test_hash_dropout_kernel_matches_plain_bit_for_bit(card, shape, off,
         assert got.dtype == dtype and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("shape,row", [
+    ((2, 4, 4, 3), 1),      # 48 positions a row: offsets 48, 96, 144
+    ((3, 5, 7, 3), 2),      # 105 a row: the first row of 128 part-filled
+    ((4, 8, 8, 256), 2),    # a rank's rows at the flagship's widths
+    ((6, 1, 1, 129), 5),    # shorter than the part-filled first row
+])
+def test_hash_dropout_kernel_at_a_ranks_row_offset(card, shape, row, dtype):
+    """A rank's rows of a batch, dropped at their flat offset ``row *
+    H*W*C`` (``elem_off``, rarely a multiple of 128 here), are the whole
+    batch's dropout rows, bit for bit, forward and backward."""
+    x = rand(shape, 3, dtype, card)
+    seed, rate = [987654321, 12345], 0.15
+    whole = ops.hash_dropout(x, seed, rate)
+    off = row * x[0].numel()
+    part = x[row:].detach().clone().requires_grad_()
+    got = ops.hash_dropout(part, seed, rate, elem_off=off)
+    assert torch.equal(got, whole[row:])
+    assert torch.equal(got, ops.hash_dropout_plain(part.detach(), seed, rate,
+                                                   elem_off=off))
+    ct = rand(part.shape, 4, dtype, card)
+    (dx,) = torch.autograd.grad(got, part, ct)
+    assert torch.equal(dx, ops.hash_dropout_plain(ct, seed, rate,
+                                                  elem_off=off))
+
+
+@pytest.mark.parametrize("n,off", [(1, 127), (100, 29), (129, 1),
+                                   (4099, 2 ** 32 - 5), (300, 128 * 7 + 100)])
+def test_hash_dropout_kernel_at_offsets_within_a_row(card, n, off):
+    """Flat tensors whose first element sits mid-row (offset mod 128 not
+    0), shorter and longer than the rest of that row, and wrapping mod
+    2**32."""
+    x = rand((n,), 6, torch.float32, card)
+    got = ops.hash_dropout(x, [1, 2], 0.5, elem_off=off)
+    assert torch.equal(got, ops.hash_dropout_plain(x, [1, 2], 0.5,
+                                                   elem_off=off))
+
+
 def test_hash_dropout_kernel_backward_and_layouts(card):
     x = rand((2, 4, 4, 8), 0, torch.float32, card).requires_grad_()
     inner = x.permute(0, 3, 1, 2)  # NCHW-logical, channels_last memory
@@ -574,4 +612,48 @@ def test_remat_recomputes_the_same_dropout_on_the_card(card, monkeypatch,
     assert torch.equal(out[True][0], out[False][0])
     assert out[True][2] > out[False][2]
     for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("impl", ["hw", "save_mask"])
+def test_a_ranks_dropout_is_the_global_batchs_on_the_card(card, monkeypatch,
+                                                          impl):
+    """A forward of rows 2..3 of a batch of 4 under ``batch_shard = (1,
+    2)`` drops as the forward of the whole batch does on those rows: the
+    hash kernel at the rows' offset, the saved mask drawn at the global
+    shape from the card's (Philox) generator and sliced, and the same
+    again in the ``remat`` recompute; output and gradients bit for bit
+    against the rank's forward without remat (cuDNN deterministic)."""
+    from psld_tpu_torch.models.ncsnpp import NCSNpp
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    kw = dict(image_size=16, in_ch=6, out_ch=6, nf=32, ch_mult=(1, 2),
+              num_res_blocks=1, attn_resolutions=(8,), dropout=0.3,
+              dropout_impl=impl)
+    x = rand((4, 16, 16, 6), 5, torch.float32, card)
+    t = torch.tensor([0.3, 0.7, 0.2, 0.9], device=card)
+    out = {}
+    for remat, rows, shard in ((False, slice(0, 4), (0, 1)),
+                               (False, slice(2, 4), (1, 2)),
+                               (True, slice(2, 4), (1, 2))):
+        torch.manual_seed(0)
+        net = NCSNpp(**kw, remat=remat).to(card)
+        with torch.no_grad():
+            for p in net.parameters():
+                p.normal_().mul_(0.1)
+        gen = torch.Generator(device=card).manual_seed(7)
+        seeds = [(i, 2 * i + 1) for i in range(net.dropout_sites)]
+        y = net(x[rows], t[rows], train=True, dropout_seeds=seeds,
+                generator=gen, batch_shard=shard)
+        grads = torch.autograd.grad(y.square().sum(), list(net.parameters()))
+        torch.cuda.synchronize()
+        out[(remat, shard)] = (y, grads)
+    whole = out[(False, (0, 1))][0]
+    part, part_grads = out[(False, (1, 2))]
+    # the rows agree to the last bits a different batch gives cuDNN
+    torch.testing.assert_close(part, whole[2:], rtol=1e-4, atol=1e-5)
+    rem, rem_grads = out[(True, (1, 2))]
+    assert torch.equal(rem, part)
+    for a, b in zip(rem_grads, part_grads):
         assert torch.equal(a, b)

@@ -386,6 +386,12 @@ def test_checkpoint_roundtrip_and_sampling(trained, tmp_path):
     "+dataset.diffusion.training.fsdp=true",
 ])
 def test_train_refuses_what_is_not_ported(override, tmp_path):
-    with pytest.raises(NotImplementedError):
+    """Spatial parallelism is not ported: it raises, naming the ROADMAP
+    queue. FSDP is ported (tests/test_torch_parallel.py) and does not
+    hide that refusal."""
+    spatial = [] if "spatial" in override \
+        else ["+dataset.diffusion.training.spatial=2"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_cli.main(TINY_TRAIN + [
-            override, f"dataset.diffusion.training.results_dir={tmp_path}"])
+            override, *spatial,
+            f"dataset.diffusion.training.results_dir={tmp_path}"])
