@@ -205,7 +205,30 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     of EM with the Langevin corrector (its step size a mean over both
     ranks): 128 distinct PNGs tagged with the rank, each rank's rows
     within 1e-4 of scale of a one-process run's at batch 128.
-42. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
+42. spatial_kernels (after the hires kernel phases): the split
+    GroupNorm entries of spatial parallelism (stats, apply, partials, dx)
+    at CelebA-HQ 256's shapes at batch 8 (a shard's half of the rows),
+    each against its plain version in f32 and in bf16 under gn_bf16, and
+    two shards' sums against the fused kernels on the whole map, forward
+    and backward; the fused kernels, forward and backward, at the
+    attention blocks' gathered map, where they run under spatial
+    parallelism; the strided hash dropout (a rank's height slice, ``image =
+    (L, Gi)``) at AFHQv2 128's dropout shapes at half height, bit for bit
+    against the whole tensor's dropout sliced and its plain version.
+43. spatial2: two ranks of ``cli.train_sde`` on the one card (gloo),
+    CelebA-HQ 256 at full width with ``training.spatial=2`` (one image's
+    height split over the two), batch 8, 3 steps: in float32 the state
+    within 1e-5 of each tree's scale of one process's (Adam's nu through
+    its square root: the gradients' units), and two planted faults, the
+    halo rows zeroed and GroupNorm on a shard's own moments, each outside
+    that tolerance; in bf16 each rank's launch counts (the split entries,
+    the attention blocks' fused GroupNorm and attention on the gathered
+    map) and its peak memory beside one process's.
+44. spatial_sample: ``cli.sample`` (20-NFE EM) and ``cli.inpaint`` of the
+    CelebA-HQ checkpoint at batch 8 in float32 with
+    ``evaluation.spatial=2`` in two ranks on the card: rank 0 writes each
+    image once, its rows within 1e-5 of their scale of one process's.
+45. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
     width with 100 NFE (its default is 1000) and its train phase; its line
     is printed after ``[bench] line:``, its img/s and MFU shares must be
     positive, the shares at most 1.05.
@@ -214,8 +237,9 @@ Every path (train, sample, train_clf, interop, serve, guided, sscs,
 inpaint, edit, pc, ode, cc_ode, likelihood, vp_train, vp_sample, vp_pc,
 vp_edit, vp_ode, vp_likelihood, fid, sweep, bench, celebahq_train,
 resume, celebahq_sample, afhq_train, async_ckpt, fanout, ddp, fsdp,
-ddp2, fsdp2, lockstep; resume and the multi-process paths count in
-their processes, which print their launches) is driven with the
+ddp2, fsdp2, lockstep, spatial2, spatial2_f32, spatial_sample,
+spatial_inpaint; resume and the multi-process paths count in their
+processes, which print their launches) is driven with the
 kernels' launch counts set to 0 just before it and must launch exactly
 the kernels its network calls, as many times as its forwards and steps
 need (interop and fid: none).
@@ -354,6 +378,27 @@ AFHQ_ARGS = ["+dataset=afhqv2/afhqv2128_psld",
              "+dataset.diffusion.model.score_fn.gn_bf16=True",
              "+dataset.diffusion.model.score_fn.dropout_impl=hw"]
 
+
+SPATIAL = 2          # ranks of the spatial group the phases run
+SPATIAL_STEPS = 3    # steps of each [spatial2] run
+SPATIAL_NFE = 20     # EM NFE of [spatial_sample]
+# [spatial2]'s planted faults, each a run that its gate must refuse: the
+# halo rows zeroed, GroupNorm of a shard's own moments
+SPATIAL_FAULTS = ("halo", "gn")
+
+
+def _split_calls(calls, attn_calls):
+    """(H*W, C, calls) of a forward's split GroupNorms under spatial
+    parallelism, each on a shard's H / SPATIAL rows: every GroupNorm but
+    the attention blocks' (one a block, at the block's shape), which run
+    fused on the gathered map."""
+    attn = {(hw, c): n for hw, c, n in attn_calls}
+    return [(hw, c, n - attn.get((hw, c), 0)) for hw, c, n in calls
+            if n - attn.get((hw, c), 0)]
+
+
+HQ_SPLIT_GN_CALLS = _split_calls(HQ_GN_CALLS, HQ_ATTN_CALLS)
+
 # the flagship option set of the bench (psld_tpu/eval/bench.py's), at
 # its full width, with gn_bf16 and the sampling SDE
 FLAGSHIP_ARGS = bench.FLAGSHIP_ARGS + [
@@ -417,7 +462,21 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+# (tag, seconds) of each phase: from the previous phase's last line to
+# this phase's first, as the lines print
+_PHASE_S: list = []
+_LAST_LINE = [time.perf_counter()]
+
+
 def say(*parts) -> None:
+    now = time.perf_counter()
+    text = " ".join(str(p) for p in parts)
+    if text.startswith("[") and "]" in text:
+        tag = text[1:text.index("]")]
+        if not _PHASE_S or _PHASE_S[-1][0] != tag:
+            _PHASE_S.append([tag, 0.0])
+            _PHASE_S[-1][1] = now - _LAST_LINE[0]
+    _LAST_LINE[0] = now
     print(*parts, flush=True)
 
 
@@ -1050,7 +1109,11 @@ def _wrappers() -> dict:
             "group_norm_act_bwd": ops.group_norm_act_backward,
             "attention": ops.attention, "hash_dropout": ops.hash_dropout,
             "fused_leaky_relu": ops.fused_leaky_relu,
-            "fused_leaky_relu_bwd": ops.fused_leaky_relu_backward}
+            "fused_leaky_relu_bwd": ops.fused_leaky_relu_backward,
+            "group_norm_split_stats": ops.group_norm_split_stats,
+            "group_norm_split_apply": ops.group_norm_split_apply,
+            "group_norm_split_partials": ops.group_norm_split_partials,
+            "group_norm_split_dx": ops.group_norm_split_dx}
 
 
 def expected(**launches) -> dict:
@@ -1492,7 +1555,7 @@ def phase_train(card, work, net=FLAGSHIP, train_args=TRAIN_ARGS,
 
 
 def phase_sample(card, work, ckpt, net=FLAGSHIP, tag="sample"):
-    """``cli.sample`` of ``net``, 100-NFE EM, from the checkpoint its
+    """``cli.sample`` of ``net``, ``SAMPLE_NFE``-NFE EM, from the checkpoint its
     train phase wrote."""
     from psld_tpu_torch.cli import sample as sample_cli
 
@@ -2603,7 +2666,7 @@ SERVE_LARGE = 96  # a full batch and a partial one
 def phase_serve(card, work, ckpt, sampled_rates):
     """``cli.serve`` of the converted flagship checkpoint in a thread of
     this process (so the launch counts see it): batch 64, bf16 network,
-    gn_bf16, 100-NFE EM, as ``[sample]``. A client sends ping, info, a
+    gn_bf16, ``SAMPLE_NFE``-NFE EM, as ``[sample]``. A client sends ping, info, a
     request of 64 with ``[sample]``'s seed, one of 96, a bad request, the
     first again into the same directory, and shutdown. The first
     request's PNGs must equal ``[sample]``'s, the repeat's the first's;
@@ -2937,7 +3000,11 @@ print("RESUME " + json.dumps({
         ("group_norm_act_bwd", "group_norm_act_backward"),
         ("attention", "attention"), ("hash_dropout", "hash_dropout"),
         ("fused_leaky_relu", "fused_leaky_relu"),
-        ("fused_leaky_relu_bwd", "fused_leaky_relu_backward"))}}),
+        ("fused_leaky_relu_bwd", "fused_leaky_relu_backward"),
+        ("group_norm_split_stats", "group_norm_split_stats"),
+        ("group_norm_split_apply", "group_norm_split_apply"),
+        ("group_norm_split_partials", "group_norm_split_partials"),
+        ("group_norm_split_dx", "group_norm_split_dx"))}}),
       flush=True)
 """
 
@@ -3239,7 +3306,11 @@ NAMES = (("group_norm_act", "group_norm_act"),
          ("group_norm_act_bwd", "group_norm_act_backward"),
          ("attention", "attention"), ("hash_dropout", "hash_dropout"),
          ("fused_leaky_relu", "fused_leaky_relu"),
-         ("fused_leaky_relu_bwd", "fused_leaky_relu_backward"))
+         ("fused_leaky_relu_bwd", "fused_leaky_relu_backward"),
+         ("group_norm_split_stats", "group_norm_split_stats"),
+         ("group_norm_split_apply", "group_norm_split_apply"),
+         ("group_norm_split_partials", "group_norm_split_partials"),
+         ("group_norm_split_dx", "group_norm_split_dx"))
 result = {"rank": rank, "runs": {}}
 
 
@@ -3251,9 +3322,9 @@ def staged(name, fn):
             fn(h, *args, **kwargs)
             t.copy_(h)
     else:
-        def run(out, inp):
+        def run(out, inp, **kwargs):
             h = out.cpu()
-            fn(h, inp.cpu())
+            fn(h, inp.cpu(), **kwargs)
             out.copy_(h)
     return run
 
@@ -3321,13 +3392,41 @@ for run in spec["runs"]:
     else:
         os.environ.pop("PSLD_MULTIHOST", None)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _, f in NAMES:
         getattr(ops, f).launches = 0
     captured.clear()
+    undo = []
+    if run.get("fault") == "halo":
+        # a planted fault: the rows every halo exchange brings in are 0
+        from psld_tpu_torch.parallel import spatial
+        real_halo = spatial.halo
+
+        def zero_halo(x, top, bottom, dim=2, real=real_halo):
+            y = real(x, top, bottom, dim)
+            keep = torch.zeros(y.shape[dim], dtype=y.dtype, device=y.device)
+            keep[top:top + x.shape[dim]] = 1
+            shape = [1] * y.ndim
+            shape[dim] = -1
+            return y * keep.view(shape)
+
+        undo.append((spatial, "halo", real_halo))
+        spatial.halo = zero_halo
+    elif run.get("fault") == "gn":
+        # a planted fault: GroupNorm of a shard's own moments
+        from psld_tpu_torch.models import layers
+        undo.append((layers, "group_norm_act_split",
+                     layers.group_norm_act_split))
+        layers.group_norm_act_split = layers.group_norm_act
     t0 = time.perf_counter()
     if run["kind"] == "train":
         from psld_tpu_torch.cli import train_sde
-        state, stats = train_sde.main(run["argv"])
+        from psld_tpu_torch.cli._common import bootstrap
+        if run.get("max_steps"):
+            state, stats = loop.train_sde(
+                bootstrap(run["argv"]).dataset.diffusion, run["max_steps"])
+        else:
+            state, stats = train_sde.main(run["argv"])
         torch.cuda.synchronize()
         rec = {"step": state.step, "ms": [r["ms"] for r in stats],
                "loss": [r["loss"] for r in stats],
@@ -3336,24 +3435,32 @@ for run in spec["runs"]:
             kept = state.params
         del state
     else:
-        from psld_tpu_torch.cli import sample
-        from psld_tpu_torch.eval.writers import SimpleImageWriter
-        real = SimpleImageWriter.write_batch
+        from psld_tpu_torch.cli import inpaint, sample
+        from psld_tpu_torch.eval import writers
+        reals = {}
+        for cls in (writers.SimpleImageWriter, writers.InpaintingImageWriter):
+            reals[cls] = cls.write_batch
 
-        def recording(self, samples, rank, batch_idx):
-            np.save(os.path.join(run["rows_dir"],
-                                 f"rows_{rank}_{batch_idx}.npy"), samples)
-            return real(self, samples, rank, batch_idx)
+            def recording(self, samples, rank, batch_idx, real=reals[cls],
+                          **kw):
+                np.save(os.path.join(run["rows_dir"],
+                                     f"rows_{rank}_{batch_idx}.npy"), samples)
+                return real(self, samples, rank, batch_idx, **kw)
 
+            cls.write_batch = recording
         os.makedirs(run["rows_dir"], exist_ok=True)
-        SimpleImageWriter.write_batch = recording
-        batches = sample.main(run["argv"])
-        SimpleImageWriter.write_batch = real
+        main = inpaint.main if run["kind"] == "inpaint" else sample.main
+        batches = main(run["argv"])
+        for cls, real in reals.items():
+            cls.write_batch = real
         torch.cuda.synchronize()
         rec = {"batches": [[b["samples"], b["nfe"], b["nonfinite"],
                             b["seconds"]] for b in batches]}
+    for mod, name, real in undo:
+        setattr(mod, name, real)
     rec.update(launches={k: getattr(ops, f).launches for k, f in NAMES},
                seconds=time.perf_counter() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated(),
                world=distributed.process_info()[1], **captured)
     result["runs"][run["tag"]] = rec
     torch.cuda.empty_cache()
@@ -3766,6 +3873,502 @@ def phase_lockstep(card, work, ckpt):
     return n
 
 
+def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
+                          tag="spatial_kernels"):
+    """[spatial_kernels]: the split GroupNorm entries (stats, apply,
+    partials, dx) at CelebA-HQ 256's shapes at ``batch`` on a shard's
+    half of the rows, each against its plain version in f32 and in bf16
+    under gn_bf16 (the config's), two shards' sums against the fused
+    kernels on the whole map, forward and backward; the fused kernels at
+    the attention blocks' gathered map, as [gn] and [gn_bwd] hold them;
+    the strided dropout at AFHQv2 128's shapes at half height against the
+    whole tensor's dropout sliced and its plain version, bit for bit.
+    Times by CUDA graph replay beside the bound, the plain version and
+    (apply) ``F.group_norm`` + ``F.silu`` on the shard. Returns each
+    entry's numbers summed over one forward's (stats, apply) or
+    backward's (partials, dx) calls, the fused kernels' over the
+    attention blocks' GroupNorms of one forward and backward, and the
+    strided dropout's over an AFHQ step."""
+    import torch.nn.functional as F
+
+    from psld_tpu_torch import ops
+    from psld_tpu_torch.ops import group_norm as gn
+
+    rng = np.random.default_rng(7)
+    names = ("stats", "apply", "partials", "dx")
+    out = {k: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
+           for k in names}
+    totals = {k: {} for k in names}
+    lib = 0.0
+    rows = []
+    t0 = time.perf_counter()
+    for hw, c, n_calls in calls:
+        s = int(round(hw ** 0.5))
+        rows_held = s // SPATIAL
+        g = min(c // 4, 32)
+        count = float(s * s * (c // g))
+        x32 = torch.from_numpy((rng.standard_normal((batch, s, s, c)) * 2.0
+                                + 0.5).astype(np.float32)).cuda()
+        g32 = torch.from_numpy(rng.standard_normal((batch, s, s, c)).astype(
+            np.float32)).cuda()
+        sc = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(c)).astype(
+            np.float32)).cuda()
+        bi = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(
+            np.float32)).cuda()
+        for dt, gn16, tol in ((torch.float32, False, 1e-5),
+                              (torch.bfloat16, True, 1e-2)):
+            set_gn_bf16(gn16)
+            xw, gw = x32.to(dt), g32.to(dt)
+            halves = [(xw[:, i * rows_held:(i + 1) * rows_held].contiguous(),
+                       gw[:, i * rows_held:(i + 1) * rows_held].contiguous())
+                      for i in range(SPATIAL)]
+            what = f"split gn {hw}x{c} {dt} gn_bf16={gn16}"
+            sums = sum(gn.group_norm_split_stats(h, g) for h, _ in halves)
+            p_sums = sum(gn.group_norm_split_stats_plain(h, g)
+                         for h, _ in halves)
+            scale_s = float(p_sums.abs().max())
+            err = max_err(sums, p_sums)
+            check(err <= 1e-5 * scale_s, f"{what}: stats {err:.3e} of "
+                  f"{scale_s:.3e}")
+            out["stats"]["max_abs_err"] = max(out["stats"]["max_abs_err"],
+                                              err / scale_s)
+            ys, ps, dss, dbs = [], [], [], []
+            for h, gh in halves:
+                y = gn.group_norm_split_apply(h, sc, bi, sums, count, g,
+                                              1e-6, "swish")
+                want = gn.group_norm_split_apply_plain(h, sc, bi, sums, count,
+                                                       g, 1e-6, "swish")
+                torch.cuda.synchronize()
+                e = assert_close(y, want, tol, tol, what + ": apply")
+                if gn16:
+                    out["apply"]["max_abs_err"] = max(
+                        out["apply"]["max_abs_err"], e)
+                p, ds, db = gn.group_norm_split_partials(
+                    h, gh, sc, bi, sums, count, g, 1e-6, "swish")
+                wp, wds, wdb = gn.group_norm_split_partials_plain(
+                    h, gh, sc, bi, sums, count, g, 1e-6, "swish")
+                for a, b, nm in ((p, wp, "P"), (ds, wds, "dscale"),
+                                 (db, wdb, "dbias")):
+                    ref = max(float(b.abs().max()), 1e-30)
+                    e = max_err(a, b) / ref
+                    check(e <= 1e-3, f"{what}: partials {nm} {e:.3e} of "
+                          "scale")
+                    if gn16:
+                        out["partials"]["max_abs_err"] = max(
+                            out["partials"]["max_abs_err"], e)
+                ys.append(y)
+                ps.append(p)
+                dss.append(ds)
+                dbs.append(db)
+            p_all = sum(ps)
+            dxs = []
+            for h, gh in halves:
+                dx = gn.group_norm_split_dx(h, gh, sc, bi, sums, p_all, count,
+                                            g, 1e-6, "swish")
+                want = gn.group_norm_split_dx_plain(h, gh, sc, bi, sums,
+                                                    p_all, count, g, 1e-6,
+                                                    "swish")
+                ref = float(want.float().abs().max())
+                e = max_err(dx, want) / ref
+                check(e <= tol, f"{what}: dx {e:.3e} of scale")
+                if gn16:
+                    out["dx"]["max_abs_err"] = max(out["dx"]["max_abs_err"],
+                                                   e)
+                dxs.append(dx)
+            # two shards combined against the fused kernels on the whole map
+            y_whole = ops.group_norm_act(xw, sc, bi, g, 1e-6, "swish")
+            dx_w, ds_w, db_w = ops.group_norm_act_backward(
+                xw, sc, bi, gw, g, 1e-6, "swish")
+            torch.cuda.synchronize()
+            for a, b, nm in ((torch.cat(ys, 1), y_whole, "y"),
+                             (torch.cat(dxs, 1), dx_w, "dx"),
+                             (sum(dss), ds_w, "dscale"),
+                             (sum(dbs), db_w, "dbias")):
+                ref = float(b.float().abs().max())
+                e = max_err(a, b) / ref
+                check(e <= (2e-5 if dt == torch.float32 else 2e-2),
+                      f"{what}: two shards' {nm} {e:.3e} of scale from the "
+                      "fused kernel's on the whole map")
+        # time the path's case: bf16 under gn_bf16, swish, a rank's shard
+        set_gn_bf16(True)
+        x, gg = (t[:, :rows_held].contiguous().bfloat16()
+                 for t in (x32, g32))
+        sums = gn.group_norm_split_stats(x, g)
+        p = gn.group_norm_split_partials(x, gg, sc, bi, sums, count, g,
+                                         1e-6, "swish")[0]
+        fns = {
+            "stats": (lambda: gn.group_norm_split_stats(x, g),
+                      lambda: gn.group_norm_split_stats_plain(x, g)),
+            "apply": (lambda: gn.group_norm_split_apply(
+                x, sc, bi, sums, count, g, 1e-6, "swish"),
+                lambda: gn.group_norm_split_apply_plain(
+                    x, sc, bi, sums, count, g, 1e-6, "swish")),
+            "partials": (lambda: gn.group_norm_split_partials(
+                x, gg, sc, bi, sums, count, g, 1e-6, "swish"),
+                lambda: gn.group_norm_split_partials_plain(
+                    x, gg, sc, bi, sums, count, g, 1e-6, "swish")),
+            "dx": (lambda: gn.group_norm_split_dx(
+                x, gg, sc, bi, sums, p, count, g, 1e-6, "swish"),
+                lambda: gn.group_norm_split_dx_plain(
+                    x, gg, sc, bi, sums, p, count, g, 1e-6, "swish"))}
+        e = x.element_size()
+        n = x.numel()
+        # bytes each entry must move, and its f32 operations a value
+        need = {"stats": (n * e, 3 * n), "apply": (2 * n * e, 12 * n),
+                "partials": (2 * n * e, 30 * n),
+                "dx": (3 * n * e, 30 * n)}
+        row = [hw, c, n_calls, rows_held]
+        for k, (kern, plain) in fns.items():
+            k_ms = device_ms(kern)
+            p_ms = device_ms(plain, launches=3)
+            out[k]["ms"] += n_calls * k_ms
+            out[k]["plain_ms"] += n_calls * p_ms
+            add_bound(totals[k], n_calls, *need[k], SCALAR_OPS)
+            row += [k_ms, bound(need[k][0], need[k][1], SCALAR_OPS)[0]]
+        xn = x.permute(0, 3, 1, 2)
+        l_ms = device_ms(lambda: F.silu(F.group_norm(xn, g, sc.bfloat16(),
+                                                     bi.bfloat16(), 1e-6)))
+        lib += n_calls * l_ms
+        rows.append(row + [l_ms])
+    os.environ.pop("PSLD_GN_BF16")
+    for k in names:
+        out[k].update(totals[k])
+        out[k]["bound_by"] = bound_by(out[k])
+        out[k]["library_ms"] = None
+    out["apply"]["library_ms"] = lib
+    say(f"[{tag}] split GroupNorm entries == plain at all {len(calls)} "
+        f"CelebA-HQ 256 split shapes (a shard of {SPATIAL}), B={batch} "
+        f"(f32 1e-5, "
+        f"bf16+gn_bf16 1e-2; stats and partials 1e-5 and 1e-3 of scale), "
+        f"and {SPATIAL} shards' sums == the fused kernels on the whole map "
+        f"(f32 2e-5, bf16 2e-2 of scale), forward and backward, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(f"[{tag}] device times (CUDA-graph replay), bf16 gn_bf16 swish, "
+        f"one shard of {SPATIAL}, B={batch}, {card}: kernel / bound ms")
+    for hw, c, n_calls, held, *ts, l_ms in rows:
+        say(f"[{tag}]   HW={hw:5d} rows {held:3d} C={c:3d} x{n_calls:2d}: "
+            + ", ".join(f"{k} {ts[2 * i]:.4f}/{ts[2 * i + 1]:.4f}"
+                        for i, k in enumerate(names))
+            + f"; F.group_norm+F.silu {l_ms:.4f}")
+    for k in names:
+        say(f"[{tag}]   {k} per CelebA-HQ {'forward' if k in ('stats', 'apply') else 'backward'} "
+            f"({sum(n for _, _, n in calls)} calls): kernel "
+            f"{out[k]['ms']:.3f} ms, bound {out[k]['bound_ms']:.3f} ms "
+            f"({out[k]['bound_by']}), plain {out[k]['plain_ms']:.3f} ms")
+    # the attention blocks' GroupNorms: the fused kernels on the
+    # gathered map, which every rank of the group holds whole
+    where = "CelebA-HQ 256 attention blocks' gathered map"
+    out["attn_gn"] = phase_gn(card, batch, calls=HQ_ATTN_CALLS, net=where,
+                              tag=tag)
+    out["attn_gn_bwd"] = phase_gn_bwd(card, batch, calls=HQ_ATTN_CALLS,
+                                      net=where, tag=tag)
+    out["dropout"] = _strided_dropout(card, tag)
+    return out
+
+
+def _strided_dropout(card, tag, batch=AFHQ_BATCH, calls=AFHQ_DROPOUT_CALLS,
+                     rate=AFHQ_RATE):
+    """The dropout of a rank's height slice at AFHQv2 128's dropout
+    shapes (``image = (L, Gi)``), bit for bit against the whole tensor's
+    dropout sliced and against the plain version; its device time per
+    training step beside the unstrided launch on the same elements."""
+    import torch.nn.functional as F
+
+    from psld_tpu_torch.ops import hash_dropout, hash_dropout_plain
+
+    rng = np.random.default_rng(8)
+    seed = (2024, 4000000001)
+    res = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flat_ms": 0.0,
+           "max_abs_err": 0.0}
+    total = {}
+    n_cases = 0
+    for hw, c, n_calls in calls:
+        s = int(round(hw ** 0.5))
+        h = s // SPATIAL
+        x32 = torch.from_numpy(rng.standard_normal((batch, s, s, c)).astype(
+            np.float32)).cuda()
+        for dt in (torch.float32, torch.bfloat16):
+            whole = x32.to(dt).permute(0, 3, 1, 2)
+            ref = hash_dropout(whole, seed, rate)
+            for d, i in ((0, 0), (0, 1), (1, 1)):
+                rows = slice(d * batch // 2, (d + 1) * batch // 2)
+                part = whole[rows, :, i * h:(i + 1) * h].contiguous(
+                    memory_format=torch.channels_last)
+                local = part[0].numel()
+                off = rows.start * whole[0].numel() + i * local
+                image = (local, whole[0].numel())
+                got = hash_dropout(part, seed, rate, elem_off=off,
+                                   image=image)
+                want = hash_dropout_plain(part, seed, rate, elem_off=off,
+                                          image=image)
+                torch.cuda.synchronize()
+                what = f"strided dropout {hw}x{c} {dt} rows {d} slice {i}"
+                check(torch.equal(got, want), f"{what}: kernel != plain")
+                check(torch.equal(got, ref[rows, :, i * h:(i + 1) * h]),
+                      f"{what}: != the whole tensor's dropout, sliced")
+                n_cases += 1
+        part = x32[:, :h].contiguous().bfloat16().permute(0, 3, 1, 2)
+        local = part[0].numel()
+        image = (local, SPATIAL * local)
+        k_ms = device_ms(lambda: hash_dropout(part, seed, rate, elem_off=local,
+                                              image=image))
+        f_ms = device_ms(lambda: hash_dropout(part, seed, rate))
+        p_ms = device_ms(lambda: hash_dropout_plain(
+            part, seed, rate, elem_off=local, image=image), launches=3)
+        l_ms = device_ms(lambda: F.dropout(part, rate, training=True))
+        for k, v in (("ms", k_ms), ("flat_ms", f_ms), ("plain_ms", p_ms),
+                     ("library_ms", l_ms)):
+            res[k] += 2 * n_calls * v
+        add_bound(total, 2 * n_calls, 2 * part.numel() * part.element_size(),
+                  40 * part.numel(), SCALAR_OPS)
+    res.update(total)
+    res["bound_by"] = bound_by(res)
+    say(f"[{tag}] strided hash dropout (image = (L, Gi)) == plain and == the "
+        f"whole tensor's dropout sliced, bit for bit, in {n_cases} cases "
+        f"(AFHQv2 128 dropout shapes at half height, B={batch}, f32 and "
+        f"bf16, two data rows and both slices); per AFHQ step of a rank "
+        f"(bf16, rate {rate}): strided {res['ms']:.3f} ms, unstrided on "
+        f"the same elements {res['flat_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
+        f"F.dropout {res['library_ms']:.3f} ms; {card}")
+    return res
+
+
+def _hq_spatial_argv(root, results, bf16, spatial=1):
+    """``cli.train_sde`` of CelebA-HQ 256 on its folder, at its batch 8,
+    without flips, one epoch (the runs stop at ``SPATIAL_STEPS``)."""
+    return _folder_train_args(HQ, root, results, HQ_BATCH, 1, 1) + [
+        f"+dataset.diffusion.training.bf16={bf16}",
+        "dataset.diffusion.data.hflip=false",
+        "+dataset.diffusion.training.prefetch=0"] + (
+        [f"+dataset.diffusion.training.spatial={spatial}"]
+        if spatial > 1 else [])
+
+
+def hq_split_counts(forwards: int, backwards: int = 0) -> dict:
+    """The launches of CelebA-HQ 256 under spatial parallelism: every
+    GroupNorm through the split entries but the attention blocks' (one a
+    block), which run fused on the gathered map, and attention."""
+    split = HQ.gn - HQ.attn
+    return expected(group_norm_split_stats=split * forwards,
+                    group_norm_split_apply=split * forwards,
+                    group_norm_split_partials=split * backwards,
+                    group_norm_split_dx=split * backwards,
+                    group_norm_act=HQ.attn * forwards,
+                    group_norm_act_bwd=HQ.attn * backwards,
+                    attention=HQ.attn * forwards)
+
+
+def phase_spatial2(card, work, root):
+    """[spatial2]: ``cli.train_sde`` of CelebA-HQ 256 at full width with
+    ``training.spatial=2`` in two ranks on the one card over gloo (see
+    [ddp2]): one data group, each rank holding half the height of the 8
+    images of a step. Float32, ``SPATIAL_STEPS`` steps: the state within
+    1e-5 of each tree's scale of one process's, each tree in the units
+    of the parameters or their gradients (Adam's ``nu``, squared
+    gradients, through its square root), and the same two ranks with a
+    planted fault (``SPATIAL_FAULTS``) outside that tolerance; bf16:
+    each rank's launch counts and peak memory beside one process's.
+    Returns the launches of both sound runs, summed over the ranks, and
+    the peaks and errors."""
+    from psld_tpu_torch.cli._common import bootstrap
+    from psld_tpu_torch.train.loop import train_sde
+
+    ref = {}
+    for bf16 in (False, True):
+        results = os.path.join(work, f"spatial2_ref_{int(bf16)}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, _ = train_sde(bootstrap(_hq_spatial_argv(
+            root, results, bf16)).dataset.diffusion, SPATIAL_STEPS)
+        torch.cuda.synchronize()
+        check(state.step == SPATIAL_STEPS, f"[spatial2] one process took "
+              f"{state.step} steps")
+        ref[bf16] = {"peak": torch.cuda.max_memory_allocated(),
+                     "launches": all_counts(), "results": results,
+                     "s": time.perf_counter() - t0}
+        del state
+    torch.cuda.empty_cache()
+    dirs = {bf16: os.path.join(work, f"spatial2_{int(bf16)}")
+            for bf16 in (False, True)}
+    runs = [{"tag": f"bf16={bf16}", "kind": "train",
+             "max_steps": SPATIAL_STEPS,
+             "argv": _hq_spatial_argv(root, dirs[bf16], bf16, SPATIAL)}
+            for bf16 in (False, True)]
+    for fault in SPATIAL_FAULTS:
+        dirs[fault] = os.path.join(work, f"spatial2_fault_{fault}")
+        runs.append({"tag": f"fault={fault}", "kind": "train",
+                     "max_steps": SPATIAL_STEPS, "fault": fault,
+                     "argv": _hq_spatial_argv(root, dirs[fault], False,
+                                              SPATIAL)})
+    t0 = time.perf_counter()
+    res = launch_ranks(work, "spatial2", {"gloo": True, "runs": runs},
+                       SPATIAL)
+    wall = time.perf_counter() - t0
+    want = hq_split_counts(SPATIAL_STEPS, SPATIAL_STEPS)
+    check(ref[True]["launches"] == HQ.step_counts(SPATIAL_STEPS),
+          f"[spatial2] one process launched {ref[True]['launches']}")
+    n = {}
+    for run in runs[:2]:
+        tag = run["tag"]
+        for r in res:
+            rec = r["runs"][tag]
+            check(rec["world"] == SPATIAL and rec["step"] == SPATIAL_STEPS,
+                  f"[spatial2] {tag} rank {r['rank']}: world {rec['world']},"
+                  f" {rec['step']} steps")
+            check(rec["launches"] == want, f"[spatial2] {tag} rank "
+                  f"{r['rank']} launched {rec['launches']}, expected {want}")
+            check(all(np.isfinite(rec["loss"])), f"[spatial2] {tag}: loss "
+                  f"{rec['loss']}")
+        check(res[0]["runs"][tag]["loss"] == res[1]["runs"][tag]["loss"],
+              f"[spatial2] {tag}: the ranks logged different losses")
+        n[tag] = {k: sum(r["runs"][tag]["launches"][k] for r in res)
+                  for k in want}
+    b, _ = _trees(_ckpt_of(ref[False]["results"]))
+
+    def tree_errs(results):
+        """Each tree's worst error over its scale against one process's,
+        in the units of the parameters or their gradients: Adam's nu
+        holds squared gradients, so it is compared through its root."""
+        a, _ = _trees(_ckpt_of(results))
+        per_tree, at = {}, {}
+        for name in b:
+            unit = torch.sqrt if name == "nu" else (lambda v: v)
+            scale = max(float(unit(v).abs().max()) for v in b[name].values())
+            errs = {k: max_err(unit(a[name][k]), unit(v)) / scale
+                    for k, v in b[name].items()}
+            at[name] = max(errs, key=errs.get)
+            per_tree[name] = errs[at[name]]
+        return per_tree, at
+
+    per_tree, where = tree_errs(dirs[False])
+    worst = max(per_tree, key=per_tree.get)
+    err = per_tree[worst]
+    faults = {f: max(tree_errs(dirs[f])[0].values()) for f in SPATIAL_FAULTS}
+    say(f"[spatial2] float32, each tree's worst error over its scale "
+        "(nu through its square root): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in per_tree.items())
+        + "; planted faults, the worst tree: " + ", ".join(
+            f"{f} {v:.3e}" for f, v in faults.items()))
+    check(err <= 1e-5, f"[spatial2] two height shards vs one process: "
+          f"{worst} {err:.3e} of scale apart at {where[worst]} (tol 1e-5)")
+    for f, v in faults.items():
+        check(v > 1e-5, f"[spatial2] the planted fault {f} is {v:.3e} of "
+              "scale from one process's: the 1e-5 gate does not see it")
+    peaks = [r["runs"]["bf16=True"]["peak_bytes"] / 1e9 for r in res]
+    ms = float(np.mean(res[0]["runs"]["bf16=True"]["ms"][1:]))
+    say(f"[spatial2] two ranks of cli.train_sde on the one card (gloo), "
+        f"CelebA-HQ 256 at full width ({HQ_PARAMS:,} parameters), "
+        f"training.spatial=2: one image's 256 rows split 128/128, batch "
+        f"{HQ_BATCH}, {SPATIAL_STEPS} steps. float32: params, EMA and Adam "
+        f"moments {err:.3e} of scale from one process's (tol 1e-5; the "
+        f"worst at {worst} {where[worst]}), the "
+        f"ranks' losses equal. bf16 (gn_bf16): peak "
+        f"{peaks[0]:.3f} / {peaks[1]:.3f} GB a rank against "
+        f"{ref[True]['peak'] / 1e9:.3f} GB in one process; "
+        f"{ms:.1f} ms/step on rank 0 (two ranks share the card and every "
+        f"halo and GroupNorm sum goes through gloo on the host: not a "
+        f"speed); launches a rank {res[0]['runs']['bf16=True']['launches']}"
+        f" (one process: {ref[True]['launches']}); ranks {wall:.1f} s, "
+        f"references {ref[False]['s'] + ref[True]['s']:.1f} s; {card}")
+    return n["bf16=True"], n["bf16=False"], {
+        "peak_gb_rank": peaks, "peak_gb_one": ref[True]["peak"] / 1e9,
+        "f32_err_of_scale": err, "f32_err_by_tree": per_tree,
+        "planted_fault_err_of_scale": faults}
+
+
+def phase_spatial_sample(card, work, ckpt, root):
+    """[spatial_sample]: ``cli.sample`` (``SPATIAL_NFE``-NFE EM) and
+    ``cli.inpaint`` of the CelebA-HQ 256 checkpoint at batch 8 in
+    float32, with ``evaluation.spatial=2`` in two ranks on the one card
+    (gloo): the first rank writes each image once, and its rows are
+    within 1e-5 of their scale of one process's. Returns the launches of
+    both runs, summed over the ranks."""
+    from psld_tpu_torch.cli import inpaint as inpaint_cli
+    from psld_tpu_torch.cli import sample as sample_cli
+    from psld_tpu_torch.eval import writers
+
+    base = HQ.args + [
+        f"dataset.diffusion.data.root={root}",
+        f"dataset.diffusion.evaluation.chkpt_path={ckpt}",
+        f"dataset.diffusion.evaluation.n_samples={HQ_BATCH}",
+        f"dataset.diffusion.evaluation.batch_size={HQ_BATCH}",
+        f"dataset.diffusion.evaluation.n_discrete_steps={SPATIAL_NFE}",
+        "dataset.diffusion.evaluation.sample_from=source",
+        "+dataset.diffusion.evaluation.device=cuda"]
+    kinds = {"sample": (sample_cli.main, []),
+             "inpaint": (inpaint_cli.main, [
+                 "dataset.diffusion.evaluation.sampler.name=ip_em_sde"])}
+    ref, one = {}, {}
+    for kind, (main, extra) in kinds.items():
+        rows, reals = {}, {}
+        for cls in (writers.SimpleImageWriter, writers.InpaintingImageWriter):
+            reals[cls] = cls.write_batch
+
+            def recording(self, samples, rank, batch_idx, real=reals[cls],
+                          **kw):
+                rows[batch_idx] = np.asarray(samples)
+                return real(self, samples, rank, batch_idx, **kw)
+
+            cls.write_batch = recording
+        reset_counts()
+        try:
+            main(base + extra + [f"dataset.diffusion.evaluation.save_path="
+                                 f"{work}/spatial_{kind}_one"])
+        finally:
+            for cls, real in reals.items():
+                cls.write_batch = real
+        ref[kind], one[kind] = rows[0], all_counts()
+        torch.cuda.empty_cache()
+    runs = [{"tag": kind, "kind": kind,
+             "rows_dir": os.path.join(work, f"spatial_{kind}_rows"),
+             "argv": base + extra + [
+                 f"+dataset.diffusion.evaluation.spatial={SPATIAL}",
+                 f"dataset.diffusion.evaluation.save_path={work}/"
+                 f"spatial_{kind}"]}
+            for kind, (_, extra) in kinds.items()]
+    t0 = time.perf_counter()
+    res = launch_ranks(work, "spatial_sample", {"gloo": True, "runs": runs},
+                       SPATIAL)
+    wall = time.perf_counter() - t0
+    n, worst = {}, {}
+    for run in runs:
+        kind = run["tag"]
+        forwards = one[kind]["attention"] // HQ.attn
+        want = hq_split_counts(forwards)
+        for r in res:
+            rec = r["runs"][kind]
+            check([b[:3] for b in rec["batches"]] == [[HQ_BATCH,
+                                                        SPATIAL_NFE, 0]],
+                  f"[spatial_sample] {kind} rank {r['rank']} drew "
+                  f"{rec['batches']}")
+            check(rec["launches"] == want, f"[spatial_sample] {kind} rank "
+                  f"{r['rank']} launched {rec['launches']}, expected {want}")
+        files = sorted(os.listdir(run["rows_dir"]))
+        check(files == ["rows_0_0.npy"], f"[spatial_sample] {kind}: rows "
+              f"written {files} (the first rank alone, once)")
+        got = np.load(os.path.join(run["rows_dir"], files[0]))
+        scale = float(np.abs(ref[kind]).max())
+        worst[kind] = float(np.abs(got - ref[kind]).max()) / scale
+        check(got.shape == ref[kind].shape and worst[kind] <= 1e-5,
+              f"[spatial_sample] {kind}: rows {worst[kind]:.3e} of scale "
+              f"from one process's (tol 1e-5)")
+        n[kind] = {k: sum(r["runs"][kind]["launches"][k] for r in res)
+                   for k in want}
+    secs = {k: [r["runs"][k]["batches"][0][3] for r in res] for k in kinds}
+    say(f"[spatial_sample] two ranks (gloo, the one card), "
+        f"evaluation.spatial=2, CelebA-HQ 256 in float32 at batch "
+        f"{HQ_BATCH}, {SPATIAL_NFE}-NFE EM: cli.sample rows "
+        f"{worst['sample']:.3e} and cli.inpaint rows {worst['inpaint']:.3e}"
+        f" of scale from one process's (tol 1e-5), written once by rank 0; "
+        f"trajectories {secs['sample'][0]:.2f} s and "
+        f"{secs['inpaint'][0]:.2f} s on rank 0 (not a speed); ranks "
+        f"{wall:.1f} s; launches over both ranks {n}; {card}")
+    return n["sample"], n["inpaint"]
+
+
 def combine(*timings) -> dict:
     """The timings of one path that launches a kernel at the shapes of
     two networks (guided sampling: the score network's and the
@@ -3797,7 +4400,11 @@ PATHS = {"sample": BATCH, "serve": BATCH, "train": TRAIN_BATCH,
          "celebahq_sample": HQ_BATCH, "afhq_train": AFHQ_BATCH,
          "async_ckpt": TRAIN_BATCH, "fanout": BATCH, "ddp": TRAIN_BATCH,
          "fsdp": TRAIN_BATCH, "ddp2": BATCH, "fsdp2": BATCH,
-         "lockstep": BATCH}
+         "lockstep": BATCH, "spatial2": HQ_BATCH, "spatial2_f32": HQ_BATCH,
+         "spatial_sample": HQ_BATCH, "spatial_inpaint": HQ_BATCH}
+# the spatial paths: the two training runs, then the two sampling runs
+SPATIAL_PATHS = ("spatial2", "spatial2_f32", "spatial_sample",
+                 "spatial_inpaint")
 # the kernels that run only in the bench's train phase, at its batch
 BENCH_TRAIN_ONLY = ("group_norm_act_bwd", "hash_dropout")
 
@@ -3874,6 +4481,9 @@ def main() -> int:
                                      AFHQ.name, "hires_attention")
     drop["afhq32"] = phase_dropout(card, AFHQ_BATCH, AFHQ_DROPOUT_CALLS,
                                    AFHQ.name, AFHQ_RATE, "hires_dropout")
+    # the split entries of spatial parallelism at CelebA-HQ's shapes at
+    # half height, and the dropout of a height slice at AFHQv2's
+    split = phase_spatial_kernels(card)
     cfg = bootstrap(FLAGSHIP_ARGS).dataset.diffusion
     weights, _ = phase_net(card, cfg)
     phase_sscs_check(card, cfg, weights)
@@ -3947,6 +4557,11 @@ def main() -> int:
     n_ddp, n_fsdp, _ = phase_ddp(card, work, ckpt, train_t["ms_step"])
     n_ddp2, n_fsdp2 = phase_ddp2(card, work)
     n_lockstep = phase_lockstep(card, work, ckpt)
+    # spatial parallelism: two ranks on the card, one image's height split
+    hq_root = os.path.join(work, "celebahq_train_data")
+    n_spatial2, n_spatial2_f32, spatial2 = phase_spatial2(card, work, hq_root)
+    n_spatial_sample, n_spatial_inpaint = phase_spatial_sample(
+        card, work, hq_ckpt, hq_root)
     say("[hires] " + json.dumps({
         "celebahq_train": hq_train, "celebahq_sample": hq_sample,
         "afhq_train": afhq_train, "async_ckpt": async_ckpt,
@@ -3966,7 +4581,10 @@ def main() -> int:
                "resume": n_resume, "celebahq_sample": n_hq_sample,
                "afhq_train": n_afhq_train, "async_ckpt": n_async,
                "fanout": n_fanout, "ddp": n_ddp, "fsdp": n_fsdp,
-               "ddp2": n_ddp2, "fsdp2": n_fsdp2, "lockstep": n_lockstep}
+               "ddp2": n_ddp2, "fsdp2": n_fsdp2, "lockstep": n_lockstep,
+               "spatial2": n_spatial2, "spatial2_f32": n_spatial2_f32,
+               "spatial_sample": n_spatial_sample,
+               "spatial_inpaint": n_spatial_inpaint}
     say("[vp] " + json.dumps({
         "train": vp_train, "sample_em_100": vp_sample, "ode_ms_nfe": vp_ode,
         "likelihood": vp_lik, "inception_batch64": fid,
@@ -3996,7 +4614,8 @@ def main() -> int:
             "async_ckpt": gn["flagship128"], "fanout": gn["flagship64"],
             "ddp": gn["flagship128"], "fsdp": gn["flagship128"],
             "ddp2": gn["flagship64"], "fsdp2": gn["flagship64"],
-            "lockstep": gn["flagship64"]},
+            "lockstep": gn["flagship64"],
+            **{p: split["attn_gn"] for p in SPATIAL_PATHS}},
         "group_norm_act_bwd": {
             "train": gn_bwd["flagship128"], "train_clf": gn_bwd["clf32"],
             "guided": gn_bwd["clf64"], "cc_ode": gn_bwd["clf64"],
@@ -4006,7 +4625,8 @@ def main() -> int:
             "resume": gn_bwd["hq8"], "afhq_train": gn_bwd["afhq32"],
             "async_ckpt": gn_bwd["flagship128"],
             "ddp": gn_bwd["flagship128"], "fsdp": gn_bwd["flagship128"],
-            "ddp2": gn_bwd["flagship64"], "fsdp2": gn_bwd["flagship64"]},
+            "ddp2": gn_bwd["flagship64"], "fsdp2": gn_bwd["flagship64"],
+            **{p: split["attn_gn_bwd"] for p in SPATIAL_PATHS[:2]}},
         "attention": {
             "sample": attn["flagship64"], "serve": attn["flagship64"],
             "train": attn["flagship128"],
@@ -4027,7 +4647,9 @@ def main() -> int:
             "async_ckpt": attn["flagship128"], "fanout": attn["flagship64"],
             "ddp": attn["flagship128"], "fsdp": attn["flagship128"],
             "ddp2": attn["flagship64"], "fsdp2": attn["flagship64"],
-            "lockstep": attn["flagship64"]},
+            "lockstep": attn["flagship64"], "spatial2": attn["hq8"],
+            "spatial2_f32": attn["hq8"], "spatial_sample": attn["hq8"],
+            "spatial_inpaint": attn["hq8"]},
         "hash_dropout": {"train": drop["flagship128"],
                          "train_clf": drop["clf32"],
                          "vp_train": drop["vp128"],
@@ -4038,6 +4660,10 @@ def main() -> int:
                          "fsdp": drop["flagship128"],
                          "ddp2": drop["flagship64"],
                          "fsdp2": drop["flagship64"]},
+        # the split entries launch only under spatial parallelism
+        **{f"group_norm_split_{k}": {p: split[k] for p in SPATIAL_PATHS[
+            :4 if k in ("stats", "apply") else 2]}
+           for k in ("stats", "apply", "partials", "dx")},
     }
     for name, paths in times.items():
         for path in paths:
@@ -4085,6 +4711,19 @@ def main() -> int:
                    "model of the JAX package calls the op, so launches is 0 "
                    "and its own phase drives it; the phase demands bit "
                    "equality with the plain version in f32 and bf16")
+    split_basis = (
+        "bf16 under gn_bf16 (CelebA-HQ's config), swish: device ms (CUDA-"
+        "graph replay) summed over the split calls of one CelebA-HQ 256 "
+        f"forward (stats, apply) or backward (partials, dx) on one shard of "
+        f"{SPATIAL} at B={HQ_BATCH}; launches over [spatial2] (bf16 and "
+        "f32) and [spatial_sample]; max_abs_err of the bf16 entry against "
+        "its plain version (partials and dx: over each output's scale); "
+        "library_ms (apply) is F.group_norm+F.silu on the shard, which "
+        "normalizes the shard alone")
+    say("[spatial] " + json.dumps({"spatial2": spatial2,
+                                   "strided_dropout": split["dropout"]}))
+    say("[time] seconds a phase, to its first line: " + json.dumps(
+        {tag: round(sec, 1) for tag, sec in _PHASE_S if sec >= 1.0}))
     say(json.dumps({"kernels": [
         row("group_norm_act", "cuda", "psld_tpu_torch/csrc/group_norm_fwd.cu",
             "psld_tpu/ops/group_norm.py:67", fwd + "; bit_equal_share: the "
@@ -4111,6 +4750,12 @@ def main() -> int:
             "over the launches of one training step (forward and backward) "
             "at the path's shapes; max_abs_err measured over every compared "
             "case, f32 and bf16 (the phase demands bit equality)"),
+        *[row(f"group_norm_split_{k}", "cuda",
+              f"psld_tpu_torch/csrc/group_norm_{src}.cu",
+              f"psld_tpu/ops/group_norm.py:{line}", split_basis)
+          for k, src, line in (("stats", "fwd", 67), ("apply", "fwd", 67),
+                               ("partials", "bwd", 125),
+                               ("dx", "bwd", 125))],
         row("fused_leaky_relu", "cuda", "psld_tpu_torch/csrc/fused_act.cu",
             "psld_tpu/ops/fused_act.py:23", fused_basis, fused["fwd"]),
         row("fused_leaky_relu_bwd", "cuda",

@@ -69,12 +69,33 @@
 // kernel 64-117, no spills, no stack. Shared memory is dynamic, the run
 // plus 4 * (2 * NT / 32 * S + 8 * S) bytes: 68,608 for 1024 pixels of 32
 // bf16 channels in 256 threads, so three blocks share an SM.
+//
+// Split entry points, for an image whose height is split over the ranks
+// of a spatial group (psld_tpu_torch/parallel/spatial.py); they launch
+// only under spatial parallelism, where the moments span the shards:
+//   - psld_gn_split_stats writes each (n, group)'s f32 sums of x and x^2
+//     over the local pixels into an (N, G, 2) buffer: the channel sums
+//     the fused kernel adds, folded into groups. A block owns a run of
+//     SPLIT_ROWS pixels of one batch element, a thread a channel (and
+//     the channels 256 apart) and the rows RY apart; the block folds its
+//     rows and channels into groups in a fixed order and writes a
+//     partial, and a second kernel adds a group's partials in chunk
+//     order, so the sums are deterministic. The host all-reduces them
+//     over the group;
+//   - psld_gn_split_apply runs the fused kernel's chain from the global
+//     sums (mean and rstd from them, f32 or the gn_bf16 rounding points,
+//     affine, act), one element a thread, grid-stride.
+// Bound: the stats read x once and the apply reads it again and writes
+// y, so two reads and one write. Right first: scalar loads, one element
+// a thread; making them fast is later work.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "async_copy.cuh"
 
@@ -636,6 +657,213 @@ int psld_gn_fwd(const void* x, void* y, const void* scale, int scale_bf16,
 
 const char* psld_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"
+
+namespace {
+
+constexpr int SPLIT_THREADS = 256;
+constexpr int SPLIT_ROWS = 64;     // pixels a block of the stats reduces
+
+template <typename T>
+__device__ __forceinline__ float elem_f(T v) {
+  if constexpr (std::is_same<T, float>::value) return v;
+  else return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T to_elem(float v) {
+  if constexpr (std::is_same<T, float>::value) return v;
+  else return __float2bfloat16_rn(v);
+}
+
+// block (chunk, n): the f32 sums of x and x^2 of each group over pixels
+// [chunk * SPLIT_ROWS, +SPLIT_ROWS) of batch element n -> part[n][chunk][g]
+template <typename T>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+gn_split_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
+                      int hw, int c, int cgrp) {
+  __shared__ float sh1[1024], sh2[1024];
+  const int n = blockIdx.y, chunk = blockIdx.x, nch = gridDim.x;
+  const int tx_n = c < SPLIT_THREADS ? c : SPLIT_THREADS;
+  const int ry = SPLIT_THREADS / tx_n;
+  const int tx = threadIdx.x % tx_n, ty = threadIdx.x / tx_n;
+  const int p0 = chunk * SPLIT_ROWS;
+  const int p1 = min(hw, p0 + SPLIT_ROWS);
+  const T* xb = x + (size_t)n * hw * c;
+  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+  if (ty < ry) {
+    for (int p = p0 + ty; p < p1; p += ry) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int ch = tx + k * tx_n;
+        if (ch < c) {
+          const float v = elem_f(xb[(size_t)p * c + ch]);
+          s1[k] += v;
+          s2[k] = fmaf(v, v, s2[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int ch = tx + k * tx_n;
+      if (ch < c) {
+        sh1[ty * c + ch] = s1[k];
+        sh2[ty * c + ch] = s2[k];
+      }
+    }
+  }
+  __syncthreads();
+  const int ng = c / cgrp;
+  for (int g = threadIdx.x; g < ng; g += SPLIT_THREADS) {
+    float a = 0.f, b = 0.f;
+    for (int r = 0; r < ry; ++r)
+      for (int j = 0; j < cgrp; ++j) {
+        a += sh1[r * c + g * cgrp + j];
+        b += sh2[r * c + g * cgrp + j];
+      }
+    float* o = part + (((size_t)n * nch + chunk) * ng + g) * 2;
+    o[0] = a;
+    o[1] = b;
+  }
+}
+
+// thread (n, g): the chunks' partials added in chunk order -> out[n][g]
+__global__ void gn_split_fold_kernel(const float* __restrict__ part,
+                                     float* __restrict__ out, int b, int nch,
+                                     int ng) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= b * ng) return;
+  const int n = i / ng, g = i % ng;
+  float a = 0.f, v = 0.f;
+  for (int ch = 0; ch < nch; ++ch) {
+    const float* p = part + (((size_t)n * nch + ch) * ng + g) * 2;
+    a += p[0];
+    v += p[1];
+  }
+  out[(size_t)i * 2] = a;
+  out[(size_t)i * 2 + 1] = v;
+}
+
+// one element a thread: y = act of the chain from the global sums
+template <typename T, int ACT, bool CHAIN>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+gn_split_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
+                      const float* __restrict__ sums,
+                      const void* __restrict__ scale, int scale_bf16,
+                      const void* __restrict__ bias, int bias_bf16,
+                      long long total, long long hwc, int c, int cgrp,
+                      float inv_n, float eps) {
+  const int ng = c / cgrp;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    const long long n = i / hwc;
+    const int ch = (int)(i % c);
+    const float* sm = sums + (n * ng + ch / cgrp) * 2;
+    const float mean = sm[0] * inv_n;
+    const float var = fmaxf(sm[1] * inv_n - mean * mean, 0.f);
+    const float rs = rsqrtf(var + eps);
+    const float v = elem_f(x[i]);
+    const float sc = load_param(scale, scale_bf16, ch);
+    const float bi = load_param(bias, bias_bf16, ch);
+    float o;
+    if (CHAIN) {
+      const float xh = bf16r(bf16r(v - bf16r(mean)) * bf16r(rs));
+      o = act_of<ACT>(bf16r(bf16r(xh * bf16r(sc)) + bf16r(bi)));
+    } else {
+      o = act_of<ACT>((v - mean) * rs * sc + bi);
+    }
+    y[i] = to_elem<T>(o);
+  }
+}
+
+int split_grid(long long total) {
+  const long long blocks = (total + SPLIT_THREADS - 1) / SPLIT_THREADS;
+  return (int)(blocks < 132 * 32 ? blocks : 132 * 32);
+}
+
+template <typename T, bool CHAIN>
+int split_apply(int act, const void* x, void* y, const float* sums,
+                const void* scale, int sbf, const void* bias, int bbf,
+                long long total, long long hwc, int c, int cgrp, float inv_n,
+                float eps, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  const int grid = split_grid(total);
+#define PSLD_APPLY(A)                                                        \
+  gn_split_apply_kernel<T, A, CHAIN><<<grid, SPLIT_THREADS, 0, st>>>(       \
+      xt, yt, sums, scale, sbf, bias, bbf, total, hwc, c, cgrp, inv_n, eps); \
+  break
+  switch (act) {
+    case 0: PSLD_APPLY(0);
+    case 1: PSLD_APPLY(1);
+    case 2: PSLD_APPLY(2);
+    case 3: PSLD_APPLY(3);
+    case 4: PSLD_APPLY(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PSLD_APPLY
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// (B, H*W, C) NHWC x (this rank's rows) -> out (B, C / cgrp, 2) f32: each
+// group's sums of x and x^2 over the local pixels; part holds
+// B * ceil(H*W / SPLIT_ROWS) * (C / cgrp) * 2 floats of scratch. dtype: 0
+// = float32, 1 = bfloat16. Returns a cudaError_t.
+int psld_gn_split_stats(const void* x, void* part, void* out, int b, int hw,
+                        int c, int cgrp, int dtype, void* stream) {
+  if ((dtype != 0 && dtype != 1) || b < 1 || b > 65535 || hw < 1 ||
+      c < 1 || c > 1024 || cgrp < 1 || c % cgrp)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nch = (hw + SPLIT_ROWS - 1) / SPLIT_ROWS;
+  const dim3 grid(nch, b);
+  float* pt = static_cast<float*>(part);
+  if (dtype == 0)
+    gn_split_stats_kernel<float><<<grid, SPLIT_THREADS, 0, st>>>(
+        static_cast<const float*>(x), pt, hw, c, cgrp);
+  else
+    gn_split_stats_kernel<__nv_bfloat16><<<grid, SPLIT_THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), pt, hw, c, cgrp);
+  const int items = b * (c / cgrp);
+  gn_split_fold_kernel<<<(items + 255) / 256, 256, 0, st>>>(
+      pt, static_cast<float*>(out), b, nch, c / cgrp);
+  return (int)cudaGetLastError();
+}
+
+// (B, H*W, C) NHWC x -> y of x's type, normalized with the global sums
+// (B, C / cgrp, 2) f32 over n elements a group (all ranks' pixels times
+// cgrp). scale_bf16 / bias_bf16: the parameters' type; chain: 1 = the
+// gn_bf16 chain (bfloat16 only). Returns a cudaError_t.
+int psld_gn_split_apply(const void* x, void* y, const void* sums,
+                        const void* scale, int scale_bf16, const void* bias,
+                        int bias_bf16, int b, int hw, int c, int cgrp,
+                        float n, int act, int chain, float eps, int dtype,
+                        void* stream) {
+  if ((dtype != 0 && dtype != 1) || (chain && dtype != 1) || b < 1 ||
+      hw < 1 || c < 1 || cgrp < 1 || c % cgrp || !(n > 0.f))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long hwc = (long long)hw * c, total = hwc * b;
+  const float* sm = static_cast<const float*>(sums);
+  const float inv_n = 1.f / n;
+  if (dtype == 0)
+    return split_apply<float, false>(act, x, y, sm, scale, scale_bf16, bias,
+                                     bias_bf16, total, hwc, c, cgrp, inv_n,
+                                     eps, st);
+  if (chain)
+    return split_apply<__nv_bfloat16, true>(act, x, y, sm, scale,
+                                            scale_bf16, bias, bias_bf16,
+                                            total, hwc, c, cgrp, inv_n, eps,
+                                            st);
+  return split_apply<__nv_bfloat16, false>(act, x, y, sm, scale, scale_bf16,
+                                           bias, bias_bf16, total, hwc, c,
+                                           cgrp, inv_n, eps, st);
 }
 
 }  // extern "C"

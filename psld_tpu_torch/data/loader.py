@@ -35,7 +35,9 @@ class EpochLoader:
     same seed everywhere. The permutation is then the same in every
     process, and each loads only its contiguous slice of every global
     batch. ``batch_size`` is always the GLOBAL batch, cut down to a
-    multiple of ``process_count``."""
+    multiple of ``process_count``. Under spatial parallelism a process
+    is a data group: the loops pass its index and count, so the ranks of
+    a spatial group load the same rows."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, hflip: bool = False, seed: int = 0,

@@ -44,6 +44,19 @@ corrector's step size, ``adaptive_ode``'s error norm) are means over the
 global batch (``distributed.global_mean``). Inpainting, editing and
 ``bb_ode`` refuse lockstep, as in the JAX package.
 
+Spatial parallelism (``evaluation.spatial=S``,
+:mod:`psld_tpu_torch.parallel.spatial`): under a process group whose
+world size S divides, each image's height is split over spatial groups
+of S consecutive ranks, and a spatial group counts as one process of the
+above (lockstep over the world / S data groups, fan-out, the dataset
+images). The prior and every step's noise are drawn whole and sliced, so
+a rank's rows are one process's; the sample-wise norms (the corrector's)
+are summed over the group before their square root, the batch means are
+over every rank; ``bb_ode`` gathers its state before it goes to the
+host. Rows are gathered over the group before writing, and the group's
+first rank writes each image once. Inpainting, editing and ``bb_ode`` run
+under spatial groups, and refuse lockstep over several data groups.
+
 ``evaluation.sampler.corrector`` (``langevin``, with ``corrector_snr`` and
 ``corrector_steps``) adds a corrector to ``sample``, ``class_cond_sample``
 and ``edit``; ``inpaint`` runs without one, as in the JAX package.
@@ -78,7 +91,7 @@ from psld_tpu_torch.data.datasets import (InpaintDataset, SDELatentDataset,
 from psld_tpu_torch.data.loader import get_dataset
 from psld_tpu_torch.eval.writers import (InpaintingImageWriter,
                                          SimpleImageWriter)
-from psld_tpu_torch.parallel import distributed
+from psld_tpu_torch.parallel import distributed, spatial
 from psld_tpu_torch.parallel.mesh import shard_batch
 from psld_tpu_torch.registry import get_module
 from psld_tpu_torch.samplers.base import make_timesteps
@@ -137,21 +150,23 @@ def make_score_fn(net, bf16: bool = False):
     return lambda z, t: net16(z.to(torch.bfloat16), t).float()
 
 
-def _check_single_device(ecfg) -> None:
-    if int(ecfg.get("spatial", 1) or 1) > 1:
-        raise NotImplementedError(
-            "evaluation.spatial (height parallelism) is not ported yet: "
-            "a rank samples on one device (ROADMAP.md, queue 1)")
+def _spatial_setup(config) -> None:
+    """``evaluation.spatial`` for this process's later forwards: S must
+    divide the world size and the image height (the JAX package's
+    messages)."""
+    spatial.configure(int(config.evaluation.get("spatial", 1) or 1),
+                      int(config.data.image_size))
 
 
 def _lockstep(config):
-    """(rank, world) when the run samples lockstep: a process group of
-    more than one rank, ``evaluation.rank`` and
+    """(data group, data groups) when the run samples lockstep: a process
+    group of more than one data group (more than one rank without
+    spatial parallelism), ``evaluation.rank`` and
     ``evaluation.num_processes`` unset; else None."""
     ecfg = config.evaluation
     if int(ecfg.get("num_processes", 0)) > 0 or int(ecfg.get("rank", -1)) >= 0:
         return None
-    rank, world = distributed.process_info()
+    rank, world = distributed.data_info()
     return (rank, world) if world > 1 else None
 
 
@@ -174,7 +189,7 @@ def _rank_info(config) -> tuple[int, int]:
         return 0, 1
     rank = int(ecfg.get("rank", -1))
     nproc = int(ecfg.get("num_processes", 0))
-    group_rank, world = distributed.process_info()
+    group_rank, world = distributed.data_info()
     nproc = nproc if nproc > 0 else world
     rank = rank if rank >= 0 else group_rank
     if not rank < nproc:
@@ -249,6 +264,8 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
     rank, nproc = _rank_info(config)
     lock = _lockstep(config)
     lock_rank, world = (0, 1) if lock is None else lock
+    split = spatial.active()
+    writes = distributed.spatial_info()[0] == 0
     if n_samples is None:
         n_samples = -(-int(ecfg.n_samples) // nproc)
     if file_tag is None:
@@ -273,19 +290,26 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
         z = batch_at(batch_idx, gen, width)
         sampler = sampler_at(batch_idx)
         noise = None
-        if lock is not None:
+        if lock is not None or split:
             z = _rows(z, lock_rank, world)
             _lockstep_means(sampler)
+            sp = distributed.spatial_info()[1]
 
             def noise(k, like, gen=gen):
-                """Draw ``k`` at the global width; this rank's rows."""
-                return _rows(torch.randn(
-                    (like.shape[0] * world,) + tuple(like.shape[1:]),
-                    generator=gen, dtype=like.dtype, device=like.device),
-                    lock_rank, world)
+                """Draw ``k`` at the global width and the whole height;
+                this rank's rows and height slice."""
+                shape = (like.shape[0] * world, like.shape[1] * sp) \
+                    + tuple(like.shape[2:])
+                return spatial.height_slice(_rows(torch.randn(
+                    shape, generator=gen, dtype=like.dtype,
+                    device=like.device), lock_rank, world))
+        rows = z
+        z = spatial.height_slice(z)
         nfe0 = getattr(sampler, "nfe", None)
         out = sampler.sample(gen, z, ts, n_eff, denoise=denoise, eps=eps,
                              noise=noise)
+        with torch.no_grad():
+            out = spatial.gather(out, 1)
         out = out[:mine].float().cpu().numpy()
         stats = {"batch": batch_idx, "samples": mine, "width": per_step,
                  "nfe": (len(ts) - 1 + int(denoise) if nfe0 is None
@@ -295,10 +319,12 @@ def _run_sampler(config, sde, sampler_at, writer, batch_at, device,
         if prefix_at is not None:
             writer.sample_prefix = prefix_at(batch_idx)
         t0 = time.perf_counter()
-        if isinstance(z, tuple):
+        if not writes:
+            pass  # the spatial group's first rank writes its rows
+        elif isinstance(rows, tuple):
             writer.write_batch(out, rank=file_tag, batch_idx=batch_idx,
                                batch=tuple(b[:mine].float().cpu().numpy()
-                                           for b in z))
+                                           for b in rows))
         else:
             writer.write_batch(out, rank=file_tag, batch_idx=batch_idx)
         stats["write_seconds"] = time.perf_counter() - t0
@@ -335,7 +361,7 @@ def build_unguided(config, preloaded=None):
     outside ``num_processes`` and a missing card are refused before the
     checkpoint is read."""
     ecfg = config.evaluation
-    _check_single_device(ecfg)
+    _spatial_setup(config)
     _rank_info(config)  # raises on a rank outside num_processes
     device = distributed.run_device(ecfg.get("device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -416,7 +442,7 @@ def class_cond_sample(config):
     ``_run_sampler``, each with its ``label``."""
     dcfg = config.diffusion
     ecfg = dcfg.evaluation
-    _check_single_device(ecfg)
+    _spatial_setup(dcfg)
     device = distributed.run_device(ecfg.get("device", "cuda"))
     sampler_cls = get_module("samplers", str(ecfg.sampler.name))
     if not sampler_cls.guided:
@@ -470,7 +496,7 @@ def _dataset_synthesis(config, build_sampler, batch_at_of, writer) -> list:
     ``writer``; ``batch_at_of(dataset, device, rank, num_processes)``
     gives this rank's batches."""
     ecfg = config.evaluation
-    _check_single_device(ecfg)
+    _spatial_setup(config)
     _refuse_lockstep(config, "inpainting or editing (dataset images)")
     device = distributed.run_device(ecfg.get("device", "cuda"))
     sde = build_sde(config)

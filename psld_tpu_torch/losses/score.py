@@ -8,6 +8,13 @@ draws (the momentum ``m0`` of DSM, the noise ``eps``) come from ``rng``,
 an object with ``normal(shape)`` such as
 :class:`psld_tpu_torch.train.steps.StepRandom`, or are handed in, which is
 how a test feeds this loss and the JAX package's the same numbers.
+
+Under spatial parallelism a criterion sees a rank's slice of the height
+and its ``mean`` is over that slice: the shards are of one size, so the
+training step's one all-reduce over every rank divided by the world
+size (``parallel.distributed.GradReducer``) is the global batch's mean,
+the same as sums over the group divided by the global count, and the
+logged loss is the global batch's.
 """
 
 from __future__ import annotations

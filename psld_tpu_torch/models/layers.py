@@ -14,6 +14,14 @@ of a forward are numbered in call order, and :class:`DropoutSites` hands
 site ``i`` its seed words (``hw``, ``hw_inline``) or the step's generator
 (``save_mask``, ``remat``).
 
+Under spatial parallelism (:mod:`psld_tpu_torch.parallel.spatial`) each
+layer runs on this rank's rows of the height: a convolution takes a halo
+of its kernel's reach and pads only the width, an FIR resample the
+halo of its taps, GroupNorm sums its moments over the spatial group, an
+attention block gathers its input, runs whole and keeps its rows of the
+output, and dropout hashes positions in the whole image. A 1x1
+convolution, a Dense and the time embedding need nothing.
+
 Initialization is the JAX package's ``default_init`` (variance scaling,
 fan_avg, uniform): each Conv, Dense and FIRConv2d carries the
 ``init_scale`` its JAX counterpart is built with, and
@@ -31,10 +39,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from psld_tpu_torch.ops import attention, group_norm_act, hash_dropout
+from psld_tpu_torch.ops.group_norm import group_norm_act_split
 from psld_tpu_torch.ops.upfirdn import (conv_downsample_2d_nchw,
-                                        downsample_2d_nchw,
+                                        downsample_2d_nchw, shard_halo,
                                         upsample_2d_nchw,
                                         upsample_conv_2d_nchw)
+from psld_tpu_torch.parallel import distributed, spatial
 
 SQRT2 = math.sqrt(2.0)
 
@@ -96,7 +106,10 @@ class DropoutSites:
     site then drops as the global batch's forward would drop these rows.
     The hash implementations add the rows' flat NHWC offset
     (``elem_off``), the saved masks draw the global batch's mask and keep
-    the rows.
+    the rows. Under spatial parallelism ``index`` is the data group, and
+    each image holds this rank's slice of the height: the hash takes
+    every element's position in the whole image (``image``), the saved
+    masks keep the slice of the whole image's mask.
 
     ``close()`` raises unless every seed was used: a seed list of the
     wrong length means the sites were numbered differently."""
@@ -127,20 +140,25 @@ class DropoutSites:
             return h
         if self.rate == 1.0:
             return torch.zeros_like(h)
+        s, sp, _, _ = distributed.spatial_info()
+        b = h.shape[0]
         if self.hashed:
             if i >= len(self.seeds):
                 raise ValueError(f"dropout site {i}: only "
                                  f"{len(self.seeds)} seeds were given")
             # the shard's first element in the global tensor, mod 2**32
             # as the JAX package's uint32 offset
-            off = (index * h.numel()) & 0xFFFFFFFF
-            return hash_dropout(h, self.seeds[i], self.rate, elem_off=off)
+            local = h.numel() // b
+            off = (index * b * local * sp + s * local) & 0xFFFFFFFF
+            return hash_dropout(h, self.seeds[i], self.rate, elem_off=off,
+                                image=None if sp == 1
+                                else (local, local * sp))
         keep = 1.0 - self.rate
-        b = h.shape[0]
-        draw = torch.rand((b * count,) + tuple(h.shape[1:]),
-                          generator=self.generator, device=h.device)
-        mask = (draw if count == 1 else draw[index * b:(index + 1) * b]) \
-            < keep
+        shape = list(h.shape)
+        shape[0], shape[2] = b * count, shape[2] * sp
+        draw = torch.rand(shape, generator=self.generator, device=h.device)
+        draw = draw[index * b:(index + 1) * b] if count > 1 else draw
+        mask = spatial.height_slice(draw, 2) < keep
         return torch.where(mask, h / keep, torch.zeros_like(h))
 
     def replay_point(self):
@@ -241,9 +259,43 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         x, w, b = _promote(x, self.weight, self.bias)
+        if spatial.active():
+            return _conv_on_shard(x, w, b, self.stride[0], self._pad or (
+                self.padding[1],) * 2 + (self.padding[0],) * 2)
         if self._pad is not None:
             x = F.pad(x, self._pad)
         return F.conv2d(x, w, b, self.stride, self.padding)
+
+
+def _conv_on_shard(x, w, b, stride: int, pad):
+    """A convolution of this rank's rows: the halo of rows its output
+    rows read from the ranks above and below (``pad`` (left, right, top,
+    bottom) of the whole image), then the width's pad alone."""
+    kh = w.shape[-2]
+    top = pad[2]
+    x = spatial.halo(x, top, max(0, kh - stride - top))
+    return F.conv2d(F.pad(x, (pad[0], pad[1], 0, 0)), w, b, stride)
+
+
+_FIR_OPS = {"up": upsample_2d_nchw, "down": downsample_2d_nchw,
+            "up_conv": upsample_conv_2d_nchw,
+            "conv_down": conv_downsample_2d_nchw}
+
+
+def _fir(op: str, x, k, w=None):
+    """The FIR resample ``op`` by 2 (:func:`shard_halo`'s names; ``w`` the
+    weight of the fused convolution); on this rank's rows, of the rows
+    with the halo its output rows read, cut to the output rows it owns,
+    as :func:`_conv_on_shard` does for a convolution."""
+    fn = partial(_FIR_OPS[op], k=k, factor=2)
+    if w is not None:
+        fn = partial(fn, w=w)
+    if not spatial.active():
+        return fn(x)
+    top, bottom = shard_halo(op, k, 2, 1 if w is None else w.shape[-1])
+    up, down = (2, 1) if op.startswith("up") else (1, 2)
+    y = fn(spatial.halo(x, top, bottom))
+    return y.narrow(2, top * up // down, x.shape[2] * up // down)
 
 
 class Dense(nn.Linear):
@@ -288,8 +340,9 @@ class GroupNormAct(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
 
     def forward_nhwc(self, x):
-        return group_norm_act(x, self.scale, self.bias, self.num_groups,
-                              self.eps, self.act)
+        fn = group_norm_act_split if spatial.active() else group_norm_act
+        return fn(x, self.scale, self.bias, self.num_groups, self.eps,
+                  self.act)
 
     def forward(self, x):
         return _nchw(self.forward_nhwc(_nhwc(x)))
@@ -355,7 +408,14 @@ class Combine(nn.Module):
 
 class AttnBlock(nn.Module):
     """Full-spatial single-head self-attention; on CUDA the score/softmax/
-    value chain is the kernel of :mod:`psld_tpu_torch.ops.attention`."""
+    value chain is the kernel of :mod:`psld_tpu_torch.ops.attention`.
+    Under spatial parallelism the block gathers its input's height, runs
+    whole on every rank of the group (the unchanged kernel over every
+    token) and keeps this rank's rows; the gather's backward carries the
+    gradient back to the rows' owners. Its GroupNorm is the fused one on
+    the whole map, with no sum over the group: its backward is linear in
+    the cotangent, so the gather's reduce-scatter adds the ranks' input
+    gradients and the gradient reduction their dscale and dbias."""
 
     def __init__(self, ch: int, skip_rescale: bool = False,
                  init_scale: float = 0.0):
@@ -368,9 +428,16 @@ class AttnBlock(nn.Module):
         self.NIN_3 = NIN(ch, ch, init_scale=init_scale)
 
     def forward(self, x):
+        if spatial.active():
+            return spatial.height_slice(self._whole(spatial.gather(x)), 2)
+        return self._whole(x)
+
+    def _whole(self, x):
         b, c, hh, ww = x.shape
         xh = _nhwc(x)
-        h = self.GroupNormAct_0.forward_nhwc(xh)
+        gn = self.GroupNormAct_0
+        h = group_norm_act(xh, gn.scale, gn.bias, gn.num_groups, gn.eps,
+                           gn.act)
         q = self.NIN_0(h).reshape(b, hh * ww, c)
         k = self.NIN_1(h).reshape(b, hh * ww, c)
         v = self.NIN_2(h).reshape(b, hh * ww, c)
@@ -405,9 +472,12 @@ class FIRConv2d(nn.Module):
     def forward(self, x):
         w = self.weight.to(x.dtype)
         if self.up:
-            x = upsample_conv_2d_nchw(x, w, k=self.resample_kernel)
+            x = _fir("up_conv", x, self.resample_kernel, w)
         elif self.down:
-            x = conv_downsample_2d_nchw(x, w, k=self.resample_kernel)
+            x = _fir("conv_down", x, self.resample_kernel, w)
+        elif spatial.active():
+            p = w.shape[-1] // 2
+            x = _conv_on_shard(x, w, None, 1, (p, p, p, p))
         else:
             x = F.conv2d(x, w, padding=w.shape[-1] // 2)
         if self.bias is not None:
@@ -434,7 +504,7 @@ class Upsample(nn.Module):
             y = F.interpolate(x, scale_factor=2, mode="nearest")
             return self.Conv_0(y) if self.with_conv else y
         if not self.with_conv:
-            return upsample_2d_nchw(x, self.fir_kernel, factor=2)
+            return _fir("up", x, self.fir_kernel)
         return self.FIRConv2d_0(x)
 
 
@@ -458,7 +528,7 @@ class Downsample(nn.Module):
         if not self.fir:
             return self.Conv_0(x) if self.with_conv else F.avg_pool2d(x, 2)
         if not self.with_conv:
-            return downsample_2d_nchw(x, self.fir_kernel, factor=2)
+            return _fir("down", x, self.fir_kernel)
         return self.FIRConv2d_0(x)
 
 
@@ -537,11 +607,11 @@ class ResnetBlockBigGAN(nn.Module):
     def _resample(self, x):
         if self.up:
             if self.fir:
-                return upsample_2d_nchw(x, self.fir_kernel, factor=2)
+                return _fir("up", x, self.fir_kernel)
             return F.interpolate(x, scale_factor=2, mode="nearest")
         if self.down:
             if self.fir:
-                return downsample_2d_nchw(x, self.fir_kernel, factor=2)
+                return _fir("down", x, self.fir_kernel)
             return F.avg_pool2d(x, 2)
         return x
 

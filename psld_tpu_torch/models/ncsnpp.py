@@ -37,10 +37,12 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from psld_tpu_torch import knobs
 from psld_tpu_torch.models import layers
+from psld_tpu_torch.parallel import distributed, spatial
 from psld_tpu_torch.registry import register_module
 
 SQRT2 = layers.SQRT2
@@ -436,7 +438,8 @@ class NCSNppClassifier(_NCSNBase):
     The flatten is NHWC's, as in the JAX package (features ordered H, W,
     C), so the NCHW-logical activation is permuted before it: flattening
     it as it stands would order them C, H, W and scramble a converted
-    head. ``forward`` returns float logits (B, n_cls)."""
+    head. Under spatial parallelism a rank's rows meet their columns of
+    the head and the logits are summed over the spatial group. ``forward`` returns float logits (B, n_cls)."""
 
     def __init__(self, n_cls: int = 10, **kwargs):
         super().__init__(**kwargs)
@@ -466,4 +469,12 @@ class NCSNppClassifier(_NCSNBase):
         if drop is not None:
             drop.close()
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
-        return nxt("Dense")(h)
+        dense = nxt("Dense")
+        if not spatial.active():
+            return dense(h)
+        # this rank's rows of the flattened (H, W, C) features meet their
+        # columns of the head; the products sum over the group
+        s, sp, _, _ = distributed.spatial_info()
+        n = h.shape[1]
+        h, w = layers._promote(h, dense.weight)[:2]
+        return spatial.group_sum(F.linear(h, w[:, s * n:(s + 1) * n]))

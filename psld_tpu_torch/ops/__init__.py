@@ -18,6 +18,11 @@ from psld_tpu_torch.ops.group_norm import (  # noqa: F401
     group_norm_act_backward,
     group_norm_act_backward_plain,
     group_norm_act_plain,
+    group_norm_act_split,
+    group_norm_split_apply,
+    group_norm_split_dx,
+    group_norm_split_partials,
+    group_norm_split_stats,
 )
 from psld_tpu_torch.ops.upfirdn import (  # noqa: F401
     conv_downsample_2d,

@@ -20,7 +20,12 @@ memory, whose memory order is NHWC, so the op hashes the memory offset;
 it takes a tensor that is contiguous or channels_last-contiguous and
 raises on any other layout. ``elem_off`` is added to every position (mod
 2**32): a rank that holds a slice of a larger tensor passes the slice's
-offset and draws the same mask as the whole tensor would.
+offset and draws the same mask as the whole tensor would. A rank that
+holds a slice of every image's height (spatial parallelism) passes
+``image = (L, Gi)`` too, the elements of one image it holds and of one
+whole image: element ``i`` then hashes position ``elem_off + (i // L) *
+Gi + i % L``. This is the port's design, one launch a site; the JAX
+package gathers the whole tensor around each dropout site instead.
 
 What bounds the kernel on the H100: device-memory bytes, one read and one
 write of the tensor, with the integer pipes close behind: hashed element
@@ -33,6 +38,10 @@ or lane and only the second finalizer runs per element (1.9 TB/s at
 (128, 32, 32, 256) bf16). Forward and backward launch the same kernel. The seed words, the offset and the
 threshold are 32-bit scalar arguments (bit patterns passed as int32), so
 no launch waits for a copy from the host.
+
+Under ``image`` the rows of 128 positions no longer match the kernel's
+rows of elements, so that launch (``STRIDED``) computes every element's
+position and both finalizers per element; making it fast is later work.
 
 The scale is rounded to the tensor's dtype before the multiply, as JAX
 rounds a Python float that meets a bf16 array: a bf16 ``x`` times the
@@ -121,13 +130,23 @@ def _rounded_scale(rate: float, dtype) -> float:
     return float(torch.tensor(1.0 / (1.0 - rate), dtype=dtype))
 
 
-def hash_dropout_plain(x, seed, rate: float, elem_off: int = 0):
+def _positions(n: int, elem_off: int, image, device):
+    """The int64 positions (mod 2**32) of ``n`` elements in memory order:
+    ``elem_off + i``, or under ``image = (L, Gi)`` ``elem_off + (i // L)
+    * Gi + i % L``."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    if image is not None:
+        local, whole = (int(v) for v in image)
+        i = torch.div(i, local, rounding_mode="floor") * whole + i % local
+    return (i + int(elem_off)) & _MASK32
+
+
+def hash_dropout_plain(x, seed, rate: float, elem_off: int = 0, image=None):
     """The same function in plain PyTorch (int64 arithmetic masked to 32
     bits): the CPU path, and what the kernel is held against."""
     s0, s1 = fold_seed(seed)
     flat_x = _memory_order(x)
-    idx = (torch.arange(flat_x.numel(), dtype=torch.int64, device=x.device)
-           + int(elem_off)) & _MASK32
+    idx = _positions(flat_x.numel(), elem_off, image, x.device)
     keep = hash_bits(s0, s1, idx) >= threshold(rate)
     out = torch.empty_like(x)  # keeps x's memory format
     _memory_order(out).copy_(torch.where(
@@ -156,23 +175,35 @@ def _kernel():
         h = h * 0xC2B2AE35
         return h ^ (h >> 16)
 
-    @triton.jit(do_not_specialize=["n", "off", "s0", "s1", "thr"])
-    def _hash_dropout(x_ptr, o_ptr, n, off, s0, s1, thr, scale,
-                      ROWS: tl.constexpr):
+    @triton.jit(do_not_specialize=["n", "off", "s0", "s1", "thr", "loc",
+                                   "whole"])
+    def _hash_dropout(x_ptr, o_ptr, n, off, s0, s1, thr, scale, loc, whole,
+                      ROWS: tl.constexpr, STRIDED: tl.constexpr):
         # off, s0, s1, thr: uint32 bit patterns passed as int32. A tile is
         # ROWS global rows of 128 positions: the row's half of the hash is
-        # computed once a row, the lane's once a lane
+        # computed once a row, the lane's once a lane. STRIDED (a slice of
+        # each image's height): a tile is ROWS * 128 elements, each at
+        # position off + (i // loc) * whole + i % loc, hashed whole
         offu = off.to(tl.uint32, bitcast=True)
-        local = tl.program_id(0).to(tl.int64) * ROWS + tl.arange(0, ROWS)
-        lane = tl.arange(0, 128)
-        i = local[:, None] * 128 + lane[None, :] - (offu & 127).to(tl.int64)
-        mask = (i >= 0) & (i < n)
-        r = ((offu >> 7) + local.to(tl.uint32)) & 0x1FFFFFF
         k0 = s0.to(tl.uint32, bitcast=True)
         k1 = s1.to(tl.uint32, bitcast=True)
-        rh = _fmix(k0 ^ (r * 0x9E3779B1))
-        lm = k1 ^ (lane.to(tl.uint32) * 0x27D4EB2F)
-        bits = _fmix(rh[:, None] ^ lm[None, :])
+        lane = tl.arange(0, 128)
+        local = tl.program_id(0).to(tl.int64) * ROWS + tl.arange(0, ROWS)
+        if STRIDED:
+            i = local[:, None] * 128 + lane[None, :]
+            mask = i < n
+            q = i // loc
+            pos = (q * whole + (i - q * loc)).to(tl.uint32) + offu
+            rh = _fmix(k0 ^ ((pos >> 7) * 0x9E3779B1))
+            bits = _fmix(rh ^ k1 ^ ((pos & 127) * 0x27D4EB2F))
+        else:
+            i = local[:, None] * 128 + lane[None, :] \
+                - (offu & 127).to(tl.int64)
+            mask = (i >= 0) & (i < n)
+            r = ((offu >> 7) + local.to(tl.uint32)) & 0x1FFFFFF
+            rh = _fmix(k0 ^ (r * 0x9E3779B1))
+            lm = k1 ^ (lane.to(tl.uint32) * 0x27D4EB2F)
+            bits = _fmix(rh[:, None] ^ lm[None, :])
         keep = bits >= thr.to(tl.uint32, bitcast=True)
         x = tl.load(x_ptr + i, mask=mask, other=0.0).to(tl.float32)
         y = tl.where(keep, x * scale, 0.0)
@@ -187,40 +218,43 @@ def _i32(word: int) -> int:
     return word - (1 << 32) if word >= (1 << 31) else word
 
 
-def _launch(x, s0: int, s1: int, rate: float, elem_off: int):
+def _launch(x, s0: int, s1: int, rate: float, elem_off: int, image):
     import triton
 
     flat_x = _memory_order(x)
     out = torch.empty_like(x)
     n = flat_x.numel()
-    lead = int(elem_off) & (_LANES - 1)  # the first row may start mid-row
+    # the first row may start mid-row (the strided tiles have no rows)
+    lead = 0 if image is not None else int(elem_off) & (_LANES - 1)
+    loc, whole = (1, 1) if image is None else (int(v) for v in image)
     with torch.cuda.device(x.device):
         _kernel()[(triton.cdiv(n + lead, _ROWS * _LANES),)](
             flat_x, _memory_order(out), n, _i32(int(elem_off) & _MASK32),
             _i32(s0), _i32(s1), _i32(threshold(rate)),
-            _rounded_scale(rate, x.dtype), ROWS=_ROWS, num_warps=4)
+            _rounded_scale(rate, x.dtype), loc, whole, ROWS=_ROWS,
+            STRIDED=image is not None, num_warps=4)
     hash_dropout.launches += 1
     return out
 
 
-def _apply(x, s0: int, s1: int, rate: float, elem_off: int):
+def _apply(x, s0: int, s1: int, rate: float, elem_off: int, image=None):
     if x.device.type == "cpu":
-        return hash_dropout_plain(x, (s0, s1), rate, elem_off)
+        return hash_dropout_plain(x, (s0, s1), rate, elem_off, image)
     if x.device.type != "cuda":
         raise ValueError(f"hash_dropout: no path for device {x.device}")
     if x.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"hash_dropout kernel takes f32/bf16, got {x.dtype}")
-    return _launch(x, s0, s1, rate, elem_off)
+    return _launch(x, s0, s1, rate, elem_off, image)
 
 
 class _HashDropout(torch.autograd.Function):
     """Saves only the folded seed; the backward re-masks the cotangent."""
 
     @staticmethod
-    def forward(ctx, x, s0, s1, rate, elem_off):
-        ctx.args = (s0, s1, rate, elem_off)
+    def forward(ctx, x, s0, s1, rate, elem_off, image):
+        ctx.args = (s0, s1, rate, elem_off, image)
         ctx.x_format = (tuple(x.shape), tuple(x.stride()))
-        return _apply(x, s0, s1, rate, elem_off)
+        return _apply(x, s0, s1, rate, elem_off, image)
 
     @staticmethod
     def backward(ctx, g):
@@ -230,12 +264,14 @@ class _HashDropout(torch.autograd.Function):
             # cotangent into the input's layout first
             g = torch.empty_strided(shape, stride, dtype=g.dtype,
                                     device=g.device).copy_(g)
-        return _apply(g, *ctx.args), None, None, None, None
+        return _apply(g, *ctx.args), None, None, None, None, None
 
 
-def hash_dropout(x, seed, rate: float, elem_off: int = 0):
+def hash_dropout(x, seed, rate: float, elem_off: int = 0, image=None):
     """Dropout(x) with the keep-mask derived from ``seed`` (2 or 4 uint32
-    words, on the host) and each element's NHWC position + ``elem_off``.
+    words, on the host) and each element's NHWC position + ``elem_off``
+    (under ``image = (L, Gi)``: ``elem_off + (i // L) * Gi + i % L``, see
+    the module's docstring).
 
     ``rate`` 0 returns ``x``, 1 returns zeros, outside [0, 1] raises. A
     CPU tensor runs :func:`hash_dropout_plain`. A CUDA tensor launches the
@@ -253,11 +289,18 @@ def hash_dropout(x, seed, rate: float, elem_off: int = 0):
                          f"{x.numel()} elements are too many")
     if not 0 <= int(elem_off) <= _MASK32:
         raise ValueError(f"elem_off must be a uint32, got {elem_off}")
+    if image is not None:
+        image = tuple(int(v) for v in image)
+        if not 0 < image[0] <= image[1] or x.numel() % image[0]:
+            raise ValueError(f"image (L, Gi) = {image} does not tile "
+                             f"{x.numel()} elements")
+        if image[0] == image[1]:
+            image = None  # the whole image: positions are consecutive
     if x.numel() == 0:
         return x
     s0, s1 = fold_seed(seed)
     _memory_order(x)  # raises on a layout the op does not take
-    return _HashDropout.apply(x, s0, s1, rate, int(elem_off))
+    return _HashDropout.apply(x, s0, s1, rate, int(elem_off), image)
 
 
 hash_dropout.launches = 0

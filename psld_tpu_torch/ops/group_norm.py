@@ -68,6 +68,13 @@ z <= 0.
 Both kernels take x, and the backward its cotangent, on 16-byte
 boundaries, and launch without a host allocation beyond their outputs (and
 the backward's partials), so a CUDA graph can capture them.
+
+Under spatial parallelism a rank holds a slice of each image's height,
+and the moments span the slices: :func:`group_norm_act_split` runs the
+split entry points of the two kernels (``group_norm_split_stats`` /
+``_apply`` in the forward source, ``_partials`` / ``_dx`` in the
+backward's; the source notes say how) around one all-reduce each way,
+with a plain version beside each.
 """
 
 from __future__ import annotations
@@ -466,3 +473,310 @@ def group_norm_act(x, scale, bias, num_groups: int, eps: float = 1e-6,
 
 
 group_norm_act.launches = 0
+
+
+# -- split GroupNorm: moments over the height shards of a spatial group ---
+def _split_moments(sums, count: float, eps: float):
+    """(mean, rstd, variance before the clamp) of each (n, group), f32
+    (N, 1, G, 1), from the global sums of x and x^2 over ``count``
+    elements a group; the mean is the sum times 1 / n, as PyTorch's mean
+    takes it."""
+    inv = 1.0 / float(count)
+    mean = sums[..., 0] * inv
+    raw = sums[..., 1] * inv - mean * mean
+    rs = torch.rsqrt(torch.clamp_min(raw, 0.0) + eps)
+    shape = (sums.shape[0], 1, sums.shape[1], 1)
+    return mean.reshape(shape), rs.reshape(shape), raw.reshape(shape)
+
+
+def group_norm_split_stats_plain(x, num_groups: int):
+    """(N, G, 2) float32: each (batch element, group)'s sums of x and x^2
+    over the pixels of ``x`` (NHWC, this rank's rows)."""
+    b, h, w, c = x.shape
+    x32 = x.reshape(b, h * w, num_groups, c // num_groups).float()
+    return torch.stack([x32.sum(dim=(1, 3)), (x32 * x32).sum(dim=(1, 3))],
+                       dim=-1)
+
+
+def group_norm_split_apply_plain(x, scale, bias, sums, count: float,
+                                 num_groups: int, eps: float = 1e-6,
+                                 act: str = "none"):
+    """:func:`group_norm_act_plain`'s chain on ``x`` (this rank's rows)
+    with the moments of the global ``sums`` over ``count`` elements a
+    group."""
+    b, h, w, c = x.shape
+    cd = x.dtype if (x.dtype != torch.float32 and knobs.gn_bf16()) \
+        else torch.float32
+    mean, rs, _ = _split_moments(sums, count, eps)
+    xg = x.reshape(b, h * w, num_groups, c // num_groups)
+    y = ((xg.to(cd) - mean.to(cd)) * rs.to(cd)).reshape(b, h, w, c)
+    y = y * scale.to(cd) + bias.to(cd)
+    return _ACTS[act](y).to(x.dtype)
+
+
+def _split_chain(x, g, scale, bias, sums, count, num_groups, eps, act):
+    """The backward chain of one shard, grouped (B, HW, G, C/G): d = x -
+    mean, xh, dz, dxh = dz * scale, dd = dxh * rstd (the gn_bf16 roundings
+    of each for a bf16 x under the knob), and the moments."""
+    b, h, w, c = x.shape
+    chain = x.dtype != torch.float32 and knobs.gn_bf16()
+    cd = x.dtype if chain else torch.float32
+    mean, rs, raw = _split_moments(sums, count, eps)
+    grp = (b, h * w, num_groups, c // num_groups)
+    sc = scale.to(cd).reshape(1, 1, num_groups, -1)
+    bi = bias.to(cd).reshape(1, 1, num_groups, -1)
+    d = x.reshape(grp).to(cd) - mean.to(cd)
+    xh = d * rs.to(cd)
+    with torch.enable_grad():
+        z = (xh * sc + bi).detach().requires_grad_()
+        dz, = torch.autograd.grad(_ACTS[act](z), z, g.reshape(grp).to(cd))
+    dxh = dz * sc
+    dd = dxh * rs.to(cd)
+    return d, xh, dz, dxh, dd, mean, rs, raw, cd
+
+
+def group_norm_split_partials_plain(x, g, scale, bias, sums, count: float,
+                                    num_groups: int, eps: float = 1e-6,
+                                    act: str = "none"):
+    """(p, dscale, dbias): p (N, G, 2) float32 holds each (batch element,
+    group)'s P1 = sum(dd) and P2 = sum(dxh * d) over this rank's pixels
+    (the terms the moments' gradient sums over the group), dscale and
+    dbias the parameters' gradients over them, in the parameters'
+    dtypes."""
+    d, xh, dz, dxh, dd, *_ = _split_chain(x, g, scale, bias, sums, count,
+                                          num_groups, eps, act)
+    c = x.shape[-1]
+    p = torch.stack([dd.float().sum(dim=(1, 3)),
+                     (dxh.float() * d.float()).sum(dim=(1, 3))], dim=-1)
+    dscale = (dz * xh).float().sum(dim=(0, 1)).reshape(c)
+    dbias = dz.float().sum(dim=(0, 1)).reshape(c)
+    return p, dscale.to(scale.dtype), dbias.to(bias.dtype)
+
+
+def group_norm_split_dx_plain(x, g, scale, bias, sums, p, count: float,
+                              num_groups: int, eps: float = 1e-6,
+                              act: str = "none"):
+    """dx of this rank's rows from the global ``sums`` and the global
+    (P1, P2) ``p``: ``dd + (-P1 + 2 (x - mean) dvar) / n`` with ``dvar =
+    -rstd^3 P2 / 2`` (0 where the variance was clamped); under gn_bf16 a
+    bf16 x takes ``bf16(dd + bf16(that f32 term))``, as autograd through
+    the plain chain rounds it."""
+    d, xh, dz, dxh, dd, mean, rs, raw, cd = _split_chain(
+        x, g, scale, bias, sums, count, num_groups, eps, act)
+    pp = p.reshape(p.shape[0], 1, p.shape[1], 2)
+    dvar = torch.where(raw >= 0, -0.5 * rs * rs * rs, torch.zeros_like(rs)) \
+        * pp[..., 1:]
+    x32 = x.reshape(dd.shape).float()
+    corr = (2.0 * (x32 - mean) * dvar - pp[..., :1]) * (1.0 / float(count))
+    return (dd + corr.to(cd)).reshape(x.shape).to(x.dtype)
+
+
+def _split_count(x, num_groups: int) -> float:
+    """Elements a group over the whole image of the spatial group."""
+    from psld_tpu_torch.parallel import distributed
+
+    b, h, w, c = x.shape
+    return float(h * distributed.spatial_info()[1] * w * (c // num_groups))
+
+
+_SPLIT_STATS_ARGS = [_P, _P, _P] + [_I] * 5 + [_P]
+_SPLIT_APPLY_ARGS = [_P, _P, _P, _P, _I, _P, _I] + [_I] * 4 + [
+    ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
+_SPLIT_PART_ARGS = [_P, _P, _P, _P, _I, _P, _I] + [_P] * 5 + [_I] * 4 + [
+    ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
+_SPLIT_DX_ARGS = [_P] * 6 + [_I, _P, _I] + [_I] * 4 + [
+    ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
+_SPLIT_ROWS = 64  # pixels a block of the stats and partials reduces
+
+
+def _split_kernel_args(what: str, x, scale, bias, num_groups: int):
+    _check_kernel_args(what, x, scale, bias, num_groups)
+    if x.shape[0] > 65535:
+        raise ValueError(f"{what} kernel takes at most 65535 batch rows")
+
+
+def group_norm_split_stats(x, num_groups: int):
+    """:func:`group_norm_split_stats_plain` on a CPU tensor; on a CUDA
+    tensor the ``psld_gn_split_stats`` entry of ``csrc/group_norm_fwd.cu``
+    (``group_norm_split_stats.launches`` counts the launches)."""
+    if x.device.type == "cpu":
+        return group_norm_split_stats_plain(x, num_groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_split_stats: no path for {x.device}")
+    b, h, w, c = x.shape
+    ones = torch.ones(c, dtype=torch.float32, device=x.device)
+    _split_kernel_args("group_norm_split_stats", x, ones, ones, num_groups)
+    nch = -(-(h * w) // _SPLIT_ROWS)
+    part = torch.empty(b * nch * num_groups * 2, dtype=torch.float32,
+                       device=x.device)
+    out = torch.empty((b, num_groups, 2), dtype=torch.float32,
+                      device=x.device)
+    lib = _lib("group_norm_fwd.cu", "psld_gn_split_stats", _SPLIT_STATS_ARGS)
+    with torch.cuda.device(x.device):
+        err = lib.psld_gn_split_stats(
+            x.data_ptr(), part.data_ptr(), out.data_ptr(), b, h * w, c,
+            c // num_groups, _BF16[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "group_norm_split_stats kernel launch")
+    group_norm_split_stats.launches += 1
+    return out
+
+
+group_norm_split_stats.launches = 0
+
+
+def group_norm_split_apply(x, scale, bias, sums, count: float,
+                           num_groups: int, eps: float = 1e-6,
+                           act: str = "none"):
+    """:func:`group_norm_split_apply_plain` on a CPU tensor; on a CUDA
+    tensor the ``psld_gn_split_apply`` entry of
+    ``csrc/group_norm_fwd.cu`` (``group_norm_split_apply.launches``)."""
+    if x.device.type == "cpu":
+        return group_norm_split_apply_plain(x, scale, bias, sums, count,
+                                            num_groups, eps, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_split_apply: no path for {x.device}")
+    _split_kernel_args("group_norm_split_apply", x, scale, bias, num_groups)
+    b, h, w, c = x.shape
+    y = torch.empty_like(x)
+    sums = sums.contiguous()
+    lib = _lib("group_norm_fwd.cu", "psld_gn_split_apply", _SPLIT_APPLY_ARGS)
+    with torch.cuda.device(x.device):
+        err = lib.psld_gn_split_apply(
+            x.data_ptr(), y.data_ptr(), sums.data_ptr(), scale.data_ptr(),
+            _BF16[scale.dtype], bias.data_ptr(), _BF16[bias.dtype], b,
+            h * w, c, c // num_groups, float(count), _ACT_CODE[act],
+            int(_chain(x)), float(eps), _BF16[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "group_norm_split_apply kernel launch")
+    group_norm_split_apply.launches += 1
+    return y
+
+
+group_norm_split_apply.launches = 0
+
+
+def group_norm_split_partials(x, g, scale, bias, sums, count: float,
+                              num_groups: int, eps: float = 1e-6,
+                              act: str = "none"):
+    """:func:`group_norm_split_partials_plain` on a CPU tensor; on a CUDA
+    tensor the ``psld_gn_split_partials`` entry of
+    ``csrc/group_norm_bwd.cu`` (``group_norm_split_partials.launches``)."""
+    if x.device.type == "cpu":
+        return group_norm_split_partials_plain(x, g, scale, bias, sums,
+                                               count, num_groups, eps, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_split_partials: no path for "
+                         f"{x.device}")
+    _split_kernel_args("group_norm_split_partials", x, scale, bias,
+                       num_groups)
+    _check_cotangent("group_norm_split_partials", x, g)
+    b, h, w, c = x.shape
+    nch = -(-(h * w) // _SPLIT_ROWS)
+    cpart = torch.empty(b * nch * c * 2, dtype=torch.float32,
+                        device=x.device)
+    gpart = torch.empty(b * nch * num_groups * 2, dtype=torch.float32,
+                        device=x.device)
+    p = torch.empty((b, num_groups, 2), dtype=torch.float32, device=x.device)
+    dscale, dbias = torch.empty_like(scale), torch.empty_like(bias)
+    sums = sums.contiguous()
+    lib = _lib("group_norm_bwd.cu", "psld_gn_split_partials",
+               _SPLIT_PART_ARGS)
+    with torch.cuda.device(x.device):
+        err = lib.psld_gn_split_partials(
+            x.data_ptr(), g.data_ptr(), sums.data_ptr(), scale.data_ptr(),
+            _BF16[scale.dtype], bias.data_ptr(), _BF16[bias.dtype],
+            cpart.data_ptr(), gpart.data_ptr(), p.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr(), b, h * w, c,
+            c // num_groups, float(count), _ACT_CODE[act], int(_chain(x)),
+            float(eps), _BF16[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "group_norm_split_partials kernel launch")
+    group_norm_split_partials.launches += 1
+    return p, dscale, dbias
+
+
+group_norm_split_partials.launches = 0
+
+
+def group_norm_split_dx(x, g, scale, bias, sums, p, count: float,
+                        num_groups: int, eps: float = 1e-6,
+                        act: str = "none"):
+    """:func:`group_norm_split_dx_plain` on a CPU tensor; on a CUDA
+    tensor the ``psld_gn_split_dx`` entry of ``csrc/group_norm_bwd.cu``
+    (``group_norm_split_dx.launches``)."""
+    if x.device.type == "cpu":
+        return group_norm_split_dx_plain(x, g, scale, bias, sums, p, count,
+                                         num_groups, eps, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_split_dx: no path for {x.device}")
+    _split_kernel_args("group_norm_split_dx", x, scale, bias, num_groups)
+    _check_cotangent("group_norm_split_dx", x, g)
+    b, h, w, c = x.shape
+    dx = torch.empty_like(x)
+    sums, p = sums.contiguous(), p.contiguous()
+    lib = _lib("group_norm_bwd.cu", "psld_gn_split_dx", _SPLIT_DX_ARGS)
+    with torch.cuda.device(x.device):
+        err = lib.psld_gn_split_dx(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), sums.data_ptr(),
+            p.data_ptr(), scale.data_ptr(), _BF16[scale.dtype],
+            bias.data_ptr(), _BF16[bias.dtype], b, h * w, c,
+            c // num_groups, float(count), _ACT_CODE[act], int(_chain(x)),
+            float(eps), _BF16[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    build.check(lib, err, "group_norm_split_dx kernel launch")
+    group_norm_split_dx.launches += 1
+    return dx
+
+
+group_norm_split_dx.launches = 0
+
+
+def _check_cotangent(what: str, x, g) -> None:
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
+            or not g.is_contiguous():
+        raise ValueError(f"{what} kernel: the cotangent must be contiguous "
+                         "NHWC of x's shape, dtype and device")
+
+
+class _SplitGroupNormAct(torch.autograd.Function):
+    """GroupNorm over the height shards of a spatial group: local sums,
+    one all-reduce of the (N, G, 2) sums, then the normalization; the
+    backward's local (P1, P2), one all-reduce, then dx. Saves x, scale,
+    bias and the global sums."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, act):
+        from psld_tpu_torch.parallel import distributed
+
+        count = _split_count(x, num_groups)
+        sums = group_norm_split_stats(x, num_groups)
+        distributed.all_reduce_(sums, group=distributed.spatial_group())
+        ctx.save_for_backward(x, scale, bias, sums)
+        ctx.args = (count, num_groups, eps, act)
+        return group_norm_split_apply(x, scale, bias, sums, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        from psld_tpu_torch.parallel import distributed
+
+        x, scale, bias, sums = ctx.saved_tensors
+        g = g.contiguous()
+        p, dscale, dbias = group_norm_split_partials(x, g, scale, bias, sums,
+                                                     *ctx.args)
+        distributed.all_reduce_(p, group=distributed.spatial_group())
+        dx = group_norm_split_dx(x, g, scale, bias, sums, p, *ctx.args)
+        return dx, dscale, dbias, None, None, None
+
+
+def group_norm_act_split(x, scale, bias, num_groups: int, eps: float = 1e-6,
+                         act: str = "none"):
+    """NHWC GroupNorm + act of this rank's rows of an image whose height is
+    split over the spatial group (:mod:`psld_tpu_torch.parallel.spatial`):
+    the moments, and their gradients, span every shard. A CPU tensor
+    runs the plain pieces, a CUDA tensor the split entry points of the
+    two GroupNorm kernels; each raises on what it does not take."""
+    if act not in _ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    return _SplitGroupNormAct.apply(x.contiguous(), scale, bias, num_groups,
+                                    eps, act)

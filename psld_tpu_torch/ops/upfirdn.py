@@ -11,11 +11,17 @@ kernel, stride by ``down``; the kernel is applied depthwise.
 Public functions take NHWC tensors and OIHW conv weights. Their NCHW view
 is a free permute of NHWC memory, so a network that keeps its activations
 ``channels_last`` pays no copy on either side.
+
+A height shard (spatial parallelism) runs a resampler on itself extended
+by the rows above and below that its output rows read
+(:func:`shard_halo`), then keeps the output rows it owns; the layers of
+:mod:`psld_tpu_torch.models.layers` do the exchange.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -143,6 +149,50 @@ def conv_downsample_2d_nchw(x, w, k=None, factor: int = 2,
     p = (k.shape[0] - factor) + (kh - 1)
     y = _upfirdn2d_nchw(x, k, pad=((p + 1) // 2, p // 2))
     return F.conv2d(y, w.to(x.dtype), stride=factor)
+
+
+def _halo_rows(taps: int, up: int, down: int, pad0: int):
+    """(rows above, rows below) of a shard that the output rows it owns
+    read in an upfirdn of ``taps`` taps with ``up``, ``down`` and top pad
+    ``pad0``: output row o reads the stuffed rows ``o * down - pad0`` to
+    ``o * down - pad0 + taps - 1``. The rows above are rounded up so that
+    they hold whole strides."""
+    top = pad0 // up
+    align = down // math.gcd(up, down)
+    top = -(-top // align) * align
+    bottom = max(0, (taps - 1 - down - pad0) // up + 1)
+    return top, bottom
+
+
+def shard_halo(op: str, k=None, factor: int = 2, kh: int = 1):
+    """(rows above, rows below) that a height shard of the input of
+    ``op`` needs: ``op`` of the shard extended by them, with its own
+    pads, holds the output rows the shard owns (``factor`` times its
+    rows for ``up`` and ``up_conv``, 1 / ``factor`` for ``down`` and
+    ``conv_down``), starting ``rows above * factor`` (up) or ``rows
+    above / factor`` (down) rows in. ``op`` names ``upsample_2d``
+    (``up``), ``downsample_2d`` (``down``), ``upsample_conv_2d``
+    (``up_conv``) and ``conv_downsample_2d`` (``conv_down``) of a
+    ``kh``-tall weight; the rows come from the taps, the pads and the
+    stride above."""
+    n = setup_kernel(k if k is not None else [1.0] * factor).shape[0]
+    if op == "up":
+        return _halo_rows(n, factor, 1, (n - factor + 1) // 2 + factor - 1)
+    if op == "down":
+        return _halo_rows(n, 1, factor, (n - factor + 1) // 2)
+    if op == "up_conv":
+        # output row o reads the transposed conv's rows o - pad0 to o -
+        # pad0 + taps - 1, and its row j the input rows (j - kh + 1) /
+        # factor to j / factor
+        pad0 = ((n - factor) - (kh - 1) + 1) // 2 + factor - 1
+        return ((pad0 + kh - 1) // factor,
+                max(0, (n - 2 - pad0) // factor + 1))
+    if op == "conv_down":
+        # output row o reads the FIR's rows o * factor to o * factor + kh
+        # - 1, and its row j the input rows j - pad0 to j - pad0 + taps - 1
+        return _halo_rows(n + kh - 1, 1, factor,
+                          ((n - factor) + (kh - 1) + 1) // 2)
+    raise ValueError(f"shard_halo: unknown op {op!r}")
 
 
 def _nhwc(fn):

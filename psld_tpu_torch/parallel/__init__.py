@@ -1,4 +1,4 @@
-"""Multi-process data parallelism and FSDP (``psld_tpu/parallel``):
-``distributed`` joins the process group and holds the collectives,
-``mesh`` places state and batches, ``fsdp`` shards the training state.
-Spatial (height) parallelism is not ported."""
+"""Several processes (``psld_tpu/parallel``): ``distributed`` joins the
+process group and holds the collectives and the (data, spatial) rank
+grid, ``mesh`` places state and batches, ``fsdp`` shards the training
+state, ``spatial`` splits each image's height over a spatial group."""

@@ -21,6 +21,14 @@ The collectives the training step and the loop use are the functions of
 this module (:func:`all_reduce_`, :func:`all_gather_flat`,
 :func:`reduce_scatter_flat`, :func:`broadcast_`), called through the
 module, so one place holds every call into ``torch.distributed``.
+
+Spatial (height) parallelism (:func:`configure_spatial`,
+:mod:`psld_tpu_torch.parallel.spatial`): the ranks form a grid of D data
+groups of S consecutive ranks each; rank r is spatial index ``r % S`` of
+data group ``r // S``. The ranks of a spatial group hold the same batch
+rows, each a slice of the image height, and the collectives of the
+forward and backward passes run over that group; the rows of the global
+batch are split over the data groups.
 """
 
 from __future__ import annotations
@@ -82,10 +90,12 @@ def maybe_initialize(device="cuda") -> None:
 
 def destroy() -> None:
     """Leave the process group, if this process joined one."""
-    global _HOST_GROUP
+    global _HOST_GROUP, _SPATIAL
     if initialized():
         dist.destroy_process_group()
     _HOST_GROUP = None
+    _SPATIAL = None
+    _GRIDS.clear()
 
 
 def process_info() -> tuple[int, int]:
@@ -116,34 +126,102 @@ def run_device(name) -> torch.device:
     return dev
 
 
+# -- the (data, spatial) grid ----------------------------------------------
+# the spatial layout this process runs under: (S, spatial group, data
+# group), or None for S = 1
+_SPATIAL = None
+# the groups of each spatial factor, made once: dist.new_group is a
+# collective call every rank makes in the same order
+_GRIDS: dict = {}
+
+
+def configure_spatial(spatial: int) -> None:
+    """Run every later forward and backward pass of this process on height
+    shards over spatial groups of ``spatial`` consecutive ranks
+    (``training.spatial`` / ``evaluation.spatial``); 1 turns it off.
+    Raises ValueError, with the JAX package's message, unless
+    ``spatial`` divides the world size. Every rank must call it with the
+    same value, at the same point."""
+    global _SPATIAL
+    spatial = int(spatial)
+    rank, world = process_info()
+    if spatial < 1 or world % spatial:
+        raise ValueError(
+            f"spatial={spatial} must divide the device count {world} "
+            "(training.spatial / evaluation.spatial)")
+    if spatial == 1:
+        _SPATIAL = None
+        return
+    if spatial not in _GRIDS:
+        groups = {}
+        for d in range(world // spatial):
+            ranks = list(range(d * spatial, (d + 1) * spatial))
+            groups[("s", d)] = dist.new_group(ranks)
+        for s in range(spatial):
+            ranks = list(range(s, world, spatial))
+            groups[("d", s)] = dist.new_group(ranks)
+        _GRIDS[spatial] = groups
+        logger.info("spatial: %d data groups of %d ranks (%s); halo "
+                    "transport: one all_gather of edge rows over the "
+                    "spatial group", world // spatial, spatial,
+                    dist.get_backend())
+    groups = _GRIDS[spatial]
+    _SPATIAL = (spatial, groups[("s", rank // spatial)],
+                groups[("d", rank % spatial)])
+
+
+def spatial_info() -> tuple[int, int, int, int]:
+    """(s, S, d, D): this rank's spatial index of S and data group of D;
+    (0, 1, rank, world) without spatial parallelism."""
+    rank, world = process_info()
+    if _SPATIAL is None:
+        return 0, 1, rank, world
+    sp = _SPATIAL[0]
+    return rank % sp, sp, rank // sp, world // sp
+
+
+def data_info() -> tuple[int, int]:
+    """(d, D): this rank's data group and the number of data groups, the
+    (rank, world) of batch rows; (rank, world) without spatial
+    parallelism."""
+    return spatial_info()[2:]
+
+
+def spatial_group():
+    """The process group of this rank's spatial group, or None without
+    spatial parallelism."""
+    return None if _SPATIAL is None else _SPATIAL[1]
+
+
 # -- collectives ---------------------------------------------------------
-def all_reduce_(tensor) -> None:
-    """In-place sum over the ranks."""
+def all_reduce_(tensor, group=None) -> None:
+    """In-place sum over the ranks (of ``group``, default all)."""
     if initialized():
-        dist.all_reduce(tensor)
+        dist.all_reduce(tensor, group=group)
 
 
-def all_gather_flat(out, inp) -> None:
-    """``out`` (``world * inp.numel()`` elements) <- every rank's ``inp``,
-    in rank order."""
+def all_gather_flat(out, inp, group=None) -> None:
+    """``out`` (``n * inp.numel()`` elements, n the ranks of ``group``,
+    default all) <- every rank's ``inp``, in rank order."""
     if not initialized():
         out.copy_(inp)
         return
     # torch 2.13 renames all_gather_into_tensor; both take these arguments
     fn = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
-    fn(out, inp)
+    fn(out, inp, group=group)
 
 
-def reduce_scatter_flat(out, inp) -> None:
+def reduce_scatter_flat(out, inp, group=None) -> None:
     """``out`` <- this rank's chunk of the sum of every rank's ``inp``
-    (``world * out.numel()`` elements, chunk r for rank r)."""
+    (``n * out.numel()`` elements, chunk r for rank r of ``group``,
+    default all)."""
     if not initialized():
         out.copy_(inp)
         return
     fn = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
-    fn(out, inp)
+    fn(out, inp, group=group)
 
 
 def broadcast_(tensor, src: int = 0) -> None:
@@ -203,6 +281,12 @@ class GradReducer:
     step takes its gradients with ``torch.autograd.grad`` on
     ``functional_call``, which no module hook of
     ``DistributedDataParallel`` sees.
+
+    Under spatial parallelism a rank's loss is the mean over its own
+    elements, 1/S of its share of its data group's mean (the shards are
+    of one size), so one sum over every rank divided by the world size
+    sums the gradients over each spatial group and averages them over
+    the data groups: the same all-reduce serves both.
 
     ``reducer(tensors)`` copies the float32 ``tensors`` (the gradients,
     and the loss beside them) into one flat buffer, each at an offset

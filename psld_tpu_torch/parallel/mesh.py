@@ -31,9 +31,15 @@ def replicate_(state):
 
 def shard_batch(x, rank: int | None = None, world: int | None = None):
     """Rank ``rank``'s contiguous rows (of ``world``) of a global tensor
-    ``x``; both default to this process's."""
+    ``x``. Both default to this process's data group (its rank without
+    spatial parallelism), and then the rows' height is sliced too: under
+    spatial parallelism an NHWC batch's rank ``r`` part is data group
+    ``r // S``'s rows, rows ``[s * H / S, (s + 1) * H / S)`` of each
+    image (:func:`~psld_tpu_torch.parallel.spatial.spatial_batch_slice`)."""
     if rank is None or world is None:
-        rank, world = distributed.process_info()
+        from psld_tpu_torch.parallel.spatial import spatial_batch_slice
+
+        return spatial_batch_slice(x)
     if x.shape[0] % world:
         raise ValueError(f"batch of {x.shape[0]} rows is not divisible by "
                          f"{world} ranks")

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from psld_tpu_torch.parallel import spatial
 from psld_tpu_torch.registry import get_module, register_module
 from psld_tpu_torch.sde.psld import join_xm
 
@@ -76,8 +77,12 @@ class LangevinCorrector:
             # batch-mean norms give one scalar step: per-sample norms
             # blow the step up for samples near a mode, where the score
             # goes to 0
-            g_norm = self.batch_mean(torch.sqrt((score * score).sum(dims)))
-            z_norm = self.batch_mean(torch.sqrt((z * z).sum(dims)))
+            # a sample's norm over the whole image: under spatial
+            # parallelism its rows' sums added over the group
+            g_norm = self.batch_mean(torch.sqrt(
+                spatial.group_sum((score * score).sum(dims))))
+            z_norm = self.batch_mean(torch.sqrt(
+                spatial.group_sum((z * z).sum(dims))))
             step = 2.0 * (self.snr * z_norm
                           / torch.clamp_min(g_norm, 1e-20)) ** 2
             u_mean = u + step * score

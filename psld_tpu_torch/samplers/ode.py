@@ -24,6 +24,7 @@ import logging
 import numpy as np
 import torch
 
+from psld_tpu_torch.parallel import spatial
 from psld_tpu_torch.registry import register_module
 from psld_tpu_torch.samplers.base import Sampler
 from psld_tpu_torch.samplers.sde_samplers import (
@@ -87,18 +88,22 @@ class BBODESampler(_ODESampler):
             raise ImportError("bb_ode runs SciPy's solve_ivp, and SciPy is "
                               "not installed") from e
         del generator, ts, n_discrete_steps, noise
-        x = batch
+        # under spatial parallelism every rank of the group integrates the
+        # whole state on the host, alike, and evaluates its rows' drift
+        x = spatial.gather(batch, 1)
         shape, dtype, device = x.shape, x.dtype, x.device
         self._counter += 1
 
         def rhs(t, y):
             xt = torch.from_numpy(y.reshape(shape)).to(device).to(dtype)
-            return self._drift(xt, t).double().cpu().numpy().ravel()
+            drift = self._drift(spatial.height_slice(xt), t)
+            return spatial.gather(drift, 1).double().cpu().numpy().ravel()
 
         sol = solve_ivp(rhs, (0.0, self.sde.T - eps),
                         x.double().cpu().numpy().ravel(), method=self.solver,
                         rtol=self.rtol, atol=self.atol)
         x = torch.from_numpy(sol.y[:, -1].reshape(shape)).to(device).to(dtype)
+        x = spatial.height_slice(x)
         return self._denoise(x, eps) if denoise else x
 
 

@@ -9,7 +9,9 @@ covariance ``E Sigma_0 E^T + D I0 + S I1 + Q I2``.
 Time vectors are float64 tensors; every coefficient stays float64 until
 :func:`~psld_tpu_torch.utils.numerics.to_edge` casts it to the image
 tensor's dtype and device, as ``_mean`` and ``get_score`` do in the JAX
-package.
+package. With ``PSLD_DEBUG_NUMERICS`` set, both factorizations of
+``get_coeff`` and ``get_inv_coeff`` raise on a non-finite factor
+(:mod:`psld_tpu_torch.utils.debug`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from psld_tpu_torch.registry import register_module
 from psld_tpu_torch.sde.base import SDE
+from psld_tpu_torch.utils.debug import check_finite
 from psld_tpu_torch.utils.numerics import ou_weight_integrals, to_edge
 
 
@@ -162,10 +165,12 @@ class PSLD(SDE):
             l11 = torch.sqrt(xx)
             l21 = xm / l11
             l22 = torch.sqrt(mm - l21 * l21)
+            check_finite("PSLD.get_coeff (lower)", l11, l21, l22)
             return l11, torch.zeros_like(l11), l21, l22
         u22 = torch.sqrt(mm)
         u12 = xm / u22
         u11 = torch.sqrt(xx - u12 * u12)
+        check_finite("PSLD.get_coeff (upper)", u11, u12, u22)
         return u11, u12, torch.zeros_like(u22), u22
 
     def get_inv_coeff(self, var):
@@ -176,10 +181,12 @@ class PSLD(SDE):
             li11 = torch.rsqrt(xx)
             li12 = -xm / (torch.sqrt(xx) * torch.sqrt(det))
             li22 = torch.sqrt(xx / det)
+            check_finite("PSLD.get_inv_coeff (lower)", li11, li12, li22)
             return li11, li12, torch.zeros_like(li11), li22
         ui22 = torch.rsqrt(mm)
         ui21 = -xm / (torch.sqrt(mm) * torch.sqrt(det))
         ui11 = torch.sqrt(mm / det)
+        check_finite("PSLD.get_inv_coeff (upper)", ui11, ui21, ui22)
         return ui11, torch.zeros_like(ui11), ui21, ui22
 
     # -- score ---------------------------------------------------------------

@@ -59,6 +59,15 @@ class SamplerService:
                 "serving requires an on-device sampler (em_sde, sscs_sde, "
                 "sscs2m_sde, rk_ode, adaptive_ode, ei_ode); bb_ode runs a "
                 "SciPy host loop")
+        if int(ecfg.get("spatial", 1) or 1) > 1:
+            # the JAX package refuses it under several processes; the
+            # port's server is one process, and a spatial group spans
+            # processes
+            raise NotImplementedError(
+                "evaluation.spatial is not supported in serving: the "
+                "server is one process on one device, and a spatial group "
+                "spans processes (one card a rank); sample with "
+                "cli.sample under torchrun instead")
         self.sde, self.sampler, self.batch_at, self.device = \
             generate.build_unguided(config)
         self.n_steps = int(ecfg.n_discrete_steps)

@@ -11,8 +11,15 @@ each rank loads its rows of every global batch, the state starts as rank
 0's, and only rank 0 writes ``metrics.jsonl``, checkpoints and the
 profiler trace. ``training.fsdp=true`` shards the state
 (:mod:`psld_tpu_torch.parallel.fsdp`); its checkpoints hold the full
-state. Not ported, and raising if asked for: ``training.spatial``.
-Accepted without effect, and named in one log line at the start of a run
+state. ``training.spatial=S`` (:mod:`psld_tpu_torch.parallel.spatial`)
+splits each image's height over spatial groups of S consecutive ranks:
+S must divide the world size and the image height, the global batch is
+``batch_size * world / S``, and each rank of a group loads its data
+group's rows and keeps its slice of their height. The JAX package keeps
+a spatial group inside one process (its ``(data, spatial)`` mesh of
+local devices); here one rank is one card, so a group spans processes by
+construction. The classifier's loop reads no ``spatial``, as in the JAX
+package. Accepted without effect, and named in one log line at the start of a run
 when set (:data:`TPU_ONLY_KEYS`): ``steps_per_dispatch`` (a dispatch
 lever of the JAX package's remote runtime; eager PyTorch has no dispatch
 to widen) and ``optimizer.flatten``.
@@ -53,7 +60,7 @@ import psld_tpu_torch.sde  # noqa: F401  (registers the SDEs)
 from psld_tpu_torch import knobs
 from psld_tpu_torch.data.loader import EpochLoader, get_dataset
 from psld_tpu_torch.models.layers import init_parameters
-from psld_tpu_torch.parallel import distributed, fsdp
+from psld_tpu_torch.parallel import distributed, fsdp, spatial
 from psld_tpu_torch.parallel.mesh import replicate_
 from psld_tpu_torch.registry import get_module
 from psld_tpu_torch.train import checkpoint as ckpt
@@ -122,13 +129,6 @@ def log_ignored_keys(tcfg, where: str) -> None:
     if found:
         logger.info("accepted and ignored (TPU-only, no effect in the "
                     "port): %s", ", ".join(found))
-
-
-def _check_single_device(tcfg) -> None:
-    if int(tcfg.get("spatial", 1) or 1) > 1:
-        raise NotImplementedError(
-            "training.spatial (height parallelism) is not ported yet: "
-            "ROADMAP.md, queue 1")
 
 
 def _run_device(tcfg):
@@ -346,11 +346,12 @@ def train_sde(config, max_steps: int | None = None):
 
 def _train_sde(config, stop, max_steps):
     tcfg = config.training
-    _check_single_device(tcfg)
     log_ignored_keys(tcfg, "training")
     seed = int(tcfg.seed)
     device = _run_device(tcfg)
-    rank, world = distributed.process_info()
+    spatial.configure(int(tcfg.get("spatial", 1) or 1),
+                      int(config.data.image_size))
+    data_index, data_groups = distributed.data_info()
 
     dataset = get_dataset(config)
     net = build_score_model(config)
@@ -366,11 +367,12 @@ def _train_sde(config, stop, max_steps):
     state, start_epoch = _restore(tcfg, init_state(params, optimizer),
                                   "score")
     state = _place(state, net, layout)
-    loader = EpochLoader(dataset, int(tcfg.batch_size) * world,
+    loader = EpochLoader(dataset, int(tcfg.batch_size) * data_groups,
                          shuffle=True, drop_last=True,
                          hflip=bool(config.data.hflip), seed=seed,
-                         process_index=rank, process_count=world)
-    rng = StepRandom(seed, device, shard=(rank, world))
+                         process_index=data_index,
+                         process_count=data_groups)
+    rng = StepRandom(seed, device, shard=(data_index, data_groups))
 
     def epoch_batches():
         """An epoch's optimizer-step batches: ``grad_accum`` loader
@@ -386,7 +388,9 @@ def _train_sde(config, stop, max_steps):
             yield np.stack(chunk) if accum > 1 else chunk[0]
 
     def step_on(arr):
-        batch = torch.from_numpy(arr).to(device, non_blocking=True)
+        # this rank's slice of the rows' height (NHWC, or [A, B, H, W, C])
+        batch = spatial.height_slice(torch.from_numpy(arr), arr.ndim - 3)
+        batch = batch.to(device, non_blocking=True)
         return step_fn(state, batch, rng)[1]
 
     run_knobs = knobs.resolved(config)
@@ -422,10 +426,10 @@ def train_clf(config, max_steps: int | None = None):
 def _train_clf(config, stop, max_steps):
     ccfg = config.clf
     tcfg = ccfg.training
-    _check_single_device(tcfg)
     log_ignored_keys(tcfg, "clf.training")
     seed = int(tcfg.seed)
     device = _run_device(tcfg)
+    distributed.configure_spatial(1)
     rank, world = distributed.process_info()
 
     dataset = get_dataset(ccfg)

@@ -40,6 +40,15 @@ Layout`: the sharded leaves are all-gathered into the compute copies
 before the forward and their gradients reduce-scattered after the
 backward, and the clip's norm adds the squared norms of every rank's
 chunks.
+
+Spatial parallelism (:mod:`psld_tpu_torch.parallel.spatial`): ``batch``
+is this rank's height slice of its data group's rows. Every draw is
+made for the global batch, its rows sliced by data group and then its
+height by spatial index, so the ranks of a row share its ``t``; the
+network's layers run on the slice, the loss is the mean over the rank's
+elements, and the reduction above (a sum over every rank over the world
+size) gives the global batch's loss and gradients and so the global
+clip norm.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import torch
 from psld_tpu_torch.models.layers import dropout_is_hashed
 from psld_tpu_torch.parallel import distributed
 from psld_tpu_torch.parallel.mesh import shard_batch
+from psld_tpu_torch.parallel.spatial import height_slice
 from psld_tpu_torch.train.state import (TrainState, ema_update_, global_norm,
                                         make_optimizer)
 
@@ -62,11 +72,14 @@ class StepRandom:
 
     ``shard = (index, count)``: the draws of a batch of B rows are rows
     ``index * B`` to ``(index + 1) * B`` of the draws of ``count * B``
-    rows, which every rank makes alike."""
+    rows, which every rank makes alike. Under spatial parallelism (read
+    when the source is made) an image draw is this rank's slice of the
+    height of those rows' draws."""
 
     def __init__(self, seed: int, device="cpu", shard=(0, 1)):
         self.device = torch.device(device)
         self.index, self.count = (int(v) for v in shard)
+        self.spatial = distributed.spatial_info()[1]
         self.host = torch.Generator().manual_seed(int(seed))
         if self.device.type == "cpu":
             self.dev = self.host
@@ -81,11 +94,14 @@ class StepRandom:
                            self.index, self.count)
 
     def normal(self, shape) -> torch.Tensor:
-        """float32 N(0, 1) on the run's device."""
+        """float32 N(0, 1) on the run's device; an NHWC image's draw."""
         shape = tuple(shape)
-        return shard_batch(torch.randn(
-            (shape[0] * self.count,) + shape[1:], dtype=torch.float32,
-            generator=self.dev, device=self.device), self.index, self.count)
+        full = (shape[0] * self.count,) + shape[1:]
+        if self.spatial > 1:
+            full = full[:1] + (shape[1] * self.spatial,) + shape[2:]
+        return height_slice(shard_batch(torch.randn(
+            full, dtype=torch.float32, generator=self.dev,
+            device=self.device), self.index, self.count), 1)
 
     def seed_words(self, n_sites: int, words: int = 2) -> list:
         """``n_sites`` tuples of uint32 words, as host integers."""
@@ -125,7 +141,7 @@ class _Compute:
         self._copied: list = []
         self.hashed = dropout_is_hashed(net.dropout_impl) \
             and 0.0 < net.dropout < 1.0
-        self.shard = distributed.process_info()
+        self.shard = distributed.data_info()
 
     def _sharded(self, key) -> bool:
         return self.layout is not None and self.layout.is_sharded(key)

@@ -13,6 +13,7 @@ convolution. The test allows 2% and finds no difference
 (338,043,584 FLOPs each).
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import ast
 import json
 import math

@@ -22,6 +22,7 @@ Tolerances, relative to the largest magnitude of the compared tensor:
   ``test_torch_sampler``.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -2,6 +2,7 @@
 training, guided sampling, inpainting, editing, the bench), their files
 and log lines, and what they import (CPU)."""
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import os
 import subprocess
 import sys
@@ -88,15 +89,15 @@ def test_sample_cli_writes_the_jax_writers_files(tmp_path, one_thread):
 
 
 @pytest.mark.parametrize("overrides,error", [
-    pytest.param(["+dataset.diffusion.evaluation.spatial=2"],
-                 NotImplementedError,
+    pytest.param(["+dataset.diffusion.evaluation.spatial=2"], ValueError,
                  id="+dataset.diffusion.evaluation.spatial=2"),
     pytest.param(["+dataset.diffusion.evaluation.num_processes=2",
                   "+dataset.diffusion.evaluation.rank=2"], ValueError,
                  id="+dataset.diffusion.evaluation.num_processes=2"),
 ])
 def test_sample_refuses_what_is_not_ported(overrides, error):
-    """Spatial fan-out is not ported, and per-rank fan-out refuses a rank
+    """Spatial parallelism in one process (it needs a spatial group of
+    ranks: ``test_torch_spatial``), and per-rank fan-out with a rank
     outside ``num_processes`` (``test_torch_fanout`` holds the fan-out
     itself): the entry point raises before it loads anything.
     (Correctors are ported: ``test_torch_corrector``.)"""

@@ -13,6 +13,7 @@ Tolerance of the SDE comparison: 1e-6 of the tensor's largest magnitude,
 as in ``test_torch_sde`` (float64 coefficients rounded once to float32).
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import os
 
 import jax.numpy as jnp

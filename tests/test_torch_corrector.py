@@ -16,6 +16,7 @@ Tolerance: 1e-4 of the largest magnitude, as for the trajectories of
 carries the forward's ~1e-6 disagreement.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ interpret mode. On a CPU tensor the port's op runs its plain version;
 ``chip_smoke.py`` holds the Triton kernel to it on the card.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

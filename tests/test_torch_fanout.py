@@ -9,6 +9,7 @@ read and no sampler compiled). The port runs its entry points for real,
 at 8 x 8 on the CPU.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import os
 import types
 
@@ -233,9 +234,16 @@ def test_dataset_shards_match_jax(tmp_path, monkeypatch, ckpts, mode, rank,
 
 
 def test_spatial_stays_refused():
-    with pytest.raises(NotImplementedError):
-        generate._check_single_device(ConfigDict({"spatial": 2}))
-    generate._check_single_device(ConfigDict({"num_processes": 4}))
+    """Spatial parallelism needs a spatial group of ranks
+    (``test_torch_spatial.py``): one process asked for
+    ``evaluation.spatial=2`` is refused with the JAX package's message;
+    fan-out alone is not."""
+    def cfg(**ecfg):
+        return ConfigDict({"evaluation": ecfg, "data": {"image_size": 8}})
+
+    with pytest.raises(ValueError, match="must divide the device count 1"):
+        generate._spatial_setup(cfg(spatial=2))
+    generate._spatial_setup(cfg(num_processes=4))
 
 
 def test_batch_generator_seeds_a_rank_apart():

@@ -11,6 +11,7 @@ gives the loss within 1e-5 relative and every gradient within 1e-4 of
 its scale.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import os
 import struct
 import zlib

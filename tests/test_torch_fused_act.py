@@ -15,6 +15,7 @@ in bfloat16 the result is rounded to bf16 once more, so it agrees to one
 bf16 unit (2**-8) of its scale.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

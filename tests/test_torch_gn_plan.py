@@ -8,6 +8,7 @@ the plan may hold part of a run and still stays within 227 KB. The card
 tests' ragged shapes are placed too. Runs on the CPU: it imports the
 port alone."""
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import pytest
 import torch
 

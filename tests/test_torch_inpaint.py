@@ -13,6 +13,7 @@ the EM trajectory of ``test_torch_sampler``. Masks and written arrays are
 numpy on both sides and must match bit for bit.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import os
 
 import jax

@@ -11,6 +11,7 @@ imported network is compared within 1e-5 of the output's scale (the
 same f32 arithmetic, summed in another order by XLA and by PyTorch).
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import os
 
 import jax

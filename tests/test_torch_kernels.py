@@ -657,3 +657,133 @@ def test_a_ranks_dropout_is_the_global_batchs_on_the_card(card, monkeypatch,
     assert torch.equal(rem, part)
     for a, b in zip(rem_grads, part_grads):
         assert torch.equal(a, b)
+
+
+# -- the split entry points of spatial parallelism ---------------------------
+@pytest.mark.parametrize("dtype,gn16", [(torch.float32, False),
+                                        (torch.bfloat16, False),
+                                        (torch.bfloat16, True)],
+                         ids=["f32", "bf16", "gn_bf16"])
+@pytest.mark.parametrize("shape,groups", [
+    ((3, 5, 7, 40), 10),     # ragged: 35 pixels, no whole chunk of 64
+    ((2, 4, 4, 384), 32),    # 16 pixels, channels past one pass of 256
+    ((2, 3, 3, 1024), 32),   # C at its limit
+    ((1, 65, 2, 96), 24),    # 130 pixels: three chunks, the last of 2
+])
+def test_group_norm_split_entries_match_plain(card, monkeypatch, shape,
+                                              groups, dtype, gn16):
+    """Each split entry (stats, apply, partials, dx) against its plain
+    version on the same inputs, and two shards' sums added against the
+    whole map's fused kernel: stats and (P1, P2) to 1e-5 of their scale
+    (f32 sums in another order), y and dx to the dtype's tolerance
+    (bf16 and gn_bf16: 1e-2 of the scale)."""
+    from psld_tpu_torch.ops import group_norm as gn
+
+    monkeypatch.setenv("PSLD_GN_BF16", "1" if gn16 else "0")
+    x = rand(shape, 0, dtype, card, scale=2.0, shift=0.5)
+    g = rand(shape, 5, dtype, card)
+    c = shape[-1]
+    scale = rand((c,), 1, torch.float32, card, 0.1, 1.0)
+    bias = rand((c,), 2, torch.float32, card, 0.1)
+    count = float(shape[1] * shape[2] * (c // groups))
+
+    def close(got, want, tol):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * max(float(want.float().abs().max()), 1e-30), err
+
+    tol = TOL[dtype] if dtype == torch.float32 and not gn16 else 1e-2
+    n = [getattr(gn, f).launches for f in (
+        "group_norm_split_stats", "group_norm_split_apply",
+        "group_norm_split_partials", "group_norm_split_dx")]
+    sums = gn.group_norm_split_stats(x, groups)
+    close(sums, gn.group_norm_split_stats_plain(x, groups), 1e-5)
+    for act in ACTS:
+        y = gn.group_norm_split_apply(x, scale, bias, sums, count, groups,
+                                      1e-6, act)
+        close(y, gn.group_norm_split_apply_plain(x, scale, bias, sums, count,
+                                                 groups, 1e-6, act), tol)
+        p, ds, db = gn.group_norm_split_partials(x, g, scale, bias, sums,
+                                                 count, groups, 1e-6, act)
+        wp, wds, wdb = gn.group_norm_split_partials_plain(
+            x, g, scale, bias, sums, count, groups, 1e-6, act)
+        for got, want in ((p, wp), (ds, wds), (db, wdb)):
+            close(got, want, 1e-5 if dtype == torch.float32 else 1e-2)
+        dx = gn.group_norm_split_dx(x, g, scale, bias, sums, p, count,
+                                    groups, 1e-6, act)
+        close(dx, gn.group_norm_split_dx_plain(x, g, scale, bias, sums, wp,
+                                               count, groups, 1e-6, act),
+              tol)
+    assert [getattr(gn, f).launches for f in (
+        "group_norm_split_stats", "group_norm_split_apply",
+        "group_norm_split_partials", "group_norm_split_dx")] == [
+        n[0] + 1, n[1] + 5, n[2] + 5, n[3] + 5]
+    # two half-height shards against the whole map's fused kernel
+    if shape[1] % 2 == 0:
+        h = shape[1] // 2
+        halves = [x[:, :h].contiguous(), x[:, h:].contiguous()]
+        total = sum(gn.group_norm_split_stats(v, groups) for v in halves)
+        y = torch.cat([gn.group_norm_split_apply(
+            v, scale, bias, total, count, groups, 1e-6, "swish")
+            for v in halves], 1)
+        close(y, ops.group_norm_act(x, scale, bias, groups, 1e-6, "swish"),
+              tol)
+
+
+def test_group_norm_split_entries_past_two_to_the_31_bytes(card):
+    """Stats and apply on a bf16 tensor of 2**31 bytes against their plain
+    versions ``HUGE_CHUNK`` batch elements at a time."""
+    from psld_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(HUGE, generator=gen, device=card,
+                    dtype=torch.bfloat16) * 2 + 0.5
+    c, groups = HUGE[-1], 32
+    scale = rand((c,), 1, torch.float32, card, 0.1, 1.0)
+    bias = rand((c,), 2, torch.float32, card, 0.1)
+    count = float(HUGE[1] * HUGE[2] * (c // groups))
+    sums = gn.group_norm_split_stats(x, groups)
+    y = gn.group_norm_split_apply(x, scale, bias, sums, count, groups, 1e-6,
+                                  "swish")
+    torch.cuda.synchronize()
+    for i in range(0, HUGE[0], HUGE_CHUNK):
+        sl = slice(i, i + HUGE_CHUNK)
+        want = gn.group_norm_split_stats_plain(x[sl], groups)
+        err = float((sums[sl] - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+        assert_close(y[sl], gn.group_norm_split_apply_plain(
+            x[sl], scale, bias, sums[sl], count, groups, 1e-6, "swish"),
+            TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("shape,spatial_n,row", [
+    ((2, 8, 4, 3), 2, 1),       # 48-element slices, mid-row offsets
+    ((3, 4, 7, 5), 4, 0),       # 35: each slice starts mid-row
+    ((4, 16, 16, 256), 2, 2),   # a rank's half images at a real width
+    ((2, 4, 4, 129), 4, 1),     # one row of 516 elements a slice
+])
+def test_hash_dropout_kernel_on_height_slices(card, shape, spatial_n, row,
+                                              dtype):
+    """The strided launch (``image = (L, Gi)``) on a rank's rows and
+    height slice is the whole tensor's dropout sliced and its plain
+    version, bit for bit, forward and backward; one launch each way."""
+    x = rand(shape, 3, dtype, card)
+    seed, rate = [987654321, 12345], 0.2
+    whole = ops.hash_dropout(x, seed, rate)
+    h = shape[1] // spatial_n
+    for s in range(spatial_n):
+        part = x[row:, s * h:(s + 1) * h].contiguous().requires_grad_()
+        local = part[0].numel()
+        off = row * x[0].numel() + s * local
+        image = (local, x[0].numel())
+        n = ops.hash_dropout.launches
+        got = ops.hash_dropout(part, seed, rate, elem_off=off, image=image)
+        assert ops.hash_dropout.launches == n + 1
+        assert torch.equal(got, whole[row:, s * h:(s + 1) * h])
+        assert torch.equal(got, ops.hash_dropout_plain(
+            part.detach(), seed, rate, elem_off=off, image=image))
+        ct = rand(part.shape, 4, dtype, card)
+        (dx,) = torch.autograd.grad(got, part, ct)
+        assert torch.equal(dx, ops.hash_dropout_plain(
+            ct, seed, rate, elem_off=off, image=image))

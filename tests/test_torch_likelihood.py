@@ -19,6 +19,7 @@ Tolerances:
   ``tests/test_likelihood.py`` holds the JAX package's.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import math
 
 import jax

@@ -4,6 +4,7 @@ counts, graceful shutdown on SIGTERM, ``AsyncSaver``, ``prefetch_iter``,
 ``BoundedTrace`` and per-resblock ``remat``.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import json
 import os
 import signal

@@ -9,6 +9,7 @@ loss and parameter gradients on a small NCSN++ with converted weights to
 the backward pass.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ Tolerances, relative to the output's largest magnitude:
   differences add up through ~30 layers (about 1e-2 on this input).
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,13 +69,17 @@ def random_flax_params(net, kw, seed, scale=0.25):
         shapes)
 
 
-def jit_o0(fn, *args):
-    """``jax.jit(fn)(*args)``, compiled at XLA's lowest backend
-    optimization level: these programs run once, and that halves their
-    CPU compile time."""
-    compiled = jax.jit(fn).lower(*args).compile(
+def compile_o0(fn, *args):
+    """``fn`` (jitted or not) compiled once for the shapes of ``args`` at
+    XLA's lowest backend optimization level: these programs run a few
+    times, and that halves their CPU compile time."""
+    return jax.jit(fn).lower(*args).compile(
         compiler_options={"xla_backend_optimization_level": 0})
-    return compiled(*args)
+
+
+def jit_o0(fn, *args):
+    """``jax.jit(fn)(*args)``, compiled by :func:`compile_o0`."""
+    return compile_o0(fn, *args)(*args)
 
 
 _PAIRS = {}

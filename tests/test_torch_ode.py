@@ -18,6 +18,7 @@ Network, float32: the one-level NCSN++ (and the micro classifier) of
 their scale, as the EM trajectory of ``test_torch_sampler``.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

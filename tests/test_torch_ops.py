@@ -13,6 +13,7 @@ values that may fall on either side of a rounding boundary. bf16 with
 XLA and PyTorch place differently.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

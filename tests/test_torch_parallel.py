@@ -11,6 +11,7 @@ to ``test_torch_train.py``'s tolerance (rtol 1e-5, floored at 1e-5 of
 the tree's largest magnitude plus 1e-8).
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import glob
 import json
 import os

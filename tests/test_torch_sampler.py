@@ -12,6 +12,7 @@ forward's ~1e-6 disagreement (see ``test_torch_ncsnpp``), and the
 trajectory carries it through ten steps.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

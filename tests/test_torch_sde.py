@@ -14,6 +14,7 @@ the edge, so:
   ``jnp.linspace``).
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,6 +7,7 @@ as the JAX package's server is there; a served request is held bit-equal
 to ``cli.sample`` of the same seed and count.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import contextlib
 import glob
 import os

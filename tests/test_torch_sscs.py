@@ -13,6 +13,7 @@ largest magnitude, as for the EM trajectory of ``test_torch_sampler``:
 each step carries the forward's ~1e-6 disagreement.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import jax
 import jax.numpy as jnp
 import numpy as np

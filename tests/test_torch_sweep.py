@@ -16,6 +16,7 @@ stats: means within 1e-4 of their scale, covariances within 1e-4 of the
 squared mean's.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import json
 
 import jax

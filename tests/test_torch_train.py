@@ -10,6 +10,7 @@ order, through Adam's division by a root that is small where a gradient
 is.
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import glob
 import json
 import os
@@ -46,7 +47,7 @@ from psld_tpu_torch.train.state import (Optimizer, init_state,
 from psld_tpu_torch.train.steps import (StepRandom, make_train_step,
                                         sample_times)
 from test_torch_loss import MICRO, jax_draws, loss_cfg
-from test_torch_ncsnpp import random_flax_params
+from test_torch_ncsnpp import compile_o0, random_flax_params
 
 ACCUM = 2
 # the optimizer tests' network: one level, one block, attention at its
@@ -131,6 +132,7 @@ def test_three_optimizer_steps_match_jax(weight_decay):
         -1, 1, (4, ACCUM, 2, 8, 8, 3)).astype(np.float32)
 
     jstate = j_init_state(params, j_opt)
+    j_step = compile_o0(j_step, jstate, jnp.asarray(data[0]), rng)
     jstate, _ = j_step(jstate, jnp.asarray(data[0]), rng)
     state = to_port(net, jstate)
     assert_states_close(state, jstate, net, "converted state")
@@ -293,7 +295,7 @@ TINY_TRAIN = [
     "+dataset=cifar10/cifar10_psld",
     "dataset.diffusion.data.root=/unused",
     "dataset.diffusion.data.name=synthetic",
-    "dataset.diffusion.data.image_size=16",
+    "dataset.diffusion.data.image_size=8",
     "dataset.diffusion.model.score_fn.nf=8",
     "dataset.diffusion.model.score_fn.ch_mult=[1,2]",
     "dataset.diffusion.model.score_fn.num_res_blocks=1",
@@ -386,12 +388,14 @@ def test_checkpoint_roundtrip_and_sampling(trained, tmp_path):
     "+dataset.diffusion.training.fsdp=true",
 ])
 def test_train_refuses_what_is_not_ported(override, tmp_path):
-    """Spatial parallelism is not ported: it raises, naming the ROADMAP
-    queue. FSDP is ported (tests/test_torch_parallel.py) and does not
-    hide that refusal."""
+    """Spatial parallelism needs a spatial group of ranks
+    (tests/test_torch_spatial.py): one process asked for ``spatial=2`` is
+    refused with the JAX package's message before anything is built.
+    FSDP is ported (tests/test_torch_parallel.py) and does not hide that
+    refusal."""
     spatial = [] if "spatial" in override \
         else ["+dataset.diffusion.training.spatial=2"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="must divide the device count 1"):
         train_cli.main(TINY_TRAIN + [
             override, *spatial,
             f"dataset.diffusion.training.results_dir={tmp_path}"])

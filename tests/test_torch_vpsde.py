@@ -31,6 +31,7 @@ Tolerances:
   the divergence within 1e-4 of their scale).
 """
 
+import torch_cpu  # noqa: F401  (one intra-op thread: torch_cpu.py)
 import math
 
 import jax
