@@ -228,18 +228,44 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     CelebA-HQ checkpoint at batch 8 in float32 with
     ``evaluation.spatial=2`` in two ranks on the card: rank 0 writes each
     image once, its rows within 1e-5 of their scale of one process's.
+    The rank processes of 40, 41, 43 and 44 run as three gloo groups
+    started together (``phase_ranks``; [lockstep], [ddp2] and [fsdp2]
+    share one launch), each rank's allocator held to
+    ``RANK_MEMORY_FRACTION`` of the card, beside the one-process
+    references in this process (held to ``REFERENCE_MEMORY_FRACTION``)
+    and, in a thread, the CPU side of 47; the flagship group trains once
+    those references have ended. The ``[ranks]`` line gives the block's
+    seconds and the card's least free memory, and each phase's gates and
+    planted faults are checked once all have ended.
 45. bench: ``psld_tpu_torch.eval.bench.run_bench`` at the flagship's full
     width with 100 NFE (its default is 1000) and its train phase; its line
     is printed after ``[bench] line:``, its img/s and MFU shares must be
     positive, the shares at most 1.05.
+46. legacy_gn, legacy_gn_bwd (after spatial_kernels): the GroupNorm
+    kernels against their plain versions, as 4 and 5, with no
+    activation, at the shapes of NCSNv2's encoder (``legacy_stack``: its
+    eight residual blocks with the ``GroupNorm`` normalizer) at batch 128.
+47. legacy (its CPU side beside the ranks of 40-44, its card side
+    after them): the NCSNv1/v2 component library at the
+    widths of NCSNv2's CIFAR-10 model (ngf 128, 232 noise levels from
+    ``get_sigmas``, sigma 50 to 0.01, labels below 232), batch 128 at 32
+    x 32 with 128 channels and 16 x 16 with 256: the forward and the
+    input gradient of every class of ``models/normalization.py`` and
+    ``models/legacy_layers.py`` in float32 on the card against the CPU
+    with the same weights (1e-4 of scale forward, 1e-3 gradients), the
+    GroupNorm cases' launches counted; the encoder stack with the
+    ``GroupNorm`` normalizer in bf16 under gn_bf16, forward and backward
+    (the legacy path: 16 launches of each GroupNorm kernel, exactly), and
+    one forward's device ms of the stack (GroupNorm bf16; InstanceNorm++,
+    the published normalization, float32) as a record.
 
 Every path (train, sample, train_clf, interop, serve, guided, sscs,
 inpaint, edit, pc, ode, cc_ode, likelihood, vp_train, vp_sample, vp_pc,
 vp_edit, vp_ode, vp_likelihood, fid, sweep, bench, celebahq_train,
 resume, celebahq_sample, afhq_train, async_ckpt, fanout, ddp, fsdp,
 ddp2, fsdp2, lockstep, spatial2, spatial2_f32, spatial_sample,
-spatial_inpaint; resume and the multi-process paths count in their
-processes, which print their launches) is driven with the
+spatial_inpaint, legacy; resume and the multi-process paths count in
+their processes, which print their launches) is driven with the
 kernels' launch counts set to 0 just before it and must launch exactly
 the kernels its network calls, as many times as its forwards and steps
 need (interop and fid: none).
@@ -257,11 +283,14 @@ Without a CUDA device the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import ast
+import concurrent.futures
+import functools
 import json
 import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -385,6 +414,23 @@ SPATIAL_NFE = 20     # EM NFE of [spatial_sample]
 # [spatial2]'s planted faults, each a run that its gate must refuse: the
 # halo rows zeroed, GroupNorm of a shard's own moments
 SPATIAL_FAULTS = ("halo", "gn")
+# the shares of the card's memory a gloo rank's allocator, and this
+# process's while it computes the references, may hold while the rank
+# groups share the card (``phase_ranks``)
+RANK_MEMORY_FRACTION = 0.22
+REFERENCE_MEMORY_FRACTION = 0.32
+
+
+# NCSNv2's CIFAR-10 model (``configs/cifar10.yml`` of the NCSNv2
+# repository): ngf 128, 232 noise levels (its num_classes) from sigma 50
+# to 0.01, InstanceNorm++, ELU; [legacy] drives the component library at
+# these widths, at batch 128 on 32 x 32
+LEGACY_NGF, LEGACY_CLASSES = 128, 232
+LEGACY_SIGMA_MAX, LEGACY_SIGMA_MIN = 50.0, 0.01
+LEGACY_BATCH = TRAIN_BATCH
+# the GroupNorm calls of one forward of its eight encoder residual blocks
+# with the GroupNorm normalizer (``legacy_stack``): (H*W, C, calls)
+LEGACY_GN_CALLS = [(1024, 128, 6), (256, 256, 10)]
 
 
 def _split_calls(calls, attn_calls):
@@ -465,7 +511,8 @@ def check(cond: bool, what: str) -> None:
 # (tag, seconds) of each phase: from the previous phase's last line to
 # this phase's first, as the lines print
 _PHASE_S: list = []
-_LAST_LINE = [time.perf_counter()]
+_START = time.perf_counter()
+_LAST_LINE = [_START]
 
 
 def say(*parts) -> None:
@@ -610,15 +657,29 @@ def phase_build():
 GN_BF16_EQUAL = 0.99
 
 
-def phase_gn(card, batch, calls=GN_CALLS, net="flagship", tag="gn"):
+def _library_act(act: str):
+    """The activation after ``F.group_norm`` in the library's version of
+    a GroupNorm + ``act`` call, and its name."""
+    import torch.nn.functional as F
+
+    if act == "swish":
+        return F.silu, "F.group_norm+F.silu"
+    check(act == "none", f"no library version timed for act {act!r}")
+    return (lambda t: t), "F.group_norm"
+
+
+def phase_gn(card, batch, calls=GN_CALLS, net="flagship", tag="gn",
+             act="swish"):
     """The forward kernel against its plain version at the (H*W, C)
     shapes of one ``net`` forward (``calls``) at ``batch``: f32 and bf16
     within tolerance, bf16 under gn_bf16 also bit-equal on at least
-    ``GN_BF16_EQUAL`` of the elements."""
+    ``GN_BF16_EQUAL`` of the elements. Timed with the activation ``net``
+    runs, ``act``."""
     from psld_tpu_torch.ops import group_norm_act, group_norm_act_plain
 
     import torch.nn.functional as F
 
+    lib_act, lib = _library_act(act)
     rng = np.random.default_rng(0)
     rows, errs, equal = [], {}, 1.0
     kernel_fwd = eager_fwd = plain_fwd = lib_fwd = 0.0
@@ -635,16 +696,16 @@ def phase_gn(card, batch, calls=GN_CALLS, net="flagship", tag="gn"):
             np.float32)).cuda()
         acts = ["none", "swish"] + (["relu", "elu", "lrelu", "silu"]
                                     if (hw, c) == (1024, 256) else [])
-        for act in acts:
+        for a in acts:
             for dt, gn16, tol in ((torch.float32, False, 1e-5),
                                   (torch.bfloat16, False, 1e-2),
                                   (torch.bfloat16, True, 1e-2)):
                 x, sc, bi = x32.to(dt), sc32.to(dt), bi32.to(dt)
                 set_gn_bf16(gn16)
-                got = group_norm_act(x, sc, bi, g, 1e-6, act)
-                want = group_norm_act_plain(x, sc, bi, g, 1e-6, act)
+                got = group_norm_act(x, sc, bi, g, 1e-6, a)
+                want = group_norm_act_plain(x, sc, bi, g, 1e-6, a)
                 torch.cuda.synchronize()
-                what = f"gn {hw}x{c} {act} {dt} gn_bf16={gn16}"
+                what = f"gn {hw}x{c} {a} {dt} gn_bf16={gn16}"
                 err = assert_close(got, want, tol, tol, what)
                 if gn16:
                     share = float((got == want).float().mean())
@@ -653,16 +714,16 @@ def phase_gn(card, batch, calls=GN_CALLS, net="flagship", tag="gn"):
                     equal = min(equal, share)
                 mode = f"{str(dt)[6:]}{'+gn_bf16' if gn16 else ''}"
                 errs[mode] = max(errs.get(mode, 0.0), err)
-        # time the main path's case: bf16, swish, gn_bf16 on
+        # time the main path's case: bf16, its act, gn_bf16 on
         x, sc, bi = x32.bfloat16(), sc32.bfloat16(), bi32.bfloat16()
         set_gn_bf16(True)
-        k_ms = device_ms(lambda: group_norm_act(x, sc, bi, g, 1e-6, "swish"))
-        e_ms = cuda_ms(lambda: group_norm_act(x, sc, bi, g, 1e-6, "swish"))
+        k_ms = device_ms(lambda: group_norm_act(x, sc, bi, g, 1e-6, act))
+        e_ms = cuda_ms(lambda: group_norm_act(x, sc, bi, g, 1e-6, act))
         p_ms = device_ms(lambda: group_norm_act_plain(x, sc, bi, g, 1e-6,
-                                                      "swish"))
+                                                      act))
         # the library's GroupNorm takes NCHW: the same memory, permuted
         xn = x.permute(0, 3, 1, 2)
-        l_ms = device_ms(lambda: F.silu(F.group_norm(xn, g, sc, bi, 1e-6)))
+        l_ms = device_ms(lambda: lib_act(F.group_norm(xn, g, sc, bi, 1e-6)))
         kernel_fwd += n_calls * k_ms
         eager_fwd += n_calls * e_ms
         plain_fwd += n_calls * p_ms
@@ -682,25 +743,25 @@ def phase_gn(card, batch, calls=GN_CALLS, net="flagship", tag="gn"):
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f"; bf16+gn_bf16 bit-equal share at least {equal:.5f}")
     say(f"[{tag}] device times (CUDA-graph replay; eager = called one by one, "
-        f"the host's launch cost included): bf16 swish, B={batch}, {card}")
+        f"the host's launch cost included): bf16 {act}, B={batch}, {card}")
     for hw, c, n_calls, k_ms, e_ms, p_ms, l_ms, gbps, share in rows:
         say(f"[{tag}]   HW={hw:5d} C={c:3d} x{n_calls:2d}/fwd: kernel "
             f"{k_ms:.4f} ms"
             f" ({gbps:.0f} GB/s read+write, {share:.2f} of its bound; "
             f"eager {e_ms:.4f} ms), plain "
-            f"{p_ms:.4f} ms, F.group_norm+F.silu {l_ms:.4f} ms")
+            f"{p_ms:.4f} ms, {lib} {l_ms:.4f} ms")
     say(f"[{tag}]   per {net} forward at B={batch} "
         f"({sum(n for _, _, n in calls)} calls): kernel "
         f"{kernel_fwd:.3f} ms (eager {eager_fwd:.3f} ms), bound "
         f"{total['bound_ms']:.3f} ms, plain {plain_fwd:.3f} ms, "
-        f"F.group_norm+F.silu {lib_fwd:.3f} ms")
+        f"{lib} {lib_fwd:.3f} ms")
     return {"max_abs_err": errs["bfloat16+gn_bf16"],
             "bit_equal_share": equal, "ms": kernel_fwd, "eager_ms": eager_fwd, "plain_ms": plain_fwd,
             "bound_by": bound_by(total), **total, "library_ms": lib_fwd}
 
 
 def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship",
-                 need_params=True, tag="gn_bwd"):
+                 need_params=True, tag="gn_bwd", act="swish"):
     """dx, dscale, dbias of the backward kernel against autograd through
     the plain version, at the (H*W, C) shapes of one ``net`` backward
     (``calls``) at ``batch``; with ``need_params=False`` the input-only
@@ -715,7 +776,8 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship",
     leaky relu have a kink where the two can disagree on the sign of z
     (where a group's mean or rstd rounds the other way), and such an
     element's dx differs by its whole size: there dx is held by the share
-    of elements outside the tolerance, at most 1e-3 of them."""
+    of elements outside the tolerance, at most 1e-3 of them. Timed with
+    the activation ``net`` runs, ``act``."""
     import torch.nn.functional as F
 
     from psld_tpu_torch.ops import (group_norm_act_backward,
@@ -730,6 +792,7 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship",
             y = group_norm_act_plain(xl, sc, bi, g, 1e-6, act)
             return torch.autograd.grad(y, [xl], ct)[0], None, None
 
+    lib_act, lib = _library_act(act)
     rng = np.random.default_rng(3)
     rows, errs, abs_errs = [], {}, {}
     kernel_bwd = eager_bwd = plain_bwd = lib_bwd = 0.0
@@ -771,34 +834,34 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship",
             np.float32)).cuda()
         bi32 = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(
             np.float32)).cuda()
-        acts = ["swish"] + (["none", "relu", "elu", "lrelu"]
-                            if (hw, c) == (1024, 256) else [])
-        for act in acts:
+        acts = [act] + [a for a in ("swish", "none", "relu", "elu", "lrelu")
+                        if a != act and (hw, c) == (1024, 256)]
+        for a in acts:
             for dt, gn16, tol in ((torch.float32, False, 1e-4),
                                   (torch.bfloat16, False, 2e-2),
                                   (torch.bfloat16, True, 1e-2)):
                 x, ct, sc, bi = (a.to(dt) for a in (x32, ct32, sc32, bi32))
                 set_gn_bf16(gn16)
-                got = group_norm_act_backward(x, sc, bi, ct, g, 1e-6, act,
+                got = group_norm_act_backward(x, sc, bi, ct, g, 1e-6, a,
                                               need_params=need_params)
-                want = reference_bwd(x, sc, bi, ct, g, act)
+                want = reference_bwd(x, sc, bi, ct, g, a)
                 torch.cuda.synchronize()
                 mode = f"{str(dt)[6:]}{'+gn_bf16' if gn16 else ''}"
                 errs[mode] = max(errs.get(mode, 0.0), rel_err(
-                    got, want, tol, f"gn_bwd {hw}x{c} {act} {mode}", mode,
-                    kinked=gn16 and act in ("relu", "lrelu")))
-        # time the training path's case: bf16, swish, gn_bf16 on
+                    got, want, tol, f"gn_bwd {hw}x{c} {a} {mode}", mode,
+                    kinked=gn16 and a in ("relu", "lrelu")))
+        # time the training path's case: bf16, its act, gn_bf16 on
         x, ct, sc, bi = (a.bfloat16() for a in (x32, ct32, sc32, bi32))
         set_gn_bf16(True)
         k_ms = device_ms(lambda: group_norm_act_backward(
-            x, sc, bi, ct, g, 1e-6, "swish", need_params=need_params))
+            x, sc, bi, ct, g, 1e-6, act, need_params=need_params))
         e_ms = cuda_ms(lambda: group_norm_act_backward(
-            x, sc, bi, ct, g, 1e-6, "swish", need_params=need_params))
+            x, sc, bi, ct, g, 1e-6, act, need_params=need_params))
         # the plain version's forward is part of its autograd: it is
         # timed on its own and taken off
-        p_ms = device_ms(lambda: reference_bwd(x, sc, bi, ct, g, "swish"),
+        p_ms = device_ms(lambda: reference_bwd(x, sc, bi, ct, g, act),
                          launches=3) - device_ms(
-            lambda: group_norm_act_plain(x, sc, bi, g, 1e-6, "swish"))
+            lambda: group_norm_act_plain(x, sc, bi, g, 1e-6, act))
         # the library's backward alone: its forward runs once, on the
         # stream the timed graph is captured on, and its graph is kept
         xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
@@ -806,7 +869,7 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship",
         leaves = [xl, scl, bil] if need_params else [xl]
         side_stream().wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side_stream()):
-            y = F.silu(F.group_norm(xl, g, scl, bil, 1e-6))
+            y = lib_act(F.group_norm(xl, g, scl, bil, 1e-6))
         ctn = ct.permute(0, 3, 1, 2)
         l_ms = device_ms(lambda: torch.autograd.grad(y, leaves, ctn,
                                                      retain_graph=True))
@@ -836,12 +899,12 @@ def phase_gn_bwd(card, batch=TRAIN_BATCH, calls=GN_CALLS, net="flagship",
         + "; max abs err "
         + ", ".join(f"{k} {v:.3e}" for k, v in abs_errs.items()))
     say(f"[{tag}] device times (CUDA-graph replay; eager = called one by "
-        f"one): bf16 swish, {mode}, B={batch}, {card}")
+        f"one): bf16 {act}, {mode}, B={batch}, {card}")
     for hw, c, n_calls, k_ms, e_ms, p_ms, l_ms, tbps, tflops in rows:
         say(f"[{tag}]   HW={hw:5d} C={c:3d} x{n_calls:2d}/bwd: kernel "
             f"{k_ms:.4f} ms ({tbps:.3f} TB/s of x, g, dx; {tflops:.2f} "
             f"TFLOP/s f32 at ~30 a value; eager {e_ms:.4f} "
-            f"ms), plain autograd {p_ms:.4f} ms, F.group_norm+F.silu "
+            f"ms), plain autograd {p_ms:.4f} ms, {lib} "
             f"backward {l_ms:.4f} ms")
     say(f"[{tag}]   per {net} backward at B={batch} "
         f"({sum(n for _, _, n in calls)} calls): kernel "
@@ -3331,8 +3394,11 @@ def staged(name, fn):
 
 if spec.get("gloo"):
     # NCCL takes one rank a card: two ranks on one card join over gloo
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    torch.set_num_threads(spec["threads"])
     torch.cuda.set_device(0)
+    # several groups share the card: a rank's allocator stays within its
+    # share (cuDNN then takes algorithms whose workspace fits in it)
+    torch.cuda.set_per_process_memory_fraction(spec["memory_fraction"])
     torch.distributed.init_process_group("gloo")
     world = torch.distributed.get_world_size()
     dev = torch.device("cuda", 0)
@@ -3386,7 +3452,17 @@ def place(state, net, layout):
 
 loop._place = place
 kept = None
+world_n = int(os.environ.get("WORLD_SIZE", "1"))
 for run in spec["runs"]:
+    if run.get("wait_for"):
+        # the smoke's process holds the card's memory until it marks the
+        # end of its references, one file a rank
+        deadline = time.time() + 600
+        while not all(os.path.exists(f"{run['wait_for']}.{r}")
+                      for r in range(world_n)):
+            if time.time() > deadline:
+                raise RuntimeError(f"waited 600 s for {run['wait_for']}")
+            time.sleep(0.5)
     if run.get("group"):
         os.environ["PSLD_MULTIHOST"] = "1"
     else:
@@ -3496,19 +3572,26 @@ print("DIST " + json.dumps(result), flush=True)
 '''
 
 
+_PORTS: set = set()  # the ports handed out, so that no two groups share one
+
+
 def _free_port() -> int:
     import socket
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    while True:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        if port not in _PORTS:
+            _PORTS.add(port)
+            return port
 
 
-def launch_ranks(work, tag, spec, world: int, torchrun: bool = False):
-    """Run the rank script on ``spec`` in ``world`` processes (through
+def start_ranks(work, tag, spec, world: int, torchrun: bool = False):
+    """Start the rank script on ``spec`` in ``world`` processes (through
     ``torch.distributed.run`` when ``torchrun``, else as ranks of a gloo
-    group on card 0); every process must exit 0. Returns each rank's
-    result, in rank order."""
+    group on card 0, ``spec["threads"]`` intra-op threads each); returns
+    the handle :func:`finish_ranks` takes."""
     script = os.path.join(work, "rank_script.py")
     with open(script, "w") as f:
         f.write(_RANK_SCRIPT)
@@ -3530,10 +3613,17 @@ def launch_ranks(work, tag, spec, world: int, torchrun: bool = False):
     procs = [subprocess.Popen(cmd, cwd=REPO, env=e, text=True,
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT) for cmd, e in cmds]
+    return tag, procs
+
+
+def finish_ranks(handle, timeout: float = 600):
+    """Wait for the processes of :func:`start_ranks`; every one must exit
+    0. Returns each rank's result, in rank order."""
+    tag, procs = handle
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=600)[0])
+            outs.append(p.communicate(timeout=timeout)[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3549,7 +3639,15 @@ def launch_ranks(work, tag, spec, world: int, torchrun: bool = False):
     return sorted(results, key=lambda r: r["rank"])
 
 
+def launch_ranks(work, tag, spec, world: int, torchrun: bool = False):
+    """:func:`start_ranks`, then :func:`finish_ranks`."""
+    return finish_ranks(start_ranks(work, tag, spec, world, torchrun))
+
+
+@functools.lru_cache(maxsize=4)
 def _trees(path):
+    """A checkpoint's trees, read once for the comparisons that take it
+    (the callers only read them)."""
     raw = torch.load(path, map_location="cpu", weights_only=True)
     return {"params": raw["params"], "ema": raw["ema_params"],
             "mu": raw["opt_state"]["mu"], "nu": raw["opt_state"]["nu"]}, \
@@ -3683,29 +3781,28 @@ def _tree_gate(path_a, path_b, what: str) -> float:
 
 def phase_ddp2(card, work):
     """[ddp2] and [fsdp2]: two ranks on the one card against one process
-    (see the module's docstring); returns the launch counts of both
-    paths, summed over the ranks, and the FSDP bytes."""
+    (see the module's docstring), a phase of :func:`phase_ranks`; returns
+    the launch counts of both paths, summed over the ranks."""
     from psld_tpu_torch.cli import train_sde as train_cli
     from psld_tpu_torch.parallel import fsdp
     from psld_tpu_torch.train.loop import build_score_model
 
     steps = 512 // TRAIN_BATCH
+    dirs = {t: os.path.join(work, t) for t in ("ddp2", "fsdp2")}
+    yield "flagship", [
+        {"tag": "ddp2", "kind": "train",
+         "argv": _train_argv(BATCH, 1, dirs["ddp2"], bf16=False,
+                             hflip=False)},
+        {"tag": "fsdp2", "kind": "train",
+         "argv": _train_argv(BATCH, 1, dirs["fsdp2"], bf16=False, fsdp=True,
+                             hflip=False)}]
     ref_dir = os.path.join(work, "ddp2_ref")
     t0 = time.perf_counter()
     train_cli.main(_train_argv(TRAIN_BATCH, 1, ref_dir, bf16=False,
                                hflip=False))
     ref_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    dirs = {t: os.path.join(work, t) for t in ("ddp2", "fsdp2")}
-    runs = [{"tag": "ddp2", "kind": "train",
-             "argv": _train_argv(BATCH, 1, dirs["ddp2"], bf16=False,
-                                 hflip=False)},
-            {"tag": "fsdp2", "kind": "train",
-             "argv": _train_argv(BATCH, 1, dirs["fsdp2"], bf16=False,
-                                 fsdp=True, hflip=False)}]
-    t0 = time.perf_counter()
-    res = launch_ranks(work, "ddp2", {"gloo": True, "runs": runs}, 2)
-    wall = time.perf_counter() - t0
+    res, wall = yield
     want = FLAGSHIP.step_counts(steps)
     n = {}
     for tag in dirs:
@@ -3745,8 +3842,8 @@ def phase_ddp2(card, work):
         f"EMA and Adam moments {err_ddp:.3e} of scale from one process at "
         f"batch {TRAIN_BATCH} (tol 1e-4); ranks' losses equal; "
         f"{ms['ddp2']:.1f} ms/step on rank 0 (two ranks share the card and "
-        f"gloo stages through the host: not a speed); ranks {wall:.1f} s, "
-        f"reference {ref_s:.1f} s; {card}")
+        f"gloo stages through the host: not a speed); ranks' group "
+        f"{wall:.1f} s, reference {ref_s:.1f} s; {card}")
     replicated = 4 * 4 * sum(math.prod(v.shape) for v in net.parameters())
     say(f"[fsdp2] the same under training.fsdp=true: {err_fsdp:.3e} of "
         f"scale from [ddp2], {err_fsdp_ref:.3e} from one process; "
@@ -3797,8 +3894,8 @@ LOCKSTEP_NFE = 20
 
 def phase_lockstep(card, work, ckpt):
     """[lockstep]: two ranks of cli.sample on the one card against one
-    process (see the module's docstring); returns the launch counts
-    summed over the ranks."""
+    process (see the module's docstring), a phase of :func:`phase_ranks`;
+    returns the launch counts summed over the ranks."""
     from PIL import Image
 
     from psld_tpu_torch.cli import sample as sample_cli
@@ -3812,6 +3909,13 @@ def phase_lockstep(card, work, ckpt):
         "dataset.diffusion.evaluation.sample_from=source",
         "+dataset.diffusion.evaluation.sampler.corrector=langevin",
         "+dataset.diffusion.evaluation.device=cuda"]
+    out_dir, rows_dir = (os.path.join(work, t)
+                         for t in ("lockstep", "lockstep_rows"))
+    yield "flagship", [{
+        "tag": "lockstep", "kind": "sample", "rows_dir": rows_dir,
+        "argv": base + [f"dataset.diffusion.evaluation.batch_size={BATCH}",
+                        f"dataset.diffusion.evaluation.save_path={out_dir}"]
+    }]
     real, ref = SimpleImageWriter.write_batch, {}
 
     def recording(self, samples, rank, batch_idx):
@@ -3826,15 +3930,7 @@ def phase_lockstep(card, work, ckpt):
     finally:
         SimpleImageWriter.write_batch = real
     torch.cuda.empty_cache()
-    out_dir, rows_dir = (os.path.join(work, t)
-                         for t in ("lockstep", "lockstep_rows"))
-    t0 = time.perf_counter()
-    res = launch_ranks(work, "lockstep", {"gloo": True, "runs": [{
-        "tag": "lockstep", "kind": "sample", "rows_dir": rows_dir,
-        "argv": base + [f"dataset.diffusion.evaluation.batch_size={BATCH}",
-                        f"dataset.diffusion.evaluation.save_path={out_dir}"]
-    }]}, 2)
-    wall = time.perf_counter() - t0
+    res, wall = yield
     fwd = 2 * LOCKSTEP_NFE - 1
     want = FLAGSHIP.fwd_counts(fwd)
     worst = 0.0
@@ -3868,7 +3964,7 @@ def phase_lockstep(card, work, ckpt):
         f"({fwd} forwards): {len(pngs)} distinct PNGs tagged with the rank; "
         f"rows {worst:.3e} of scale from one process at batch {n_samples} "
         f"(tol 1e-4); trajectories {secs[0]:.2f} s and {secs[1]:.2f} s (two "
-        f"ranks share the card); ranks {wall:.1f} s; {card}")
+        f"ranks share the card); ranks' group {wall:.1f} s; {card}")
     say(f"[lockstep] kernel launches over both ranks: {n}")
     return n
 
@@ -3884,7 +3980,8 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
     the strided dropout at AFHQv2 128's shapes at half height against the
     whole tensor's dropout sliced and its plain version, bit for bit.
     Times by CUDA graph replay beside the bound, the plain version and
-    (apply) ``F.group_norm`` + ``F.silu`` on the shard. Returns each
+    the library's call: (stats) ``torch.var_mean`` of the shard's grouped
+    view, (apply) ``F.group_norm`` + ``F.silu`` on the shard. Returns each
     entry's numbers summed over one forward's (stats, apply) or
     backward's (partials, dx) calls, the fused kernels' over the
     attention blocks' GroupNorms of one forward and backward, and the
@@ -3899,7 +3996,7 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
            for k in names}
     totals = {k: {} for k in names}
-    lib = 0.0
+    lib = lib_stats = 0.0
     rows = []
     t0 = time.perf_counter()
     for hw, c, n_calls in calls:
@@ -4029,13 +4126,19 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
         l_ms = device_ms(lambda: F.silu(F.group_norm(xn, g, sc.bfloat16(),
                                                      bi.bfloat16(), 1e-6)))
         lib += n_calls * l_ms
-        rows.append(row + [l_ms])
+        # the stats' library call: torch.var_mean over a group's pixels
+        # and channels of the shard's grouped view
+        xg = x.view(batch, rows_held * s, g, c // g)
+        ls_ms = device_ms(lambda: torch.var_mean(xg, dim=(1, 3)))
+        lib_stats += n_calls * ls_ms
+        rows.append(row + [ls_ms, l_ms])
     os.environ.pop("PSLD_GN_BF16")
     for k in names:
         out[k].update(totals[k])
         out[k]["bound_by"] = bound_by(out[k])
         out[k]["library_ms"] = None
     out["apply"]["library_ms"] = lib
+    out["stats"]["library_ms"] = lib_stats
     say(f"[{tag}] split GroupNorm entries == plain at all {len(calls)} "
         f"CelebA-HQ 256 split shapes (a shard of {SPATIAL}), B={batch} "
         f"(f32 1e-5, "
@@ -4045,16 +4148,19 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
         f"{time.perf_counter() - t0:.1f} s")
     say(f"[{tag}] device times (CUDA-graph replay), bf16 gn_bf16 swish, "
         f"one shard of {SPATIAL}, B={batch}, {card}: kernel / bound ms")
-    for hw, c, n_calls, held, *ts, l_ms in rows:
+    for hw, c, n_calls, held, *ts, ls_ms, l_ms in rows:
         say(f"[{tag}]   HW={hw:5d} rows {held:3d} C={c:3d} x{n_calls:2d}: "
             + ", ".join(f"{k} {ts[2 * i]:.4f}/{ts[2 * i + 1]:.4f}"
                         for i, k in enumerate(names))
-            + f"; F.group_norm+F.silu {l_ms:.4f}")
+            + f"; torch.var_mean {ls_ms:.4f}; F.group_norm+F.silu "
+            f"{l_ms:.4f}")
     for k in names:
         say(f"[{tag}]   {k} per CelebA-HQ {'forward' if k in ('stats', 'apply') else 'backward'} "
             f"({sum(n for _, _, n in calls)} calls): kernel "
             f"{out[k]['ms']:.3f} ms, bound {out[k]['bound_ms']:.3f} ms "
-            f"({out[k]['bound_by']}), plain {out[k]['plain_ms']:.3f} ms")
+            f"({out[k]['bound_by']}), plain {out[k]['plain_ms']:.3f} ms, "
+            + ("no library call" if out[k]["library_ms"] is None
+               else f"library {out[k]['library_ms']:.3f} ms"))
     # the attention blocks' GroupNorms: the fused kernels on the
     # gathered map, which every rank of the group holds whole
     where = "CelebA-HQ 256 attention blocks' gathered map"
@@ -4169,11 +4275,24 @@ def phase_spatial2(card, work, root):
     gradients, through its square root), and the same two ranks with a
     planted fault (``SPATIAL_FAULTS``) outside that tolerance; bf16:
     each rank's launch counts and peak memory beside one process's.
-    Returns the launches of both sound runs, summed over the ranks, and
-    the peaks and errors."""
+    A phase of :func:`phase_ranks`. Returns the launches of both sound
+    runs, summed over the ranks, and the peaks and errors."""
     from psld_tpu_torch.cli._common import bootstrap
     from psld_tpu_torch.train.loop import train_sde
 
+    dirs = {bf16: os.path.join(work, f"spatial2_{int(bf16)}")
+            for bf16 in (False, True)}
+    runs = [{"tag": f"bf16={bf16}", "kind": "train",
+             "max_steps": SPATIAL_STEPS,
+             "argv": _hq_spatial_argv(root, dirs[bf16], bf16, SPATIAL)}
+            for bf16 in (False, True)]
+    for fault in SPATIAL_FAULTS:
+        dirs[fault] = os.path.join(work, f"spatial2_fault_{fault}")
+        runs.append({"tag": f"fault={fault}", "kind": "train",
+                     "max_steps": SPATIAL_STEPS, "fault": fault,
+                     "argv": _hq_spatial_argv(root, dirs[fault], False,
+                                              SPATIAL)})
+    yield "spatial2", runs
     ref = {}
     for bf16 in (False, True):
         results = os.path.join(work, f"spatial2_ref_{int(bf16)}")
@@ -4191,22 +4310,7 @@ def phase_spatial2(card, work, root):
                      "s": time.perf_counter() - t0}
         del state
     torch.cuda.empty_cache()
-    dirs = {bf16: os.path.join(work, f"spatial2_{int(bf16)}")
-            for bf16 in (False, True)}
-    runs = [{"tag": f"bf16={bf16}", "kind": "train",
-             "max_steps": SPATIAL_STEPS,
-             "argv": _hq_spatial_argv(root, dirs[bf16], bf16, SPATIAL)}
-            for bf16 in (False, True)]
-    for fault in SPATIAL_FAULTS:
-        dirs[fault] = os.path.join(work, f"spatial2_fault_{fault}")
-        runs.append({"tag": f"fault={fault}", "kind": "train",
-                     "max_steps": SPATIAL_STEPS, "fault": fault,
-                     "argv": _hq_spatial_argv(root, dirs[fault], False,
-                                              SPATIAL)})
-    t0 = time.perf_counter()
-    res = launch_ranks(work, "spatial2", {"gloo": True, "runs": runs},
-                       SPATIAL)
-    wall = time.perf_counter() - t0
+    res, wall = yield
     want = hq_split_counts(SPATIAL_STEPS, SPATIAL_STEPS)
     check(ref[True]["launches"] == HQ.step_counts(SPATIAL_STEPS),
           f"[spatial2] one process launched {ref[True]['launches']}")
@@ -4271,8 +4375,9 @@ def phase_spatial2(card, work, root):
         f"{ms:.1f} ms/step on rank 0 (two ranks share the card and every "
         f"halo and GroupNorm sum goes through gloo on the host: not a "
         f"speed); launches a rank {res[0]['runs']['bf16=True']['launches']}"
-        f" (one process: {ref[True]['launches']}); ranks {wall:.1f} s, "
-        f"references {ref[False]['s'] + ref[True]['s']:.1f} s; {card}")
+        f" (one process: {ref[True]['launches']}); ranks' group "
+        f"{wall:.1f} s, references {ref[False]['s'] + ref[True]['s']:.1f} s;"
+        f" {card}")
     return n["bf16=True"], n["bf16=False"], {
         "peak_gb_rank": peaks, "peak_gb_one": ref[True]["peak"] / 1e9,
         "f32_err_of_scale": err, "f32_err_by_tree": per_tree,
@@ -4284,8 +4389,9 @@ def phase_spatial_sample(card, work, ckpt, root):
     ``cli.inpaint`` of the CelebA-HQ 256 checkpoint at batch 8 in
     float32, with ``evaluation.spatial=2`` in two ranks on the one card
     (gloo): the first rank writes each image once, and its rows are
-    within 1e-5 of their scale of one process's. Returns the launches of
-    both runs, summed over the ranks."""
+    within 1e-5 of their scale of one process's. A phase of
+    :func:`phase_ranks`. Returns the launches of both runs, summed over
+    the ranks."""
     from psld_tpu_torch.cli import inpaint as inpaint_cli
     from psld_tpu_torch.cli import sample as sample_cli
     from psld_tpu_torch.eval import writers
@@ -4301,6 +4407,14 @@ def phase_spatial_sample(card, work, ckpt, root):
     kinds = {"sample": (sample_cli.main, []),
              "inpaint": (inpaint_cli.main, [
                  "dataset.diffusion.evaluation.sampler.name=ip_em_sde"])}
+    runs = [{"tag": kind, "kind": kind,
+             "rows_dir": os.path.join(work, f"spatial_{kind}_rows"),
+             "argv": base + extra + [
+                 f"+dataset.diffusion.evaluation.spatial={SPATIAL}",
+                 f"dataset.diffusion.evaluation.save_path={work}/"
+                 f"spatial_{kind}"]}
+            for kind, (_, extra) in kinds.items()]
+    yield "spatial_sample", runs
     ref, one = {}, {}
     for kind, (main, extra) in kinds.items():
         rows, reals = {}, {}
@@ -4322,17 +4436,7 @@ def phase_spatial_sample(card, work, ckpt, root):
                 cls.write_batch = real
         ref[kind], one[kind] = rows[0], all_counts()
         torch.cuda.empty_cache()
-    runs = [{"tag": kind, "kind": kind,
-             "rows_dir": os.path.join(work, f"spatial_{kind}_rows"),
-             "argv": base + extra + [
-                 f"+dataset.diffusion.evaluation.spatial={SPATIAL}",
-                 f"dataset.diffusion.evaluation.save_path={work}/"
-                 f"spatial_{kind}"]}
-            for kind, (_, extra) in kinds.items()]
-    t0 = time.perf_counter()
-    res = launch_ranks(work, "spatial_sample", {"gloo": True, "runs": runs},
-                       SPATIAL)
-    wall = time.perf_counter() - t0
+    res, wall = yield
     n, worst = {}, {}
     for run in runs:
         kind = run["tag"]
@@ -4364,9 +4468,374 @@ def phase_spatial_sample(card, work, ckpt, root):
         f"{worst['sample']:.3e} and cli.inpaint rows {worst['inpaint']:.3e}"
         f" of scale from one process's (tol 1e-5), written once by rank 0; "
         f"trajectories {secs['sample'][0]:.2f} s and "
-        f"{secs['inpaint'][0]:.2f} s on rank 0 (not a speed); ranks "
+        f"{secs['inpaint'][0]:.2f} s on rank 0 (not a speed); ranks' group "
         f"{wall:.1f} s; launches over both ranks {n}; {card}")
     return n["sample"], n["inpaint"]
+
+
+def legacy_stack(normalization):
+    """The eight residual blocks of NCSNv2's CIFAR-10 score network (its
+    res1 to res4: 32 x 32 at ngf, then 16 x 16 at 2 ngf, dilated by 2
+    and 4), ELU, each normalized by ``normalization``."""
+    import torch.nn.functional as F
+
+    from psld_tpu_torch.models.legacy_layers import ResidualBlock as R
+
+    n = LEGACY_NGF
+    kw = dict(act=F.elu, normalization=normalization)
+    return torch.nn.Sequential(
+        R(n, n, **kw), R(n, n, **kw),
+        R(n, 2 * n, "down", **kw), R(2 * n, 2 * n, **kw),
+        R(2 * n, 2 * n, "down", dilation=2, **kw),
+        R(2 * n, 2 * n, dilation=2, **kw),
+        R(2 * n, 2 * n, "down", dilation=4, **kw),
+        R(2 * n, 2 * n, dilation=4, **kw))
+
+
+def phase_legacy(card):
+    """[legacy]: the NCSNv1/v2 component library at NCSNv2's CIFAR-10
+    widths (see the module's docstring), a phase of :func:`phase_ranks`
+    without ranks: its CPU side runs while the ranks do, its card side
+    after. Returns the launch counts of the legacy path, the GroupNorm
+    stack's bf16 step."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from psld_tpu_torch.models import legacy_layers as L
+    from psld_tpu_torch.models import normalization as N
+    from psld_tpu_torch.utils.legacy import get_sigmas
+
+    n, k, b = LEGACY_NGF, LEGACY_CLASSES, LEGACY_BATCH
+    sigmas = get_sigmas(sigma_min=LEGACY_SIGMA_MIN,
+                        sigma_max=LEGACY_SIGMA_MAX, num_scales=k)
+    check(sigmas.dtype == np.float32 and sigmas.shape == (k,)
+          and math.isclose(sigmas[0], LEGACY_SIGMA_MAX, rel_tol=1e-6)
+          and math.isclose(sigmas[-1], LEGACY_SIGMA_MIN, rel_tol=1e-6),
+          f"[legacy] get_sigmas gave {sigmas.dtype} {sigmas.shape}, "
+          f"{sigmas[0]} to {sigmas[-1]}")
+    rng = np.random.default_rng(21)
+    labels = rng.integers(0, k, b)
+    # NCSNv2's input: x + sigma_y z, mapped to [-1, 1] and through its
+    # first convolution (3 -> ngf)
+    x0 = rng.random((b, 3, 32, 32), dtype=np.float32)
+    xt = x0 + sigmas[labels][:, None, None, None] * rng.standard_normal(
+        x0.shape).astype(np.float32)
+    torch.manual_seed(21)
+    with torch.no_grad():
+        h = L.ncsn_conv3x3(3, n)(torch.from_numpy(2 * xt - 1)).contiguous(
+            memory_format=torch.channels_last)
+    h2 = torch.from_numpy(rng.standard_normal((b, 2 * n, 16, 16)).astype(
+        np.float32)).contiguous(memory_format=torch.channels_last)
+    y = torch.from_numpy(labels)
+    # class -> (builder, inputs); "xs": the two scales a fusion takes,
+    # fused at 32 x 32
+    cases = {
+        "InstanceNorm2d": (lambda: N.InstanceNorm2d(n), "h"),
+        "VarianceNorm2d": (lambda: N.VarianceNorm2d(n), "h"),
+        "NoneNorm2d": (lambda: N.NoneNorm2d(n), "h"),
+        "InstanceNorm2dPlus": (lambda: N.InstanceNorm2dPlus(n), "h"),
+        "GroupNorm": (lambda: N.GroupNorm(n), "h"),
+        **{c: (lambda c=c: getattr(N, c)(n, k), "hy")
+           for c in ("ConditionalBatchNorm2d", "ConditionalInstanceNorm2d",
+                     "ConditionalVarianceNorm2d", "ConditionalNoneNorm2d",
+                     "ConditionalInstanceNorm2dPlus")},
+        "CRPBlock": (lambda: L.CRPBlock(n, 2, F.elu), "h"),
+        "CondCRPBlock": (lambda: L.CondCRPBlock(n, 2, k, act=F.elu), "hy"),
+        "RCUBlock": (lambda: L.RCUBlock(n, 2, 2, F.elu), "h"),
+        "CondRCUBlock": (lambda: L.CondRCUBlock(n, 2, 2, k, act=F.elu),
+                         "hy"),
+        "MSFBlock": (lambda: L.MSFBlock([2 * n, n], n), "xs"),
+        "CondMSFBlock": (lambda: L.CondMSFBlock([2 * n, n], n, k), "xsy"),
+        # average pooling in its CRP: a max-pooling tie routed apart (see
+        # ``kinked``) spreads through the RCUs before it reaches dx
+        "RefineBlock": (lambda: L.RefineBlock([2 * n, n], n, F.elu,
+                                              maxpool=False), "xs"),
+        "CondRefineBlock": (lambda: L.CondRefineBlock(
+            [2 * n, n], n, k, act=F.elu, end=True), "xsy"),
+        "ConvMeanPool": (lambda: L.ConvMeanPool(n, 2 * n), "h"),
+        "MeanPoolConv": (lambda: L.MeanPoolConv(n, 2 * n), "h"),
+        "UpsampleConv": (lambda: L.UpsampleConv(2 * n, n), "h2"),
+        "ResidualBlock": (lambda: L.ResidualBlock(
+            n, 2 * n, "down", normalization=N.GroupNorm), "h"),
+        "ResidualBlock(InstanceNorm++)": (lambda: L.ResidualBlock(
+            n, n, normalization=N.InstanceNorm2dPlus), "h"),
+        "ConditionalResidualBlock": (lambda: L.ConditionalResidualBlock(
+            2 * n, 2 * n, k, dilation=2), "h2y"),
+    }
+
+    def call(mod, kind, dev):
+        """The class on its inputs on ``dev``: (output, input leaves)."""
+        leaves = [t.to(dev).detach().requires_grad_() for t in
+                  {"h": [h], "hy": [h], "h2": [h2], "h2y": [h2],
+                   "xs": [h2, h], "xsy": [h2, h]}[kind]]
+        args = [leaves] if kind.startswith("xs") else list(leaves)
+        if kind.endswith("y"):
+            args.append(y.to(dev))
+        if kind.startswith("xs"):
+            args.append((32, 32))
+        return mod(*args), leaves
+
+    # max pooling's gradient goes to each window's largest input: where
+    # two inputs of a window lie closer than the card and the CPU agree,
+    # the two route it to different elements, each off by its whole
+    # size, so there dx is held by the share of elements outside the
+    # tolerance, at most 1e-3 of them (as the GroupNorm kinks are)
+    kinked = ("CRPBlock",)
+    # every module, its weights drawn from the seeded global generator
+    # here: the CPU's side runs beside other work (``phase_ranks``)
+    modules = {}
+    for i, (name, (build, _)) in enumerate(cases.items()):
+        torch.manual_seed(100 + i)
+        modules[name] = build().requires_grad_(False)  # dx alone
+    yield None, []
+    # the CPU's side: each class's output and input gradient, on a
+    # quarter of the cores (the ranks beside it stage through the host)
+    t1 = time.perf_counter()
+    cpu_side = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) // 4))
+    for name, (_, kind) in cases.items():
+        cpu = modules.pop(name)
+        out, leaves = call(cpu, kind, "cpu")
+        ct = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+            np.float32)).contiguous(memory_format=torch.channels_last)
+        cpu_side[name] = (cpu, ct, [out.detach()] + list(
+            torch.autograd.grad(out, leaves, ct)))
+        del out, leaves
+    torch.set_num_threads(threads)
+    cpu_s = time.perf_counter() - t1
+    yield
+    t0 = time.perf_counter()
+    errs, off = {}, {}
+    for name, (_, kind) in cases.items():
+        cpu, ct, want = cpu_side.pop(name)
+        gpu = copy.deepcopy(cpu).cuda()
+        n_gn = sum(isinstance(m, N.GroupNorm) for m in cpu.modules())
+        reset_counts()
+        out, leaves = call(gpu, kind, "cuda")
+        got = [out.detach()] + list(torch.autograd.grad(out, leaves,
+                                                        ct.cuda()))
+        torch.cuda.synchronize()
+        check(all_counts() == expected(group_norm_act=n_gn,
+                                       group_norm_act_bwd=n_gn),
+              f"[legacy] {name} launched {all_counts()}, {n_gn} GroupNorms")
+        errs[name] = []
+        for j, (g, w) in enumerate(zip(got, want)):
+            tol = 1e-4 if j == 0 else 1e-3
+            scale = float(w.abs().max())
+            diff = (g.cpu() - w).abs()
+            err = float(diff.max()) / scale
+            check(bool(torch.isfinite(g).all()), f"[legacy] {name}: "
+                  "non-finite values on the card")
+            errs[name].append(err)
+            if j and name in kinked:
+                share = float((diff > tol * scale).float().mean())
+                off[name] = max(off.get(name, 0.0), share)
+                check(share <= 1e-3, f"[legacy] {name} dx: {share:.3e} of "
+                      f"its elements outside {tol} of its scale {scale:.3e} "
+                      "(at most 1e-3 may be)")
+                continue
+            check(err <= tol, f"[legacy] {name} "
+                  f"{'output' if j == 0 else 'dx'}: card vs CPU {err:.3e} "
+                  f"of scale {scale:.3e} (tol {tol})")
+        del cpu, gpu, out, leaves, got, want
+    torch.cuda.empty_cache()
+    worst_f = max(e[0] for e in errs.values())
+    worst_g = max(max(e[1:]) for c, e in errs.items() if c not in kinked)
+    say(f"[legacy] NCSNv2's CIFAR-10 widths (ngf {n}, {k} noise levels from "
+        f"get_sigmas: sigma {sigmas[0]:g} to {sigmas[-1]:g}, labels below "
+        f"{k}), B={b}, 32 x 32 at {n} channels and 16 x 16 at {2 * n}: the "
+        f"forward and input gradient of every class of "
+        f"models/normalization.py and models/legacy_layers.py "
+        f"({len(cases)} cases), float32 on the card against the CPU with "
+        f"the same weights: outputs at most {worst_f:.3e} of their scale "
+        f"(tol 1e-4), gradients {worst_g:.3e} (tol 1e-3) but through max "
+        f"pooling, where " + ", ".join(f"{c} {v:.3e}" for c, v in off.items())
+        + " of dx lies outside 1e-3 of scale (ties routed apart; at most "
+        f"1e-3 may); the GroupNorm cases through the kernels, counted; CPU "
+        f"side {cpu_s:.1f} s")
+    say("[legacy] error of scale by class (output, input gradients): "
+        + json.dumps({c: [float(f"{v:.3e}") for v in e]
+                      for c, e in errs.items()}))
+
+    # the GroupNorm variant in bf16 under gn_bf16: the encoder stack's
+    # forward and backward, every GroupNorm through the kernels
+    torch.manual_seed(31)
+    stack32 = legacy_stack(N.GroupNorm).cuda().to(
+        memory_format=torch.channels_last)
+    stack = copy.deepcopy(stack32).to(torch.bfloat16)
+    hg = h.cuda()
+    ctb = torch.from_numpy(rng.standard_normal((b, 2 * n, 16, 16)).astype(
+        np.float32)).cuda().bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    set_gn_bf16(True)
+    xb = hg.bfloat16().requires_grad_()
+    reset_counts()
+    out = stack(xb)
+    out.backward(ctb)
+    torch.cuda.synchronize()
+    launches = all_counts()
+    n_gn = sum(c for _, _, c in LEGACY_GN_CALLS)
+    check(launches == expected(group_norm_act=n_gn, group_norm_act_bwd=n_gn),
+          f"[legacy] the GroupNorm stack's step launched {launches}, "
+          f"expected {n_gn} of each GroupNorm kernel")
+    check(bool(torch.isfinite(out).all()) and bool(
+        torch.isfinite(xb.grad).all()), "[legacy] non-finite bf16 stack")
+    with torch.no_grad():
+        ref = stack32(hg)
+        err = max_err(out, ref) / float(ref.abs().max())
+        # bf16 rounds 16 convolutions and 16 GroupNorms: a sanity bound
+        check(err <= 0.1, f"[legacy] bf16 stack {err:.3e} of scale from "
+              "float32")
+        # the convolutions' FLOPs of one forward, from their outputs
+        flops = []
+        hooks = [m.register_forward_hook(
+            lambda m, i, o: flops.append(2 * o.numel() * m.weight[0].numel()))
+            for m in stack.modules() if isinstance(m, L.NCSNConv)]
+        stack(xb.detach())
+        for hook in hooks:
+            hook.remove()
+        flops = sum(flops)
+        gn_ms = device_ms(lambda: stack(xb.detach()), launches=3)
+        gn_eager = cuda_ms(lambda: stack(xb.detach()), iters=5, warmup=1)
+        set_gn_bf16(False)
+        torch.manual_seed(31)
+        plus = legacy_stack(N.InstanceNorm2dPlus).cuda().to(
+            memory_format=torch.channels_last)
+        plus_ms = device_ms(lambda: plus(hg), launches=3)
+    os.environ.pop("PSLD_GN_BF16")
+    say(f"[legacy] record, not a target: one forward of NCSNv2's eight "
+        f"encoder residual blocks at B={b} (device ms, CUDA-graph replay): "
+        f"GroupNorm variant bf16 under gn_bf16 {gn_ms:.3f} ms (eager "
+        f"{gn_eager:.3f} ms; {flops / 1e12:.2f} TFLOP of convolutions, "
+        f"{flops / (gn_ms / 1e3) / 1e12:.1f} TFLOP/s), InstanceNorm++ "
+        f"(the published config's) float32 {plus_ms:.3f} ms; its bf16 "
+        f"step launched {launches['group_norm_act']} GroupNorm forwards "
+        f"and {launches['group_norm_act_bwd']} backwards (exact), output "
+        f"{err:.3e} of scale from float32; card side "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+    say("[legacy] " + json.dumps({
+        "stack_gn_bf16_ms": gn_ms, "stack_gn_bf16_eager_ms": gn_eager,
+        "stack_instancenorm_plus_f32_ms": plus_ms, "stack_tflop": flops / 1e12,
+        "card_vs_cpu_fwd": worst_f, "card_vs_cpu_grad": worst_g,
+        "maxpool_dx_share_outside": off,
+        "cpu_s": cpu_s, "launches": launches}))
+    del stack, stack32, plus, out, xb
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ranks(card, work, phases: dict) -> dict:
+    """Run the phases ``phases`` (name -> generator) that wait on gloo
+    ranks, together. Each generator yields ``(group, runs)``: the runs
+    its ranks make in the rank group ``group`` (None: no ranks); then,
+    when resumed, computes its reference in this process (or, without
+    ranks, its host work) and yields; then takes ``(results, wall)``, its
+    group's results and seconds, checks them and returns. The groups (one
+    launch of ``SPATIAL`` ranks each, every run of its phases in order)
+    start together, and this process computes the references beside
+    them, and the host work in a thread, so that the card and the host's
+    cores serve several at once; every allocator is held to a share of
+    the card, and all but the first group's training wait for the
+    references (see below). Returns name -> what each phase returned."""
+    groups, group_of = {}, {}
+    for name, gen in phases.items():
+        group_of[name], runs = next(gen)
+        if group_of[name] is not None:
+            groups.setdefault(group_of[name], []).extend(runs)
+    # the card's memory holds two groups' float32 training at full width
+    # beside sampling (a rank of either allocates 11-13 GB; H100 80GB),
+    # or one beside this process's references: the first group's
+    # training runs beside the references, every later group's waits for
+    # them to end
+    refs_done = os.path.join(work, "references_done")
+    first = True
+    for g, runs in groups.items():
+        train = [r for r in runs if r["kind"] == "train"]
+        if train and not first:
+            train[0]["wait_for"] = refs_done
+        first = first and not train
+    # every rank shares the host's cores with the others and this process
+    threads = max(1, (os.cpu_count() or 2) // (2 * len(groups)))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    handles = {}
+    free = [torch.cuda.mem_get_info()[0]]
+    watching = threading.Event()
+
+    def watch():
+        while not watching.wait(0.5):
+            free.append(torch.cuda.mem_get_info()[0])
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    try:
+        for g, runs in groups.items():
+            handles[g] = start_ranks(work, g, {
+                "gloo": True, "runs": runs, "threads": threads,
+                "memory_fraction": RANK_MEMORY_FRACTION}, SPATIAL)
+        # the host work in a thread (the CPU's kernels release the
+        # interpreter), the references here
+        hosts = [pool.submit(next, gen) for name, gen in phases.items()
+                 if group_of[name] is None]
+        # cuDNN takes algorithms whose workspace fits in the share
+        torch.cuda.set_per_process_memory_fraction(REFERENCE_MEMORY_FRACTION)
+        try:
+            for name, gen in phases.items():
+                if group_of[name] is not None:
+                    next(gen)
+                    torch.cuda.empty_cache()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        for r in range(SPATIAL):
+            open(f"{refs_done}.{r}", "w").close()
+        ref_s = time.perf_counter() - t0
+        for host in hosts:
+            host.result()
+        results, walls = {None: None}, {None: 0.0}
+        for g, handle in handles.items():
+            results[g] = finish_ranks(handle)
+            walls[g] = time.perf_counter() - t0
+    finally:
+        watching.set()
+        watcher.join()
+        for _, procs in handles.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        pool.shutdown(wait=True)
+    # one line, at the end: [time] gives the block's seconds to it
+    say(f"[ranks] {len(groups)} groups of {SPATIAL} gloo ranks on the one "
+        f"card, started together ({threads} intra-op threads and "
+        f"{RANK_MEMORY_FRACTION:.0%} of the card's memory a rank; "
+        + "; ".join(f"{g}: {', '.join(r['tag'] for r in runs)}"
+                    for g, runs in groups.items())
+        + f"), all done {time.perf_counter() - t0:.1f} s after their start "
+        f"(each group's end as seen in turn: "
+        + ", ".join(f"{g} {w:.1f} s" for g, w in walls.items() if g)
+        + f"); this process's references beside them ("
+        f"{REFERENCE_MEMORY_FRACTION:.0%} of the card) took the first "
+        f"{ref_s:.1f} s, its host work (" + ", ".join(
+            n for n, g in group_of.items() if g is None)
+        + f") ran in a thread beside those; the card's free memory "
+        f"{free[0] / 1e9:.1f} GB before, {min(free) / 1e9:.1f} GB at least; "
+        f"rank peaks "
+        + json.dumps({
+            g: [round(max(r["peak_bytes"] for r in res_r["runs"].values())
+                      / 1e9, 2) for res_r in results[g]] for g in groups})
+        + f" GB; {card}")
+    out = {}
+    for name, gen in phases.items():
+        try:
+            gen.send((results[group_of[name]], walls[group_of[name]]))
+        except StopIteration as done:
+            out[name] = done.value
+        else:
+            check(False, f"[ranks] phase {name} did not end")
+    return out
 
 
 def combine(*timings) -> dict:
@@ -4401,7 +4870,8 @@ PATHS = {"sample": BATCH, "serve": BATCH, "train": TRAIN_BATCH,
          "async_ckpt": TRAIN_BATCH, "fanout": BATCH, "ddp": TRAIN_BATCH,
          "fsdp": TRAIN_BATCH, "ddp2": BATCH, "fsdp2": BATCH,
          "lockstep": BATCH, "spatial2": HQ_BATCH, "spatial2_f32": HQ_BATCH,
-         "spatial_sample": HQ_BATCH, "spatial_inpaint": HQ_BATCH}
+         "spatial_sample": HQ_BATCH, "spatial_inpaint": HQ_BATCH,
+         "legacy": LEGACY_BATCH}
 # the spatial paths: the two training runs, then the two sampling runs
 SPATIAL_PATHS = ("spatial2", "spatial2_f32", "spatial_sample",
                  "spatial_inpaint")
@@ -4484,6 +4954,13 @@ def main() -> int:
     # the split entries of spatial parallelism at CelebA-HQ's shapes at
     # half height, and the dropout of a height slice at AFHQv2's
     split = phase_spatial_kernels(card)
+    # the GroupNorm variant of the legacy normalizers (no activation) at
+    # the shapes of NCSNv2's encoder at batch 128
+    gn["legacy128"] = phase_gn(card, LEGACY_BATCH, LEGACY_GN_CALLS,
+                               "NCSNv2 encoder", "legacy_gn", act="none")
+    gn_bwd["legacy128"] = phase_gn_bwd(card, LEGACY_BATCH, LEGACY_GN_CALLS,
+                                       "NCSNv2 encoder", tag="legacy_gn_bwd",
+                                       act="none")
     cfg = bootstrap(FLAGSHIP_ARGS).dataset.diffusion
     weights, _ = phase_net(card, cfg)
     phase_sscs_check(card, cfg, weights)
@@ -4555,13 +5032,23 @@ def main() -> int:
     n_fanout = phase_fanout(card, work, ckpt)
     # several processes: world size 1 on NCCL, then two ranks on the card
     n_ddp, n_fsdp, _ = phase_ddp(card, work, ckpt, train_t["ms_step"])
-    n_ddp2, n_fsdp2 = phase_ddp2(card, work)
-    n_lockstep = phase_lockstep(card, work, ckpt)
-    # spatial parallelism: two ranks on the card, one image's height split
+    # and spatial parallelism, one image's height split over two ranks:
+    # the gloo groups run together, beside the references and the CPU's
+    # side of the NCSNv1/v2 component library (its path: the GroupNorm
+    # stack's bf16 step, counted from 0 after the ranks)
     hq_root = os.path.join(work, "celebahq_train_data")
-    n_spatial2, n_spatial2_f32, spatial2 = phase_spatial2(card, work, hq_root)
-    n_spatial_sample, n_spatial_inpaint = phase_spatial_sample(
-        card, work, hq_ckpt, hq_root)
+    ranks = phase_ranks(card, work, {
+        "spatial2": phase_spatial2(card, work, hq_root),
+        "spatial_sample": phase_spatial_sample(card, work, hq_ckpt,
+                                               hq_root),
+        "lockstep": phase_lockstep(card, work, ckpt),
+        "ddp2": phase_ddp2(card, work),
+        "legacy": phase_legacy(card)})
+    n_legacy = ranks["legacy"]
+    n_ddp2, n_fsdp2 = ranks["ddp2"]
+    n_lockstep = ranks["lockstep"]
+    n_spatial2, n_spatial2_f32, spatial2 = ranks["spatial2"]
+    n_spatial_sample, n_spatial_inpaint = ranks["spatial_sample"]
     say("[hires] " + json.dumps({
         "celebahq_train": hq_train, "celebahq_sample": hq_sample,
         "afhq_train": afhq_train, "async_ckpt": async_ckpt,
@@ -4584,7 +5071,7 @@ def main() -> int:
                "ddp2": n_ddp2, "fsdp2": n_fsdp2, "lockstep": n_lockstep,
                "spatial2": n_spatial2, "spatial2_f32": n_spatial2_f32,
                "spatial_sample": n_spatial_sample,
-               "spatial_inpaint": n_spatial_inpaint}
+               "spatial_inpaint": n_spatial_inpaint, "legacy": n_legacy}
     say("[vp] " + json.dumps({
         "train": vp_train, "sample_em_100": vp_sample, "ode_ms_nfe": vp_ode,
         "likelihood": vp_lik, "inception_batch64": fid,
@@ -4615,7 +5102,8 @@ def main() -> int:
             "ddp": gn["flagship128"], "fsdp": gn["flagship128"],
             "ddp2": gn["flagship64"], "fsdp2": gn["flagship64"],
             "lockstep": gn["flagship64"],
-            **{p: split["attn_gn"] for p in SPATIAL_PATHS}},
+            **{p: split["attn_gn"] for p in SPATIAL_PATHS},
+            "legacy": gn["legacy128"]},
         "group_norm_act_bwd": {
             "train": gn_bwd["flagship128"], "train_clf": gn_bwd["clf32"],
             "guided": gn_bwd["clf64"], "cc_ode": gn_bwd["clf64"],
@@ -4626,7 +5114,8 @@ def main() -> int:
             "async_ckpt": gn_bwd["flagship128"],
             "ddp": gn_bwd["flagship128"], "fsdp": gn_bwd["flagship128"],
             "ddp2": gn_bwd["flagship64"], "fsdp2": gn_bwd["flagship64"],
-            **{p: split["attn_gn_bwd"] for p in SPATIAL_PATHS[:2]}},
+            **{p: split["attn_gn_bwd"] for p in SPATIAL_PATHS[:2]},
+            "legacy": gn_bwd["legacy128"]},
         "attention": {
             "sample": attn["flagship64"], "serve": attn["flagship64"],
             "train": attn["flagship128"],
@@ -4702,7 +5191,9 @@ def main() -> int:
     fwd = ("bf16: device ms (CUDA-graph replay) summed over the calls of "
            "one network forward at the path's batch (guided and cc_ode: the "
            "score network's and the classifier's; vp_* and sweep: the "
-           "VP-SDE network's; bench: one forward at 64 and one at 128), "
+           "VP-SDE network's; bench: one forward at 64 and one at 128; "
+           "legacy: NCSNv2's encoder with the GroupNorm normalizer, no "
+           "activation, at 128), "
            "eager_ms the same calls made one by one; "
            "max_abs_err of the bf16 kernel against the plain version "
            "(GroupNorm: its gn_bf16 chain)")
@@ -4718,12 +5209,16 @@ def main() -> int:
         f"{SPATIAL} at B={HQ_BATCH}; launches over [spatial2] (bf16 and "
         "f32) and [spatial_sample]; max_abs_err of the bf16 entry against "
         "its plain version (partials and dx: over each output's scale); "
-        "library_ms (apply) is F.group_norm+F.silu on the shard, which "
-        "normalizes the shard alone")
+        "library_ms: stats torch.var_mean over the shard's grouped view "
+        "(bf16 in, its own dtype out), apply F.group_norm+F.silu on the "
+        "shard, which normalizes the shard alone; none for partials and "
+        "dx, which take the whole map's moments and have no single "
+        "PyTorch call")
     say("[spatial] " + json.dumps({"spatial2": spatial2,
                                    "strided_dropout": split["dropout"]}))
     say("[time] seconds a phase, to its first line: " + json.dumps(
-        {tag: round(sec, 1) for tag, sec in _PHASE_S if sec >= 1.0}))
+        {tag: round(sec, 1) for tag, sec in _PHASE_S if sec >= 1.0})
+        + f"; the whole smoke to here {time.perf_counter() - _START:.1f} s")
     say(json.dumps({"kernels": [
         row("group_norm_act", "cuda", "psld_tpu_torch/csrc/group_norm_fwd.cu",
             "psld_tpu/ops/group_norm.py:67", fwd + "; bit_equal_share: the "
@@ -4734,8 +5229,10 @@ def main() -> int:
             "psld_tpu/ops/group_norm.py:125",
             "bf16: device ms summed over the calls of one network backward "
             "at the path's batch (likelihood, vp_likelihood: the input-only "
-            "mode, dx alone, at B=64); max_abs_err is the largest |kernel - "
-            "plain| over dx, dscale and dbias against autograd through the "
+            "mode, dx alone, at B=64; legacy: NCSNv2's encoder with the "
+            "GroupNorm normalizer, no activation, at 128); max_abs_err is "
+            "the largest |kernel - plain| over dx, dscale and dbias against "
+            "autograd through the "
             "plain version's gn_bf16 chain (dscale sums 131,072 x 64 terms "
             "at B=128, so it is large in absolute terms); max_err_of_scale "
             "is that error over each gradient's largest magnitude, which "

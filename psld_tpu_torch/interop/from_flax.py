@@ -1,6 +1,7 @@
 """A JAX-package param tree -> the port's ``state_dict``: the score and
-classifier networks' flax trees, and (:func:`inception_state_dict`) the
-FID InceptionV3's params.
+classifier networks' flax trees, those of the NCSNv1/v2 blocks and
+normalizers (``models/legacy_layers.py``, ``models/normalization.py``),
+and (:func:`inception_state_dict`) the FID InceptionV3's params.
 
 The tree is nested dicts of numpy arrays (``jax.device_get`` of a flax
 ``params`` tree, with or without the top-level ``{"params": ...}``); no
@@ -11,10 +12,11 @@ leaf maps by path, with two layout changes:
   (O, I, kh, kw);
 * ``kernel`` (I, O), a Dense kernel -> ``weight`` (O, I);
 
-and every other leaf (``bias``, GroupNorm ``scale``, Fourier ``W``) by its
-own name. The mapping is strict both ways: every flax leaf is used
-exactly once and every parameter and buffer of the port's model is
-filled, with matching shapes, or it raises.
+and every other leaf (``bias``, GroupNorm ``scale``, Fourier ``W``, the
+legacy normalizers' ``alpha``, ``gamma``, ``beta`` and class tables'
+``embedding``) by its own name. The mapping is strict both ways: every
+flax leaf is used exactly once and every parameter and buffer of the
+port's model is filled, with matching shapes, or it raises.
 """
 
 from __future__ import annotations

@@ -206,6 +206,13 @@ print("NLL", [(b["samples"], b["nfe"], b["nonfinite"]) for b in nll],
 os.environ.update(PSLD_BENCH_NF="8", PSLD_BENCH_TRAIN_BATCH="1")
 line = bench.run_bench(batch=1, nfe=2, device="cpu")
 print("BENCH", len(line), line["device"])
+from psld_tpu_torch.models import legacy_layers, normalization
+from psld_tpu_torch.utils import legacy
+block = legacy_layers.ConditionalResidualBlock(
+    4, 8, len(legacy.get_sigmas(0.01, 1.0, 3)),
+    normalization=normalization.ConditionalInstanceNorm2dPlus)
+print("LEGACY", tuple(block(torch.zeros(2, 4, 4, 4),
+                            torch.tensor([0, 2])).shape))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "psld_tpu", "triton"))
@@ -268,8 +275,9 @@ def test_importing_the_port_pulls_in_no_jax():
     ``cli.edit``, ``cli.likelihood`` (two Heun steps, one batch of 2),
     the bench on the CPU at width 8, a VP-SDE ``cli.train_sde`` and
     ``cli.sample``, ``cli.fid`` (KID and ISC, random Inception
-    weights) on the samples, and ``cli.train_sde`` from a CelebA-HQ
-    folder of PNGs, read through the native codec) leave no module
+    weights) on the samples, ``cli.train_sde`` from a CelebA-HQ folder
+    of PNGs, read through the native codec, and a conditional NCSNv2
+    residual block of the legacy modules) leave no module
     named ``psld_tpu`` or ``psld_tpu.*``, nothing of JAX and no Triton in
     ``sys.modules``."""
     r = subprocess.run(
@@ -287,6 +295,7 @@ def test_importing_the_port_pulls_in_no_jax():
             "'kernel_inception_distance_mean', "
             "'kernel_inception_distance_std'] True") in r.stdout, r.stdout
     assert "FOLDER 1" in r.stdout, r.stdout
+    assert "LEGACY (2, 8, 4, 4)" in r.stdout, r.stdout
     assert "IMPORTED []" in r.stdout, r.stdout
 
 

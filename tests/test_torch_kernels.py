@@ -11,7 +11,8 @@ counts that fill no key tile and widths that are no multiple of 16, the
 GroupNorm backward over a cluster of blocks at H*W = 1024, one capture
 and replay of each redesigned kernel in a CUDA graph, rows and channels of the
 fused bias + leaky ReLU that fit no vector width, the GroupNorm kernels
-under ``gn_bf16`` against the plain version's bf16 chain, and the inputs
+under ``gn_bf16`` against the plain version's bf16 chain, the GroupNorm
+variant of the legacy normalizers at its edge widths, and the inputs
 the wrappers refuse (a misaligned x among them). They need a
 CUDA device (the CUDA source is built for sm_90a) and skip without one:
 
@@ -787,3 +788,79 @@ def test_hash_dropout_kernel_on_height_slices(card, shape, spatial_n, row,
         (dx,) = torch.autograd.grad(got, part, ct)
         assert torch.equal(dx, ops.hash_dropout_plain(
             ct, seed, rate, elem_off=off, image=image))
+
+
+# -- the GroupNorm variant of the legacy normalizers -------------------------
+@pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("size", [8, 32])
+@pytest.mark.parametrize("c", [4, 12, 256, 1024])
+def test_legacy_group_norm_variant_matches_plain(card, c, size, dtype):
+    """``models.normalization.GroupNorm`` (GroupNorm(min(C // 4, 32)), eps
+    1e-6, no activation; ``get_normalization``'s ``GroupNorm``) on an
+    NCHW ``channels_last`` input at its edge widths, C = 4 (one group of
+    4), 12, 256 and 1024 (the kernels' limit): its forward and its
+    gradient each launch their kernel once and match
+    ``group_norm_act_plain`` and autograd through it (forward to the
+    dtype's tolerance, gradients to 1e-4 / 2e-2 of their scale). In bf16
+    at C = 4 and 12 no slice of whole groups is a multiple of 16 bytes:
+    the variant raises there and does not fall back to the plain
+    version."""
+    from psld_tpu_torch.models.normalization import GroupNorm
+
+    mod = GroupNorm(c).to(card)
+    with torch.no_grad():
+        mod.scale.copy_(rand((c,), 1, torch.float32, card, 0.1, 1.0))
+        mod.bias.copy_(rand((c,), 2, torch.float32, card, 0.1))
+    x = rand((2, size, size, c), 0, dtype, card, 2.0, 0.5)
+    g = rand((2, size, size, c), 3, dtype, card)
+    x_in = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    assert x_in.is_contiguous(memory_format=torch.channels_last)
+    if dtype == torch.bfloat16 and c in (4, 12):
+        with pytest.raises(ValueError, match="16 bytes"):
+            mod(x_in)
+        return
+    n_f, n_b = ops.group_norm_act.launches, \
+        ops.group_norm_act_backward.launches
+    y = mod(x_in)
+    dx, dscale, dbias = torch.autograd.grad(
+        y, (x_in, mod.scale, mod.bias), g.permute(0, 3, 1, 2))
+    assert ops.group_norm_act.launches == n_f + 1
+    assert ops.group_norm_act_backward.launches == n_b + 1
+    groups = min(c // 4, 32)
+    assert_close(y.permute(0, 2, 3, 1), ops.group_norm_act_plain(
+        x, mod.scale, mod.bias, groups, 1e-6, "none"), TOL[dtype])
+    want = ops.group_norm_act_backward_plain(x, mod.scale, mod.bias, g,
+                                             groups, 1e-6, "none")
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.cuda.synchronize()
+    for got, w in zip((dx.permute(0, 2, 3, 1), dscale, dbias), want):
+        ref = float(w.float().abs().max()) + 1e-6
+        assert float((got.float() - w.float()).abs().max()) <= tol * ref
+
+
+@pytest.mark.parametrize("block", ["CondCRPBlock", "CRPBlock_avg"])
+def test_legacy_average_pooling_gradient_on_channels_last(card, block):
+    """The CRP blocks' 5x5 average pooling on a ``channels_last`` CUDA
+    input: the input gradient matches the CPU's (PyTorch's CUDA average
+    pooling pulls a wrong one back into such an input where its windows
+    overlap, so the blocks pool NCHW memory), to 1e-4 of its scale."""
+    import torch.nn.functional as F
+
+    from psld_tpu_torch.models import legacy_layers as L
+
+    torch.manual_seed(0)
+    mod = L.CondCRPBlock(16, 2, 3, act=F.elu) if block == "CondCRPBlock" \
+        else L.CRPBlock(16, 2, F.elu, maxpool=False)
+    x = rand((2, 16, 8, 8), 0, torch.float32, "cpu").contiguous(
+        memory_format=torch.channels_last)
+    y = torch.tensor([0, 2])
+    ct = rand((2, 16, 8, 8), 1, torch.float32, "cpu")
+    grads = []
+    for dev in ("cpu", card):
+        m = mod.to(dev)
+        xi = x.to(dev).detach().requires_grad_()
+        out = m(xi, y.to(dev)) if block == "CondCRPBlock" else m(xi)
+        grads.append(torch.autograd.grad(out, xi, ct.to(dev))[0].cpu())
+    want = grads[0]
+    assert float((grads[1] - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
