@@ -562,6 +562,42 @@ def device_ms(fn, launches: int = 10, replays: int = 3) -> float:
     return start.elapsed_time(end) / (launches * replays)
 
 
+# one call of the split stats at each (batch, rows, width, C, G) of argv[1]
+# under torch.profiler, in a process of its own (a second profiler session
+# in one process may record no device activity, and the smoke's
+# [celebahq_train] traces its own window): prints the kernels' names
+_STATS_KERNELS_SCRIPT = """
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+from psld_tpu_torch.ops import group_norm as gn
+xs = [(torch.randn(b, h, w, c, device="cuda").bfloat16(), g)
+      for b, h, w, c, g in json.loads(sys.argv[1])]
+for x, g in xs:
+    gn.group_norm_split_stats(x, g)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for x, g in xs:
+        gn.group_norm_split_stats(x, g)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not any(w in e.name.lower()
+                              for w in ("memcpy", "memset"))]))
+"""
+
+
+def stats_kernels(shapes) -> list:
+    """The kernels that one split-stats call at each of ``shapes`` runs on
+    the card, in a fresh process (``_STATS_KERNELS_SCRIPT``)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _STATS_KERNELS_SCRIPT, json.dumps(shapes)],
+        cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, text=True,
+        capture_output=True, timeout=300)
+    check(proc.returncode == 0, "the split stats' profiler process failed: "
+          + proc.stdout[-2000:] + proc.stderr[-2000:])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean milliseconds of ``fn()`` called eagerly on the current stream
     (CUDA events): the host's cost of a launch counts where it exceeds
@@ -3998,6 +4034,7 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
     totals = {k: {} for k in names}
     lib = lib_stats = 0.0
     rows = []
+    one_launch = []
     t0 = time.perf_counter()
     for hw, c, n_calls in calls:
         s = int(round(hw ** 0.5))
@@ -4132,6 +4169,8 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
         ls_ms = device_ms(lambda: torch.var_mean(xg, dim=(1, 3)))
         lib_stats += n_calls * ls_ms
         rows.append(row + [ls_ms, l_ms])
+        if (hw, c) in (calls[0][:2], calls[-1][:2]):
+            one_launch.append((batch, rows_held, s, c, g))
     os.environ.pop("PSLD_GN_BF16")
     for k in names:
         out[k].update(totals[k])
@@ -4154,6 +4193,19 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
                         for i, k in enumerate(names))
             + f"; torch.var_mean {ls_ms:.4f}; F.group_norm+F.silu "
             f"{l_ms:.4f}")
+    # the stats are one kernel a call, the chunks' partials folded in the
+    # launch: a call at the largest shard and one at the smallest
+    ran = stats_kernels(one_launch)
+    check(len(ran) == len(one_launch)
+          and all("gn_split_stats" in k for k in ran),
+          f"split stats: the kernels of one call at each of {one_launch} "
+          f"(B, rows, W, C, G): {ran}")
+    st = out["stats"]
+    say(f"[{tag}]   stats: one kernel a call (torch.profiler, shards "
+        + ", ".join(f"{h * w}x{c}" for _, h, w, c, _ in one_launch) + "); "
+        f"{st['bound_ms'] / st['ms']:.3f} of its "
+        f"bound, {st['library_ms'] / st['ms']:.2f}x faster than "
+        "torch.var_mean")
     for k in names:
         say(f"[{tag}]   {k} per CelebA-HQ {'forward' if k in ('stats', 'apply') else 'backward'} "
             f"({sum(n for _, _, n in calls)} calls): kernel "
@@ -4236,7 +4288,10 @@ def _strided_dropout(card, tag, batch=AFHQ_BATCH, calls=AFHQ_DROPOUT_CALLS,
         f"(bf16, rate {rate}): strided {res['ms']:.3f} ms, unstrided on "
         f"the same elements {res['flat_ms']:.3f} ms, bound "
         f"{res['bound_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
-        f"F.dropout {res['library_ms']:.3f} ms; {card}")
+        f"F.dropout {res['library_ms']:.3f} ms: "
+        f"{res['ms'] / res['flat_ms']:.3f}x the unstrided, "
+        f"{res['ms'] / res['library_ms']:.3f}x F.dropout, "
+        f"{res['bound_ms'] / res['ms']:.3f} of the bound; {card}")
     return res
 
 
@@ -5219,6 +5274,19 @@ def main() -> int:
     say("[time] seconds a phase, to its first line: " + json.dumps(
         {tag: round(sec, 1) for tag, sec in _PHASE_S if sec >= 1.0})
         + f"; the whole smoke to here {time.perf_counter() - _START:.1f} s")
+    drop_row = row(
+        "hash_dropout", "triton", "psld_tpu_torch/ops/dropout.py",
+        "psld_tpu/ops/dropout.py:96",
+        "bf16, rate 0.15, vp_train at its 0.1 (the classifier trains at "
+        "0.1 and is timed at 0.15; the kernel "
+        "reads and writes every element at any rate): device ms summed "
+        "over the launches of one training step (forward and backward) "
+        "at the path's shapes; max_abs_err measured over every compared "
+        "case, f32 and bf16 (the phase demands bit equality); strided: "
+        "the image-strided launch (a rank's height slice) over one "
+        "AFHQv2 128 step of a rank, flat_ms the unstrided launch on the "
+        "same elements")
+    drop_row["strided"] = split["dropout"]
     say(json.dumps({"kernels": [
         row("group_norm_act", "cuda", "psld_tpu_torch/csrc/group_norm_fwd.cu",
             "psld_tpu/ops/group_norm.py:67", fwd + "; bit_equal_share: the "
@@ -5239,14 +5307,7 @@ def main() -> int:
             "the phase holds under 1e-2", redesigned_in=5),
         row("attention", "cuda", "psld_tpu_torch/csrc/attention.cu",
             "psld_tpu/ops/attention.py:34", fwd, redesigned_in=5),
-        row("hash_dropout", "triton", "psld_tpu_torch/ops/dropout.py",
-            "psld_tpu/ops/dropout.py:96",
-            "bf16, rate 0.15, vp_train at its 0.1 (the classifier trains at "
-            "0.1 and is timed at 0.15; the kernel "
-            "reads and writes every element at any rate): device ms summed "
-            "over the launches of one training step (forward and backward) "
-            "at the path's shapes; max_abs_err measured over every compared "
-            "case, f32 and bf16 (the phase demands bit equality)"),
+        drop_row,
         *[row(f"group_norm_split_{k}", "cuda",
               f"psld_tpu_torch/csrc/group_norm_{src}.cu",
               f"psld_tpu/ops/group_norm.py:{line}", split_basis)

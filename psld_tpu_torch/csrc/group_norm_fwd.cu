@@ -75,19 +75,35 @@
 // only under spatial parallelism, where the moments span the shards:
 //   - psld_gn_split_stats writes each (n, group)'s f32 sums of x and x^2
 //     over the local pixels into an (N, G, 2) buffer: the channel sums
-//     the fused kernel adds, folded into groups. A block owns a run of
-//     SPLIT_ROWS pixels of one batch element, a thread a channel (and
-//     the channels 256 apart) and the rows RY apart; the block folds its
-//     rows and channels into groups in a fixed order and writes a
-//     partial, and a second kernel adds a group's partials in chunk
-//     order, so the sums are deterministic. The host all-reduces them
-//     over the group;
+//     the fused kernel adds, folded into groups, in one launch. The host
+//     all-reduces them over the group;
 //   - psld_gn_split_apply runs the fused kernel's chain from the global
 //     sums (mean and rstd from them, f32 or the gn_bf16 rounding points,
 //     affine, act), one element a thread, grid-stride.
 // Bound: the stats read x once and the apply reads it again and writes
-// y, so two reads and one write. Right first: scalar loads, one element
-// a thread; making them fast is later work.
+// y, so two reads and one write, a few f32 operations an element.
+//
+// The stats' design: a block of 256 threads owns a chunk of pixel rows
+// of one batch element (ops/group_norm.py::plan_split_stats sizes it: one
+// wave of four blocks an SM over a large shard, one block a batch element
+// of up to 128 KB). A thread owns one 16-byte piece of a row (8 bf16 or 4
+// f32 channels; one channel, up to four of them, where C is no multiple
+// of the piece: the scalar path) and the rows RY apart, with
+// STATS_UNROLL loads in flight, and adds f32 sums of x and x^2 a channel.
+// The rows a warp holds are folded with shuffles, the warps' in shared
+// memory in slot order, then the channels into groups in channel order.
+// A batch element of one chunk writes its sums; else each block writes a
+// partial, and the last block of the batch element to finish (a
+// __threadfence and a counter in done[n], left at 0) adds the chunks'
+// partials in a fixed order: lane l of a group adds the chunks [l * K,
+// (l + 1) * K) in order, the lanes by a fixed shuffle tree. The sums are
+// deterministic and a call is one launch. On an NVIDIA H100 80GB HBM3 at
+// 700 W, over the 105 split GroupNorms of a CelebA-HQ 256 rank forward
+// (B=8, bf16), the stats read 52% of their bytes bound: the shards of
+// 32,768 pixels 72-82%, those of 8 to 2,048 pixels 3-7 us a call, where
+// a launch's latency and the fold's fence and counter are the time.
+// The apply keeps its first design (one element a thread, 19% of its
+// bound at those shapes, PERF.md section 6).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -664,7 +680,11 @@ const char* psld_cuda_error_string(int err) {
 namespace {
 
 constexpr int SPLIT_THREADS = 256;
-constexpr int SPLIT_ROWS = 64;     // pixels a block of the stats reduces
+// pixel rows a thread of the stats has in flight (2, 4 and 8 measured,
+// PERF.md section 6)
+constexpr int STATS_UNROLL = 8;
+// floats of each of the stats' two channel-sum buffers: slots x C
+constexpr int STATS_SLOTS = 2048;
 
 template <typename T>
 __device__ __forceinline__ float elem_f(T v) {
@@ -678,72 +698,186 @@ __device__ __forceinline__ T to_elem(float v) {
   else return __float2bfloat16_rn(v);
 }
 
-// block (chunk, n): the f32 sums of x and x^2 of each group over pixels
-// [chunk * SPLIT_ROWS, +SPLIT_ROWS) of batch element n -> part[n][chunk][g]
+// V channels of x at p as floats: one 16-byte load (V = Vec<T>::N), or
+// one scalar (V = 1)
+template <typename T, int V>
+struct StatsLoad {
+  using Raw = uint4;
+  __device__ static Raw load(const T* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ static Raw zero() { return make_uint4(0u, 0u, 0u, 0u); }
+  __device__ static void unpack(const Raw& r, float* f) {
+    Vec<T>::unpack(r, f);
+  }
+};
+
 template <typename T>
+struct StatsLoad<T, 1> {
+  using Raw = float;
+  __device__ static Raw load(const T* p) { return elem_f(*p); }
+  __device__ static Raw zero() { return 0.f; }
+  __device__ static void unpack(const Raw& r, float* f) { f[0] = r; }
+};
+
+// block (chunk, n): the f32 sums of x and x^2 of each group over pixels
+// [chunk * rows, +rows) of batch element n. A thread owns V channels of a
+// row (KP pieces of them on the scalar path) and the rows RY apart,
+// STATS_UNROLL of them in flight; the rows are folded by warp shuffles
+// (where a warp holds several) and in shared memory, then the channels
+// into groups. With one chunk a row the block writes out[n]; else it
+// writes part[n][chunk], and the last block of batch element n to finish
+// (counted in done[n], which it leaves at 0) adds the chunks' partials
+// in a fixed order into out[n].
+template <typename T, int V>
 __global__ void __launch_bounds__(SPLIT_THREADS)
 gn_split_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
-                      int hw, int c, int cgrp) {
-  __shared__ float sh1[1024], sh2[1024];
+                      float* __restrict__ out, int* __restrict__ done,
+                      int hw, int c, int cgrp, int rows) {
+  using L = StatsLoad<T, V>;
+  constexpr int KP = V == 1 ? 1024 / SPLIT_THREADS : 1;
+  constexpr int U = STATS_UNROLL;
+  __shared__ float sh1[STATS_SLOTS], sh2[STATS_SLOTS];
+  __shared__ int last;
   const int n = blockIdx.y, chunk = blockIdx.x, nch = gridDim.x;
-  const int tx_n = c < SPLIT_THREADS ? c : SPLIT_THREADS;
+  const int tid = threadIdx.x;
+  const int pieces = c / V;
+  const int tx_n = pieces < SPLIT_THREADS ? pieces : SPLIT_THREADS;
   const int ry = SPLIT_THREADS / tx_n;
-  const int tx = threadIdx.x % tx_n, ty = threadIdx.x / tx_n;
-  const int p0 = chunk * SPLIT_ROWS;
-  const int p1 = min(hw, p0 + SPLIT_ROWS);
+  const int tx = tid % tx_n, ty = tid / tx_n;
+  const int p0 = chunk * rows;
+  const int p1 = min(hw, p0 + rows);
   const T* xb = x + (size_t)n * hw * c;
-  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+  float s1[KP][V], s2[KP][V];
+#pragma unroll
+  for (int k = 0; k < KP; ++k)
+#pragma unroll
+    for (int v = 0; v < V; ++v) s1[k][v] = s2[k][v] = 0.f;
   if (ty < ry) {
-    for (int p = p0 + ty; p < p1; p += ry) {
+    for (int p = p0 + ty; p < p1; p += ry * U) {
+      typename L::Raw raw[U][KP];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int ch = tx + k * tx_n;
-        if (ch < c) {
-          const float v = elem_f(xb[(size_t)p * c + ch]);
-          s1[k] += v;
-          s2[k] = fmaf(v, v, s2[k]);
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < KP; ++k) {
+          const int row = p + u * ry, pc = tx + k * tx_n;
+          raw[u][k] = row < p1 && pc < pieces
+                          ? L::load(xb + (size_t)row * c + (size_t)pc * V)
+                          : L::zero();
         }
-      }
-    }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int ch = tx + k * tx_n;
-      if (ch < c) {
-        sh1[ty * c + ch] = s1[k];
-        sh2[ty * c + ch] = s2[k];
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < KP; ++k) {
+          float f[V];
+          L::unpack(raw[u][k], f);
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            s1[k][v] += f[v];
+            s2[k][v] = fmaf(f[v], f[v], s2[k][v]);
+          }
+        }
+    }
+  }
+  // rows -> slots: a warp that holds 32 / tx_n rows folds them with
+  // shuffles into one slot; else each row is a slot
+  const bool shuffle = tx_n < 32 && 32 % tx_n == 0;
+  if (shuffle) {
+    for (int off = 16; off >= tx_n; off >>= 1)
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        s1[0][v] += __shfl_xor_sync(0xffffffffu, s1[0][v], off);
+        s2[0][v] += __shfl_xor_sync(0xffffffffu, s2[0][v], off);
       }
+  }
+  const int slots = shuffle ? SPLIT_THREADS / 32 : ry;
+  const int slot = shuffle ? tid / 32 : ty;
+  if (shuffle ? tid % 32 < tx_n : ty < ry) {
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      const int pc = tx + k * tx_n;
+      if (pc < pieces)
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          sh1[slot * c + pc * V + v] = s1[k][v];
+          sh2[slot * c + pc * V + v] = s2[k][v];
+        }
     }
   }
   __syncthreads();
-  const int ng = c / cgrp;
-  for (int g = threadIdx.x; g < ng; g += SPLIT_THREADS) {
+  // slots -> channels, in slot order, into slot 0
+  for (int ch = tid; ch < c; ch += SPLIT_THREADS) {
     float a = 0.f, b = 0.f;
-    for (int r = 0; r < ry; ++r)
-      for (int j = 0; j < cgrp; ++j) {
-        a += sh1[r * c + g * cgrp + j];
-        b += sh2[r * c + g * cgrp + j];
-      }
-    float* o = part + (((size_t)n * nch + chunk) * ng + g) * 2;
-    o[0] = a;
-    o[1] = b;
+    for (int r = 0; r < slots; ++r) {
+      a += sh1[r * c + ch];
+      b += sh2[r * c + ch];
+    }
+    sh1[ch] = a;
+    sh2[ch] = b;
   }
+  __syncthreads();
+  // channels -> groups, in channel order
+  const int ng = c / cgrp;
+  for (int g = tid; g < ng; g += SPLIT_THREADS) {
+    float a = 0.f, b = 0.f;
+    for (int j = 0; j < cgrp; ++j) {
+      a += sh1[g * cgrp + j];
+      b += sh2[g * cgrp + j];
+    }
+    float* o = nch == 1 ? out + ((size_t)n * ng + g) * 2
+                        : part + (((size_t)n * nch + chunk) * ng + g) * 2;
+    *reinterpret_cast<float2*>(o) = make_float2(a, b);
+  }
+  if (nch == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(done + n, 1) == nch - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the last block: lane l of a group's LN lanes adds the chunks [l * K,
+  // (l + 1) * K) in chunk order, 8 loads in flight; the lanes are then
+  // added by a fixed shuffle tree
+  int ln = 1;
+  while (ln < 32 && 2 * ln * ng <= SPLIT_THREADS) ln *= 2;
+  const int per = (nch + ln - 1) / ln;
+  for (int g0 = 0; g0 < ng; g0 += SPLIT_THREADS / ln) {
+    const int g = g0 + tid / ln, l = tid % ln;
+    float a = 0.f, b = 0.f;
+    if (g < ng) {
+      const int k1 = min(nch, (l + 1) * per);
+      const float2* src =
+          reinterpret_cast<const float2*>(part) + (size_t)n * nch * ng + g;
+      for (int k0 = l * per; k0 < k1; k0 += 8) {
+        float2 v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = k0 + j < k1 ? __ldcg(src + (size_t)(k0 + j) * ng)
+                             : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          a += v[j].x;
+          b += v[j].y;
+        }
+      }
+    }
+    for (int off = ln / 2; off > 0; off >>= 1) {
+      a += __shfl_xor_sync(0xffffffffu, a, off);
+      b += __shfl_xor_sync(0xffffffffu, b, off);
+    }
+    if (g < ng && l == 0)
+      *reinterpret_cast<float2*>(out + ((size_t)n * ng + g) * 2) =
+          make_float2(a, b);
+  }
+  if (tid == 0) done[n] = 0;
 }
 
-// thread (n, g): the chunks' partials added in chunk order -> out[n][g]
-__global__ void gn_split_fold_kernel(const float* __restrict__ part,
-                                     float* __restrict__ out, int b, int nch,
-                                     int ng) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b * ng) return;
-  const int n = i / ng, g = i % ng;
-  float a = 0.f, v = 0.f;
-  for (int ch = 0; ch < nch; ++ch) {
-    const float* p = part + (((size_t)n * nch + ch) * ng + g) * 2;
-    a += p[0];
-    v += p[1];
-  }
-  out[(size_t)i * 2] = a;
-  out[(size_t)i * 2 + 1] = v;
+template <typename T, int V>
+void split_stats(const void* x, float* part, float* out, int* done, int b,
+                 int hw, int c, int cgrp, int rows, int nch,
+                 cudaStream_t st) {
+  gn_split_stats_kernel<T, V><<<dim3(nch, b), SPLIT_THREADS, 0, st>>>(
+      static_cast<const T*>(x), part, out, done, hw, c, cgrp, rows);
 }
 
 // one element a thread: y = act of the chain from the global sums
@@ -812,27 +946,38 @@ int split_apply(int act, const void* x, void* y, const float* sums,
 extern "C" {
 
 // (B, H*W, C) NHWC x (this rank's rows) -> out (B, C / cgrp, 2) f32: each
-// group's sums of x and x^2 over the local pixels; part holds
-// B * ceil(H*W / SPLIT_ROWS) * (C / cgrp) * 2 floats of scratch. dtype: 0
-// = float32, 1 = bfloat16. Returns a cudaError_t.
-int psld_gn_split_stats(const void* x, void* part, void* out, int b, int hw,
-                        int c, int cgrp, int dtype, void* stream) {
+// group's sums of x and x^2 over the local pixels, one launch. rows:
+// pixels a block reduces (ops/group_norm.py::plan_split_stats); vec: the
+// channels a load, 16 / sizeof(T) (C a multiple of it) or 1. With more
+// than one chunk a batch element, part holds B * ceil(H*W / rows) *
+// (C / cgrp) * 2 floats of scratch and done B ints at 0, which the
+// launch leaves at 0. dtype: 0 = float32, 1 = bfloat16. Returns a
+// cudaError_t.
+int psld_gn_split_stats(const void* x, void* part, void* out, void* done,
+                        int b, int hw, int c, int cgrp, int rows, int vec,
+                        int dtype, void* stream) {
+  const int wide = dtype == 0 ? 4 : 8;
   if ((dtype != 0 && dtype != 1) || b < 1 || b > 65535 || hw < 1 ||
-      c < 1 || c > 1024 || cgrp < 1 || c % cgrp)
+      c < 1 || c > 1024 || cgrp < 1 || c % cgrp || rows < 1 ||
+      (vec != 1 && vec != wide) || c % vec)
+    return (int)cudaErrorInvalidValue;
+  const int nch = (int)(((long long)hw + rows - 1) / rows);
+  if (nch > 1 && (part == nullptr || done == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nch = (hw + SPLIT_ROWS - 1) / SPLIT_ROWS;
-  const dim3 grid(nch, b);
   float* pt = static_cast<float*>(part);
-  if (dtype == 0)
-    gn_split_stats_kernel<float><<<grid, SPLIT_THREADS, 0, st>>>(
-        static_cast<const float*>(x), pt, hw, c, cgrp);
+  float* o = static_cast<float*>(out);
+  int* dn = static_cast<int*>(done);
+  if (dtype == 0 && vec == 1)
+    split_stats<float, 1>(x, pt, o, dn, b, hw, c, cgrp, rows, nch, st);
+  else if (dtype == 0)
+    split_stats<float, 4>(x, pt, o, dn, b, hw, c, cgrp, rows, nch, st);
+  else if (vec == 1)
+    split_stats<__nv_bfloat16, 1>(x, pt, o, dn, b, hw, c, cgrp, rows, nch,
+                                  st);
   else
-    gn_split_stats_kernel<__nv_bfloat16><<<grid, SPLIT_THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), pt, hw, c, cgrp);
-  const int items = b * (c / cgrp);
-  gn_split_fold_kernel<<<(items + 255) / 256, 256, 0, st>>>(
-      pt, static_cast<float*>(out), b, nch, c / cgrp);
+    split_stats<__nv_bfloat16, 8>(x, pt, o, dn, b, hw, c, cgrp, rows, nch,
+                                  st);
   return (int)cudaGetLastError();
 }
 

@@ -270,6 +270,56 @@ def plan_backward(hw: int, c: int, num_groups: int, dtype) -> dict:
                  _BWD_SMALL_TILE, hw, c, num_groups, dtype)
 
 
+# the split stats kernel (``psld_gn_split_stats``): threads a block, pixel
+# rows a thread has in flight (``STATS_UNROLL`` in the CUDA source), the
+# blocks an SM is counted to hold in a wave and the waves a large shard
+# aims at over the H100's SMs, the fewest pixels a block reduces, and the
+# bytes a batch element may have and still take one block (no partials)
+_STATS_THREADS = 256
+_STATS_UNROLL = 8
+_STATS_RESIDENT = 4
+_STATS_WAVES = 1
+_SMS = 132
+_STATS_MIN_ROWS = 64
+_STATS_ONE_BLOCK = 128 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def plan_split_stats(batch: int, hw: int, c: int, num_groups: int,
+                     dtype) -> dict:
+    """The split stats kernel's geometry for a (batch, H*W, C) shard:
+    ``vec`` channels a load (16 bytes where C is a multiple of them, else
+    1, the scalar path), ``rows`` pixels a block reduces, ``chunks`` blocks
+    a batch element (the grid is (chunks, batch)), and ``scratch`` floats
+    of partials (0 for one chunk, which writes the sums directly).
+
+    A pass of a block covers ``step`` rows: 256 threads over the row's
+    pieces, ``_STATS_UNROLL`` rows a thread. A batch element of at
+    most ``_STATS_ONE_BLOCK`` bytes is one block's, with no partials to
+    fold. Else ``rows`` is a multiple of ``step``, at least
+    ``_STATS_MIN_ROWS`` (so the scratch stays within B * ceil(H*W / 64) *
+    G * 2 floats), and as few as give ``_STATS_WAVES`` waves of
+    ``_STATS_RESIDENT`` blocks on each of ``_SMS`` SMs over the batch: a
+    bf16 shard of 32,768 pixels of 128 channels at batch 8 takes 512
+    blocks of 512 pixels. Chosen on the card (``PERF.md``, section 6) among
+    1 to 8 waves, 2 to 8 rows in flight and at least 64 or 256 pixels a
+    block."""
+    if c % num_groups:
+        raise ValueError(f"C={c} is no multiple of G={num_groups}")
+    elem = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // elem if c % (16 // elem) == 0 else 1
+    tx = min(c // vec, _STATS_THREADS)
+    step = _STATS_THREADS // tx * _STATS_UNROLL
+    if hw * c * elem <= _STATS_ONE_BLOCK:
+        return dict(vec=vec, rows=hw, chunks=1, scratch=0)
+    per_row = max(1, _STATS_WAVES * _SMS * _STATS_RESIDENT // batch)
+    rows = max(_STATS_MIN_ROWS, -(-hw // per_row))
+    rows = -(-rows // step) * step
+    chunks = -(-hw // rows)
+    return dict(vec=vec, rows=rows, chunks=chunks,
+                scratch=batch * chunks * num_groups * 2 if chunks > 1 else 0)
+
+
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -294,21 +344,25 @@ _BWD_ARGS = [_P] * 4 + [_I, _P, _I] + [_P] * 4 + [_I] * 10 + [
     ctypes.c_float, _I, _I, _P]
 
 
-# the backward kernel's per-slice counts of finished batch elements, one
-# zeroed buffer per (device, stream): every launch leaves it at 0 again,
-# so a CUDA graph may replay launches that use it, on that stream
+# counts of finished blocks, one zeroed buffer per (device, stream), which
+# every launch leaves at 0 again, so a CUDA graph may replay launches that
+# use it, on that stream: the backward kernel's per slice, the split
+# stats' per batch element (at most 65535). Launches on one stream run in
+# order, so the two kernels share it
 _DONE: dict = {}
+_DONE_SIZE = 65536
 
 
-def _done_counts(device):
+def _done_counts(device, what: str):
     stream = torch.cuda.current_stream(device)
     key = (device.index, stream.cuda_stream)
     if key not in _DONE:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
-                "group_norm_act_backward: call it once on this stream "
-                "before capturing it into a CUDA graph")
-        _DONE[key] = torch.zeros(256, dtype=torch.int32, device=device)
+                f"{what}: call it once on this stream before capturing it "
+                "into a CUDA graph")
+        _DONE[key] = torch.zeros(_DONE_SIZE, dtype=torch.int32,
+                                 device=device)
     return _DONE[key]
 
 
@@ -325,6 +379,8 @@ def _check_kernel_args(what: str, x, scale, bias, num_groups: int) -> None:
     if x.data_ptr() % 16:
         raise ValueError(f"{what} kernel needs x on a 16-byte boundary")
     for p in (scale, bias):
+        if p is None:  # the split stats take no parameters
+            continue
         if p.shape != (c,) or not p.is_contiguous() or p.device != x.device \
                 or p.dtype not in _KERNEL_DTYPES:
             raise ValueError(f"{what} kernel: scale/bias must be contiguous "
@@ -368,7 +424,7 @@ def _backward(x, scale, bias, g, num_groups: int, eps: float, act: str,
         part = torch.empty((2, c, b), dtype=torch.float32, device=x.device)
         dscale = torch.empty_like(scale)
         dbias = torch.empty_like(bias)
-        done = _done_counts(x.device)
+        done = _done_counts(x.device, "group_norm_act_backward")
     lib = _lib("group_norm_bwd.cu", "psld_gn_bwd", _BWD_ARGS)
     with torch.cuda.device(x.device):
         err = lib.psld_gn_bwd(
@@ -579,14 +635,14 @@ def _split_count(x, num_groups: int) -> float:
     return float(h * distributed.spatial_info()[1] * w * (c // num_groups))
 
 
-_SPLIT_STATS_ARGS = [_P, _P, _P] + [_I] * 5 + [_P]
+_SPLIT_STATS_ARGS = [_P] * 4 + [_I] * 7 + [_P]
 _SPLIT_APPLY_ARGS = [_P, _P, _P, _P, _I, _P, _I] + [_I] * 4 + [
     ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
 _SPLIT_PART_ARGS = [_P, _P, _P, _P, _I, _P, _I] + [_P] * 5 + [_I] * 4 + [
     ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
 _SPLIT_DX_ARGS = [_P] * 6 + [_I, _P, _I] + [_I] * 4 + [
     ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
-_SPLIT_ROWS = 64  # pixels a block of the stats and partials reduces
+_SPLIT_ROWS = 64  # pixels a block of the partials reduces
 
 
 def _split_kernel_args(what: str, x, scale, bias, num_groups: int):
@@ -604,19 +660,19 @@ def group_norm_split_stats(x, num_groups: int):
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_split_stats: no path for {x.device}")
     b, h, w, c = x.shape
-    ones = torch.ones(c, dtype=torch.float32, device=x.device)
-    _split_kernel_args("group_norm_split_stats", x, ones, ones, num_groups)
-    nch = -(-(h * w) // _SPLIT_ROWS)
-    part = torch.empty(b * nch * num_groups * 2, dtype=torch.float32,
-                       device=x.device)
+    _split_kernel_args("group_norm_split_stats", x, None, None, num_groups)
+    plan = plan_split_stats(b, h * w, c, num_groups, x.dtype)
+    part = torch.empty(plan["scratch"], dtype=torch.float32, device=x.device)
+    done = None if plan["chunks"] == 1 else _done_counts(
+        x.device, "group_norm_split_stats").data_ptr()
     out = torch.empty((b, num_groups, 2), dtype=torch.float32,
                       device=x.device)
     lib = _lib("group_norm_fwd.cu", "psld_gn_split_stats", _SPLIT_STATS_ARGS)
     with torch.cuda.device(x.device):
         err = lib.psld_gn_split_stats(
-            x.data_ptr(), part.data_ptr(), out.data_ptr(), b, h * w, c,
-            c // num_groups, _BF16[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), part.data_ptr() or None, out.data_ptr(), done, b,
+            h * w, c, c // num_groups, plan["rows"], plan["vec"],
+            _BF16[x.dtype], torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "group_norm_split_stats kernel launch")
     group_norm_split_stats.launches += 1
     return out

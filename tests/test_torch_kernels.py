@@ -12,8 +12,11 @@ GroupNorm backward over a cluster of blocks at H*W = 1024, one capture
 and replay of each redesigned kernel in a CUDA graph, rows and channels of the
 fused bias + leaky ReLU that fit no vector width, the GroupNorm kernels
 under ``gn_bf16`` against the plain version's bf16 chain, the GroupNorm
-variant of the legacy normalizers at its edge widths, and the inputs
-the wrappers refuse (a misaligned x among them). They need a
+variant of the legacy normalizers at its edge widths, the strided
+dropout at ragged image slices and the split GroupNorm stats at widths
+with and without whole 16-byte pieces (bit-equal from launch to launch,
+one kernel a call), and the inputs the wrappers refuse (a misaligned x
+among them). They need a
 CUDA device (the CUDA source is built for sm_90a) and skip without one:
 
     python -m pytest -m cuda --noconftest tests/test_torch_kernels.py
@@ -788,6 +791,101 @@ def test_hash_dropout_kernel_on_height_slices(card, shape, spatial_n, row,
         (dx,) = torch.autograd.grad(got, part, ct)
         assert torch.equal(dx, ops.hash_dropout_plain(
             ct, seed, rate, elem_off=off, image=image))
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("images,whole,start,local,base", [
+    (4, 1024, 0, 384, 0),            # elem_off % 128 == 0, Gi of whole rows
+    (4, 1000, 1, 300, 0),            # elem_off % 128 == 1, ragged Gi
+    (3, 1024, 127, 500, 128 * 9),    # elem_off % 128 == 127, one lead
+    (5, 333, 10, 50, 7),             # L below 128 and no multiple of it
+    (6, 256, 64, 100, 384),          # L below 128 over whole-row images
+    (1, 4096, 1000, 2000, 5),        # one image
+    (6, 512, 100, 300, 2 ** 32 - 1500),  # positions wrap past 2**32
+], ids=["off0", "off1", "off127", "short", "short_rows", "one_image",
+        "wrap"])
+def test_hash_dropout_strided_launch_edges(card, images, whole, start, local,
+                                           base, dtype):
+    """The strided launch (``image = (L, Gi)``) on the slice [start, start
+    + L) of each of ``images`` runs of Gi positions from ``base``: the
+    whole tensor's mask sliced and the plain version, bit for bit,
+    forward and backward, one launch each way."""
+    x = rand((images, whole), 7, dtype, card)
+    seed, rate = [31337, 4000000007], 0.3
+    want_whole = ops.hash_dropout(x, seed, rate, elem_off=base)
+    part = x[:, start:start + local].contiguous().requires_grad_()
+    off = (base + start) & 0xFFFFFFFF
+    image = (local, whole)
+    n = ops.hash_dropout.launches
+    got = ops.hash_dropout(part, seed, rate, elem_off=off, image=image)
+    assert ops.hash_dropout.launches == n + 1
+    assert torch.equal(got, want_whole[:, start:start + local])
+    assert torch.equal(got, ops.hash_dropout_plain(
+        part.detach(), seed, rate, elem_off=off, image=image))
+    ct = rand(part.shape, 8, dtype, card)
+    (dx,) = torch.autograd.grad(got, part, ct)
+    assert ops.hash_dropout.launches == n + 2
+    assert torch.equal(dx, ops.hash_dropout_plain(
+        ct, seed, rate, elem_off=off, image=image))
+
+
+@pytest.mark.parametrize("dtype", list(TOL), ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("c,groups", [(3, 1), (12, 4), (129, 3), (256, 32),
+                                      (1024, 32)])
+def test_group_norm_split_stats_kernel_edges(card, c, groups, dtype):
+    """The split stats at widths with and without whole 16-byte pieces
+    (C = 3, 12 and 129 take the scalar path in bf16), over 1 to 32,768
+    pixels: within 1e-5 of the plain sums' scale (f32 sums in another
+    order), two launches bit-equal (the chunks' partials are added in a
+    fixed order), one counted launch a call."""
+    from psld_tpu_torch.ops import group_norm as gn
+
+    for b, hw in ((2, 1), (3, 7), (2, 64), (1, 100), (8, 2048),
+                  (2, 32768)):
+        x = rand((b, hw, 1, c), hw, dtype, card, scale=2.0, shift=0.5)
+        n = gn.group_norm_split_stats.launches
+        got = gn.group_norm_split_stats(x, groups)
+        again = gn.group_norm_split_stats(x, groups)
+        assert gn.group_norm_split_stats.launches == n + 2
+        want = gn.group_norm_split_stats_plain(x, groups)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (b, hw, err)
+        assert torch.equal(got, again), (b, hw)
+
+
+@pytest.mark.parametrize("hw", [8, 32768], ids=["one_chunk", "chunks"])
+def test_group_norm_split_stats_is_one_kernel_launch(card, hw):
+    """One call of the split stats runs one kernel on the card (the
+    chunks' partials are folded by the launch's last block), whether the
+    planner gives one chunk a batch element or many; a CUDA graph of it
+    replays to the same sums."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from psld_tpu_torch.ops import group_norm as gn
+
+    x = rand((8, hw, 1, 256), 0, torch.bfloat16, card)
+    want = gn.group_norm_split_stats(x, 32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gn.group_norm_split_stats(x, 32)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    assert len(kernels) == 1 and "gn_split_stats" in kernels[0], kernels
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gn.group_norm_split_stats(x, 32)  # the counts' buffer, off capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = gn.group_norm_split_stats(x, 32)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 # -- the GroupNorm variant of the legacy normalizers -------------------------
