@@ -138,7 +138,8 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     from it equal, no kernel of the port launched; Inception's images/s
     at batch 64.
 30. sweep: ``cli.sweep_fid_nfe`` of the VP-SDE checkpoint over em_sde and
-    ei_ode at 20 NFE, 64 samples a point, FID against the
+    ei_ode at 20 NFE (each record takes a host square root of 10 to 25 s),
+    64 samples a point, FID against the
     synthetic PNGs with a fake ``pt_inception`` checkpoint (random values
     from a numpy seed): every record has a finite ``fid`` and no
     ``quality_error``.
@@ -214,7 +215,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     attention blocks' gathered map, where they run under spatial
     parallelism; the strided hash dropout (a rank's height slice, ``image =
     (L, Gi)``) at AFHQv2 128's dropout shapes at half height, bit for bit
-    against the whole tensor's dropout sliced and its plain version.
+    against the whole tensor's dropout sliced and its plain version; one
+    kernel a stats call and a partials call (``torch.profiler``). Then
+    routes: an ``AttnBlock`` at 1,024 tokens and a ``GroupNormAct`` at
+    C = 2,048, shapes the kernels refuse, run the plain versions (no
+    attention kernel, no kernel at all), card against CPU.
 43. spatial2: two ranks of ``cli.train_sde`` on the one card (gloo),
     CelebA-HQ 256 at full width with ``training.spatial=2`` (one image's
     height split over the two), batch 8, 3 steps: in float32 the state
@@ -368,8 +373,10 @@ VP_PARAMS = 61_804_419
 VP_ARGS = ["+dataset=cifar10/cifar10_vpsde",
            "dataset.diffusion.data.root=/unused",
            "+dataset.diffusion.model.score_fn.gn_bf16=True"]
-# the sweep's NFEs (each sampler at each) and samples a point
-SWEEP_NFES = (20, 50)
+# the sweep's samplers and NFEs (each sampler at each): a record's FID
+# takes a host SciPy square root of 10 to 25 s, so the depth is one NFE
+SWEEP_SAMPLERS = ("em_sde", "ei_ode")
+SWEEP_NFES = (20,)
 
 # CelebA-HQ 256 (celebahq256_psld.yaml at full width: nf 128, ch_mult
 # [1,1,2,2,2,2,2], 2 BigGAN blocks a level, attention at 16^2, Fourier
@@ -562,22 +569,33 @@ def device_ms(fn, launches: int = 10, replays: int = 3) -> float:
     return start.elapsed_time(end) / (launches * replays)
 
 
-# one call of the split stats at each (batch, rows, width, C, G) of argv[1]
-# under torch.profiler, in a process of its own (a second profiler session
+# one call of each split entry of argv[1] ("stats", "partials") at each
+# (batch, rows, width, C, G) of argv[2], entry after entry, under one
+# torch.profiler session in a process of its own (a second profiler session
 # in one process may record no device activity, and the smoke's
 # [celebahq_train] traces its own window): prints the kernels' names
-_STATS_KERNELS_SCRIPT = """
+_SPLIT_KERNELS_SCRIPT = """
 import json, sys, torch
 from torch.profiler import ProfilerActivity, profile
 from psld_tpu_torch.ops import group_norm as gn
-xs = [(torch.randn(b, h, w, c, device="cuda").bfloat16(), g)
-      for b, h, w, c, g in json.loads(sys.argv[1])]
-for x, g in xs:
-    gn.group_norm_split_stats(x, g)
+calls = []
+for entry in json.loads(sys.argv[1]):
+    for b, h, w, c, g in json.loads(sys.argv[2]):
+        x = torch.randn(b, h, w, c, device="cuda").bfloat16()
+        if entry == "stats":
+            calls.append(lambda x=x, g=g: gn.group_norm_split_stats(x, g))
+            continue
+        args = (x, torch.randn_like(x), torch.ones(c, device="cuda"),
+                torch.zeros(c, device="cuda"),
+                gn.group_norm_split_stats(x, g), float(h * w * (c // g)), g,
+                1e-6, "swish")
+        calls.append(lambda args=args: gn.group_norm_split_partials(*args))
+for call in calls:
+    call()
 torch.cuda.synchronize()
 with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    for x, g in xs:
-        gn.group_norm_split_stats(x, g)
+    for call in calls:
+        call()
     torch.cuda.synchronize()
 print(json.dumps([e.name for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
@@ -586,15 +604,17 @@ print(json.dumps([e.name for e in prof.events()
 """
 
 
-def stats_kernels(shapes) -> list:
-    """The kernels that one split-stats call at each of ``shapes`` runs on
-    the card, in a fresh process (``_STATS_KERNELS_SCRIPT``)."""
+def split_kernels(entries, shapes) -> list:
+    """The kernels that one call of each split entry of ``entries``
+    ("stats", "partials") at each of ``shapes`` runs on the card, in
+    order, in a fresh process (``_SPLIT_KERNELS_SCRIPT``)."""
     proc = subprocess.run(
-        [sys.executable, "-c", _STATS_KERNELS_SCRIPT, json.dumps(shapes)],
+        [sys.executable, "-c", _SPLIT_KERNELS_SCRIPT, json.dumps(entries),
+         json.dumps(shapes)],
         cwd=REPO, env={**os.environ, "PYTHONPATH": REPO}, text=True,
         capture_output=True, timeout=300)
-    check(proc.returncode == 0, "the split stats' profiler process failed: "
-          + proc.stdout[-2000:] + proc.stderr[-2000:])
+    check(proc.returncode == 0, "the split entries' profiler process "
+          "failed: " + proc.stdout[-2000:] + proc.stderr[-2000:])
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
@@ -674,7 +694,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     srcs = ["attention.cu", "fused_act.cu", "group_norm_bwd.cu",
-            "group_norm_fwd.cu"]
+            "group_norm_fwd.cu", "group_norm_split_bwd.cu"]
     build.build_all(srcs)  # one nvcc per source, started together
     for src in srcs:
         build.load(src)
@@ -2654,8 +2674,9 @@ def phase_fid(card, work, samples, reference):
 
 
 def phase_sweep(card, work, ckpt, reference, weights_path):
-    """``cli.sweep_fid_nfe`` of the VP-SDE checkpoint over em_sde and
-    ei_ode at ``SWEEP_NFES`` each (uniform grid), 64 samples a point, bf16,
+    """``cli.sweep_fid_nfe`` of the VP-SDE checkpoint over
+    ``SWEEP_SAMPLERS`` at ``SWEEP_NFES`` each (uniform grid), 64 samples a
+    point, bf16,
     FID against ``reference`` with the fake Inception checkpoint: every
     record has a finite ``fid`` and no ``quality_error``, each record (the
     first stride of its (sampler, NFE)) is marked ``includes_compile`` as
@@ -2668,7 +2689,7 @@ def phase_sweep(card, work, ckpt, reference, weights_path):
     reset_counts()
     t0 = time.perf_counter()
     records = sweep_cli.main([
-        "--samplers", "em_sde,ei_ode", "--nfes",
+        "--samplers", ",".join(SWEEP_SAMPLERS), "--nfes",
         ",".join(str(v) for v in SWEEP_NFES), "--strides", "uniform",
         "--out-dir", out, "--ref-dir", reference, "--weights", weights_path,
         "--fid-batch", str(BATCH)] + VP.args + [
@@ -2680,14 +2701,15 @@ def phase_sweep(card, work, ckpt, reference, weights_path):
         "+dataset.diffusion.evaluation.device=cuda"])
     wall = time.perf_counter() - t0
     n = all_counts()
-    check(len(records) == 2 * len(SWEEP_NFES), f"sweep: {records}")
+    check(len(records) == len(SWEEP_SAMPLERS) * len(SWEEP_NFES),
+          f"sweep: {records}")
     for rec in records:
         check("quality_error" not in rec and np.isfinite(rec.get("fid",
                                                                np.nan))
               and rec["n_samples"] == BATCH, f"sweep record {rec}")
     check([r["includes_compile"] for r in records] == [True] * len(records),
           f"sweep: includes_compile {records}")
-    forwards = 2 * sum(SWEEP_NFES)
+    forwards = len(SWEEP_SAMPLERS) * sum(SWEEP_NFES)
     want = VP.fwd_counts(forwards)
     check(n == want, f"sweep launched {n}, expected {want}")
     for rec in records:
@@ -4035,6 +4057,7 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
     lib = lib_stats = 0.0
     rows = []
     one_launch = []
+    f32_err = {"partials": 0.0, "dx": 0.0}
     t0 = time.perf_counter()
     for hw, c, n_calls in calls:
         s = int(round(hw ** 0.5))
@@ -4085,11 +4108,13 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
                                  (db, wdb, "dbias")):
                     ref = max(float(b.abs().max()), 1e-30)
                     e = max_err(a, b) / ref
-                    check(e <= 1e-3, f"{what}: partials {nm} {e:.3e} of "
-                          "scale")
+                    check(e <= (1e-5 if dt == torch.float32 else 1e-3),
+                          f"{what}: partials {nm} {e:.3e} of scale")
                     if gn16:
                         out["partials"]["max_abs_err"] = max(
                             out["partials"]["max_abs_err"], e)
+                    else:
+                        f32_err["partials"] = max(f32_err["partials"], e)
                 ys.append(y)
                 ps.append(p)
                 dss.append(ds)
@@ -4108,6 +4133,8 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
                 if gn16:
                     out["dx"]["max_abs_err"] = max(out["dx"]["max_abs_err"],
                                                    e)
+                else:
+                    f32_err["dx"] = max(f32_err["dx"], e)
                 dxs.append(dx)
             # two shards combined against the fused kernels on the whole map
             y_whole = ops.group_norm_act(xw, sc, bi, g, 1e-6, "swish")
@@ -4181,7 +4208,8 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
     say(f"[{tag}] split GroupNorm entries == plain at all {len(calls)} "
         f"CelebA-HQ 256 split shapes (a shard of {SPATIAL}), B={batch} "
         f"(f32 1e-5, "
-        f"bf16+gn_bf16 1e-2; stats and partials 1e-5 and 1e-3 of scale), "
+        f"bf16+gn_bf16 1e-2; stats 1e-5, partials 1e-5 (f32) and 1e-3 "
+        f"(bf16) of scale), "
         f"and {SPATIAL} shards' sums == the fused kernels on the whole map "
         f"(f32 2e-5, bf16 2e-2 of scale), forward and backward, in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -4193,19 +4221,26 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
                         for i, k in enumerate(names))
             + f"; torch.var_mean {ls_ms:.4f}; F.group_norm+F.silu "
             f"{l_ms:.4f}")
-    # the stats are one kernel a call, the chunks' partials folded in the
-    # launch: a call at the largest shard and one at the smallest
-    ran = stats_kernels(one_launch)
-    check(len(ran) == len(one_launch)
-          and all("gn_split_stats" in k for k in ran),
-          f"split stats: the kernels of one call at each of {one_launch} "
-          f"(B, rows, W, C, G): {ran}")
+    # the stats and the partials are one kernel a call, the chunks' (and
+    # the batch elements') partials folded in the launch: a call at the
+    # largest shard and one at the smallest
+    entries = ["stats", "partials"]
+    ran = split_kernels(entries, one_launch)
+    want = [e for e in entries for _ in one_launch]
+    check(len(ran) == len(want)
+          and all(f"gn_split_{e}" in k for e, k in zip(want, ran)),
+          f"split stats and partials: the kernels of one call at each of "
+          f"{one_launch} (B, rows, W, C, G): {ran}")
     st = out["stats"]
-    say(f"[{tag}]   stats: one kernel a call (torch.profiler, shards "
-        + ", ".join(f"{h * w}x{c}" for _, h, w, c, _ in one_launch) + "); "
-        f"{st['bound_ms'] / st['ms']:.3f} of its "
+    say(f"[{tag}]   stats and partials: one kernel a call (torch.profiler, "
+        "shards " + ", ".join(f"{h * w}x{c}" for _, h, w, c, _ in one_launch)
+        + "); stats " f"{st['bound_ms'] / st['ms']:.3f} of its "
         f"bound, {st['library_ms'] / st['ms']:.2f}x faster than "
-        "torch.var_mean")
+        "torch.var_mean; partials "
+        f"{out['partials']['bound_ms'] / out['partials']['ms']:.3f}, dx "
+        f"{out['dx']['bound_ms'] / out['dx']['ms']:.3f} of their bounds; "
+        "worst f32 error of scale: partials "
+        f"{f32_err['partials']:.3e}, dx {f32_err['dx']:.3e}")
     for k in names:
         say(f"[{tag}]   {k} per CelebA-HQ {'forward' if k in ('stats', 'apply') else 'backward'} "
             f"({sum(n for _, _, n in calls)} calls): kernel "
@@ -4222,6 +4257,68 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
                                       net=where, tag=tag)
     out["dropout"] = _strided_dropout(card, tag)
     return out
+
+
+def phase_routes(card, tag="routes"):
+    """[routes]: shapes the kernels refuse run the plain versions in the
+    model layers, chosen by shape before any launch, as the JAX package's
+    dispatchers fall back: an ``AttnBlock`` at N = 1,024 tokens (32 x 32,
+    C = 256; the attention kernel takes N <= 256) launches its GroupNorm's
+    kernels once each way and no attention kernel, a ``GroupNormAct``
+    (swish) at C = 2,048 (past the GroupNorm kernels' 1,024) launches
+    nothing. Forward and gradients into x and every parameter, f32, within
+    1e-4 of the scale of the CPU's (the plain chain; a gradient's scale
+    floored at 1e-3 of the largest gradient's), B=2."""
+    from psld_tpu_torch import ops
+    from psld_tpu_torch.models.layers import AttnBlock, GroupNormAct
+
+    def launches():
+        return [ops.group_norm_act.launches,
+                ops.group_norm_act_backward.launches, ops.attention.launches,
+                ops.group_norm_split_stats.launches,
+                ops.group_norm_split_partials.launches]
+
+    t0 = time.perf_counter()
+    torch.manual_seed(11)
+    rng = np.random.default_rng(11)
+    gna = GroupNormAct(2048, "swish")
+    with torch.no_grad():
+        gna.scale.normal_(1.0, 0.1)
+        gna.bias.normal_(0.0, 0.1)
+    cases = [("AttnBlock N=1024 C=256", AttnBlock(256, init_scale=0.1),
+              (2, 256, 32, 32), [1, 1, 0, 0, 0]),
+             ("GroupNormAct C=2048", gna, (2, 2048, 8, 8), [0] * 5)]
+    worst = 0.0
+    for name, mod, shape, want in cases:
+        x = torch.from_numpy((rng.standard_normal(shape) * 2 + 0.5).astype(
+            np.float32))
+        ct = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        res = []
+        for dev in ("cpu", "cuda"):
+            m = mod.to(dev)
+            xi = x.to(dev).requires_grad_()
+            n = launches()
+            y = m(xi)
+            grads = torch.autograd.grad(y, [xi, *m.parameters()], ct.to(dev))
+            torch.cuda.synchronize()
+            ran = [a - b for a, b in zip(launches(), n)]
+            res.append([t.detach().cpu() for t in (y, *grads)])
+        check(ran == want, f"[{tag}] {name}: launches (gn, gn_bwd, "
+              f"attention, split stats, split partials) {ran}, want {want}")
+        # a gradient's scale floored at 1e-3 of the largest gradient's: the
+        # keys' bias has a gradient of 0 up to rounding
+        top = max(float(r.abs().max()) for r in res[0][1:])
+        for i, (got, ref) in enumerate(zip(res[1], res[0])):
+            e = max_err(got, ref) / max(float(ref.abs().max()),
+                                        1e-3 * top if i else 1e-30)
+            check(e <= 1e-4, f"[{tag}] {name}: {e:.3e} of scale from the "
+                  "plain chain on the CPU")
+            worst = max(worst, e)
+        say(f"[{tag}] {name}: launches (gn, gn_bwd, attention, split stats, "
+            f"split partials) {ran}")
+    say(f"[{tag}] refused shapes run the plain versions in the layers: "
+        f"forward and gradients within {worst:.3e} of scale of the CPU's "
+        f"(gate 1e-4, f32), in {time.perf_counter() - t0:.1f} s; {card}")
 
 
 def _strided_dropout(card, tag, batch=AFHQ_BATCH, calls=AFHQ_DROPOUT_CALLS,
@@ -5009,6 +5106,8 @@ def main() -> int:
     # the split entries of spatial parallelism at CelebA-HQ's shapes at
     # half height, and the dropout of a height slice at AFHQv2's
     split = phase_spatial_kernels(card)
+    # the shapes the kernels refuse, routed to the plain versions
+    phase_routes(card)
     # the GroupNorm variant of the legacy normalizers (no activation) at
     # the shapes of NCSNv2's encoder at batch 128
     gn["legacy128"] = phase_gn(card, LEGACY_BATCH, LEGACY_GN_CALLS,
@@ -5312,8 +5411,8 @@ def main() -> int:
               f"psld_tpu_torch/csrc/group_norm_{src}.cu",
               f"psld_tpu/ops/group_norm.py:{line}", split_basis)
           for k, src, line in (("stats", "fwd", 67), ("apply", "fwd", 67),
-                               ("partials", "bwd", 125),
-                               ("dx", "bwd", 125))],
+                               ("partials", "split_bwd", 125),
+                               ("dx", "split_bwd", 125))],
         row("fused_leaky_relu", "cuda", "psld_tpu_torch/csrc/fused_act.cu",
             "psld_tpu/ops/fused_act.py:23", fused_basis, fused["fwd"]),
         row("fused_leaky_relu_bwd", "cuda",

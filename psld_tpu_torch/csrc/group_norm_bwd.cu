@@ -74,26 +74,9 @@
 // blocks of an SM overlap those phases. A block alone skips the
 // cluster's barriers, which cost more than its own.
 //
-// Split entry points, for an image whose height is split over the ranks
-// of a spatial group (psld_tpu_torch/parallel/spatial.py), from the
-// global sums of x and x^2 the forward saved (no moment is recomputed
-// from the local pixels); they launch only under spatial parallelism:
-//   - psld_gn_split_partials writes each (n, group)'s f32 sums P1 =
-//     sum(dd) and P2 = sum(dxh * d) over the local pixels, with d = x -
-//     mean, dxh = dz * scale and dd = dxh * rstd (under gn_bf16, the
-//     chain's roundings of each), into an (N, G, 2) buffer, and dscale
-//     = sum(dz * xh) and dbias = sum(dz) over the local pixels of the
-//     whole batch. Blocks as psld_gn_split_stats's; per-chunk partials
-//     added in a fixed order by a second kernel (groups) and a third
-//     (channels, over the batch and the chunks). The host all-reduces
-//     the (N, G, 2) sums over the group; dscale and dbias enter the
-//     training step's gradient reduction;
-//   - psld_gn_split_dx computes dx = dd + (-P1 + 2 d dvar) / n with
-//     dvar = -rstd^3 P2 / 2 (0 where the variance was clamped), one
-//     element a thread; under gn_bf16, dx = bf16(dd + bf16(the f32
-//     term)), as autograd through the plain chain rounds it.
-// Bound: partials read x and g, dx reads them again and writes dx: four
-// reads and one write. Right first: scalar loads, one element a thread.
+// The split entry points of spatial parallelism (psld_gn_split_partials,
+// psld_gn_split_dx) are in csrc/group_norm_split_bwd.cu, a library of
+// their own, built beside this one.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -104,6 +87,7 @@
 #include <type_traits>
 
 #include "async_copy.cuh"
+#include "group_norm_bwd.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -144,29 +128,6 @@ struct Piece<__nv_bfloat16> {
   }
 };
 
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// g * act'(z); 0 none, 1 swish, 2 relu, 3 elu, 4 leaky relu (0.2). The
-// exponential and the reciprocal take the special-function unit's
-// approximations (2 ulp), as the Triton kernel before this one did:
-// recomputed twice an element, they would otherwise bound the kernel.
-template <int ACT>
-__device__ __forceinline__ float dz_of(float g, float z) {
-  if (ACT == 1) {
-    const float sig = __fdividef(1.f, 1.f + __expf(-z));
-    return g * (sig * (1.f + z * (1.f - sig)));
-  } else if (ACT == 2) {
-    return z > 0.f ? g : 0.f;
-  } else if (ACT == 3) {
-    return z > 0.f ? g : g * __expf(z);
-  } else if (ACT == 4) {
-    return z > 0.f ? g : 0.2f * g;
-  }
-  return g;
-}
-
 // the bf16 chain of a pair of channels in bf16 pair arithmetic, each
 // operation rounded once as PyTorch's bf16 operations are: xh =
 // bf16(bf16(x - mb) * rb), z = bf16(bf16(xh * sb) + bb), dz = bf16(g *
@@ -181,11 +142,6 @@ __device__ __forceinline__ void chain_pair(uint32_t x, uint32_t g,
       psld::unpack_bf16(psld::add_bf16x2(psld::mul_bf16x2(xh, sc), bi));
   const float2 gf = psld::unpack_bf16(g);
   dz = psld::pack_bf16(dz_of<ACT>(gf.x, z.x), dz_of<ACT>(gf.y, z.y));
-}
-
-__device__ __forceinline__ float load_param(const void* p, int bf16, int i) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
 }
 
 // bytes of shared memory for ``res`` resident rows of an S-channel slice
@@ -653,337 +609,6 @@ int psld_gn_bwd(const void* x, const void* g, void* dx, const void* scale,
 
 const char* psld_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-}  // extern "C"
-
-namespace {
-
-constexpr int SPLIT_THREADS = 256;
-constexpr int SPLIT_ROWS = 64;     // pixels a block of the partials reduces
-
-template <typename T>
-__device__ __forceinline__ float elem_f(T v) {
-  if constexpr (std::is_same<T, float>::value) return v;
-  else return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T to_elem(float v) {
-  if constexpr (std::is_same<T, float>::value) return v;
-  else return __float2bfloat16_rn(v);
-}
-
-struct Moments {
-  float mean, rs, dvar_scale;   // dvar_scale: -rstd^3 / 2, 0 if clamped
-};
-
-__device__ __forceinline__ Moments moments_of(const float* sm, float inv_n,
-                                              float eps) {
-  const float mean = sm[0] * inv_n;
-  const float raw = sm[1] * inv_n - mean * mean;
-  const float rs = rsqrtf(fmaxf(raw, 0.f) + eps);
-  return {mean, rs, raw >= 0.f ? -0.5f * rs * rs * rs : 0.f};
-}
-
-// the chain of one element: d = x - mean, dz, dxh = dz * scale, dd = dxh
-// * rstd and xh, with the gn_bf16 roundings under CHAIN
-template <int ACT, bool CHAIN>
-__device__ __forceinline__ void split_chain(float v, float gv, float mean,
-                                            float rs, float sc, float bi,
-                                            float& d, float& xh, float& dz,
-                                            float& dxh, float& dd) {
-  if (CHAIN) {
-    const float rb = bf16r(rs), sb = bf16r(sc);
-    d = bf16r(v - bf16r(mean));
-    xh = bf16r(d * rb);
-    const float z = bf16r(bf16r(xh * sb) + bf16r(bi));
-    dz = bf16r(dz_of<ACT>(gv, z));
-    dxh = bf16r(dz * sb);
-    dd = bf16r(dxh * rb);
-  } else {
-    d = v - mean;
-    xh = d * rs;
-    dz = dz_of<ACT>(gv, xh * sc + bi);
-    dxh = dz * sc;
-    dd = dxh * rs;
-  }
-}
-
-// block (chunk, n): per channel sums of dz * xh, dz, dd and dxh * d over
-// pixels [chunk * SPLIT_ROWS, +SPLIT_ROWS) of batch element n ->
-// cpart[n][chunk][c][2] (dscale, dbias), gpart[n][chunk][g][2] (P1, P2)
-template <typename T, int ACT, bool CHAIN>
-__global__ void __launch_bounds__(SPLIT_THREADS)
-gn_split_partials_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                         const float* __restrict__ sums,
-                         const void* __restrict__ scale, int scale_bf16,
-                         const void* __restrict__ bias, int bias_bf16,
-                         float* __restrict__ cpart, float* __restrict__ gpart,
-                         int hw, int c, int cgrp, float inv_n, float eps) {
-  __shared__ float sh[4][1024];
-  const int n = blockIdx.y, chunk = blockIdx.x, nch = gridDim.x;
-  const int ng = c / cgrp;
-  const int tx_n = c < SPLIT_THREADS ? c : SPLIT_THREADS;
-  const int ry = SPLIT_THREADS / tx_n;
-  const int tx = threadIdx.x % tx_n, ty = threadIdx.x / tx_n;
-  const int p0 = chunk * SPLIT_ROWS;
-  const int p1 = min(hw, p0 + SPLIT_ROWS);
-  const size_t base = (size_t)n * hw * c;
-  if (ty < ry) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int ch = tx + k * tx_n;
-      if (ch >= c) continue;
-      const Moments m = moments_of(sums + ((size_t)n * ng + ch / cgrp) * 2,
-                                   inv_n, eps);
-      const float sc = load_param(scale, scale_bf16, ch);
-      const float bi = load_param(bias, bias_bf16, ch);
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      for (int p = p0 + ty; p < p1; p += ry) {
-        const size_t i = base + (size_t)p * c + ch;
-        float d, xh, dz, dxh, dd;
-        split_chain<ACT, CHAIN>(elem_f(x[i]), elem_f(g[i]), m.mean, m.rs, sc,
-                                bi, d, xh, dz, dxh, dd);
-        a0 += CHAIN ? bf16r(dz * xh) : dz * xh;
-        a1 += dz;
-        a2 += dd;
-        a3 += dxh * d;
-      }
-      sh[0][ty * c + ch] = a0;
-      sh[1][ty * c + ch] = a1;
-      sh[2][ty * c + ch] = a2;
-      sh[3][ty * c + ch] = a3;
-    }
-  }
-  __syncthreads();
-  for (int ch = threadIdx.x; ch < c; ch += SPLIT_THREADS) {
-    float a = 0.f, b = 0.f;
-    for (int r = 0; r < ry; ++r) {
-      a += sh[0][r * c + ch];
-      b += sh[1][r * c + ch];
-    }
-    float* o = cpart + (((size_t)n * nch + chunk) * c + ch) * 2;
-    o[0] = a;
-    o[1] = b;
-  }
-  for (int gi = threadIdx.x; gi < ng; gi += SPLIT_THREADS) {
-    float a = 0.f, b = 0.f;
-    for (int r = 0; r < ry; ++r)
-      for (int j = 0; j < cgrp; ++j) {
-        a += sh[2][r * c + gi * cgrp + j];
-        b += sh[3][r * c + gi * cgrp + j];
-      }
-    float* o = gpart + (((size_t)n * nch + chunk) * ng + gi) * 2;
-    o[0] = a;
-    o[1] = b;
-  }
-}
-
-// thread (n, g): the chunks' (P1, P2) added in chunk order -> p[n][g]
-__global__ void gn_split_fold_groups(const float* __restrict__ gpart,
-                                     float* __restrict__ p, int b, int nch,
-                                     int ng) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= b * ng) return;
-  const int n = i / ng, gi = i % ng;
-  float a = 0.f, v = 0.f;
-  for (int ch = 0; ch < nch; ++ch) {
-    const float* q = gpart + (((size_t)n * nch + ch) * ng + gi) * 2;
-    a += q[0];
-    v += q[1];
-  }
-  p[(size_t)i * 2] = a;
-  p[(size_t)i * 2 + 1] = v;
-}
-
-// thread c: dscale and dbias over the batch and the chunks, in order
-__global__ void gn_split_fold_params(const float* __restrict__ cpart,
-                                     void* __restrict__ dscale,
-                                     int scale_bf16, void* __restrict__ dbias,
-                                     int bias_bf16, int b, int nch, int c) {
-  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ch >= c) return;
-  float a = 0.f, v = 0.f;
-  for (int n = 0; n < b; ++n)
-    for (int k = 0; k < nch; ++k) {
-      const float* q = cpart + (((size_t)n * nch + k) * c + ch) * 2;
-      a += q[0];
-      v += q[1];
-    }
-  if (scale_bf16)
-    static_cast<__nv_bfloat16*>(dscale)[ch] = __float2bfloat16_rn(a);
-  else
-    static_cast<float*>(dscale)[ch] = a;
-  if (bias_bf16)
-    static_cast<__nv_bfloat16*>(dbias)[ch] = __float2bfloat16_rn(v);
-  else
-    static_cast<float*>(dbias)[ch] = v;
-}
-
-// one element a thread: dx from the global sums and the global (P1, P2)
-template <typename T, int ACT, bool CHAIN>
-__global__ void __launch_bounds__(SPLIT_THREADS)
-gn_split_dx_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                   T* __restrict__ dx, const float* __restrict__ sums,
-                   const float* __restrict__ p,
-                   const void* __restrict__ scale, int scale_bf16,
-                   const void* __restrict__ bias, int bias_bf16,
-                   long long total, long long hwc, int c, int cgrp,
-                   float inv_n, float eps) {
-  const int ng = c / cgrp;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long n = i / hwc;
-    const int ch = (int)(i % c);
-    const size_t gi = ((size_t)n * ng + ch / cgrp) * 2;
-    const Moments m = moments_of(sums + gi, inv_n, eps);
-    const float sc = load_param(scale, scale_bf16, ch);
-    const float bi = load_param(bias, bias_bf16, ch);
-    float d, xh, dz, dxh, dd;
-    const float v = elem_f(x[i]);
-    split_chain<ACT, CHAIN>(v, elem_f(g[i]), m.mean, m.rs, sc, bi, d, xh, dz,
-                            dxh, dd);
-    const float dvar = m.dvar_scale * p[gi + 1];
-    const float corr = (2.f * (v - m.mean) * dvar - p[gi]) * inv_n;
-    dx[i] = to_elem<T>(CHAIN ? bf16r(dd + bf16r(corr)) : dd + corr);
-  }
-}
-
-int split_grid(long long total) {
-  const long long blocks = (total + SPLIT_THREADS - 1) / SPLIT_THREADS;
-  return (int)(blocks < 132 * 32 ? blocks : 132 * 32);
-}
-
-template <typename T, bool CHAIN>
-int split_partials(int act, const void* x, const void* g, const float* sums,
-                   const void* scale, int sbf, const void* bias, int bbf,
-                   float* cpart, float* gpart, int b, int hw, int c,
-                   int cgrp, float inv_n, float eps, cudaStream_t st) {
-  const dim3 grid((hw + SPLIT_ROWS - 1) / SPLIT_ROWS, b);
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-#define PSLD_PART(A)                                                          \
-  gn_split_partials_kernel<T, A, CHAIN><<<grid, SPLIT_THREADS, 0, st>>>(     \
-      xt, gt, sums, scale, sbf, bias, bbf, cpart, gpart, hw, c, cgrp, inv_n, \
-      eps);                                                                   \
-  break
-  switch (act) {
-    case 0: PSLD_PART(0);
-    case 1: PSLD_PART(1);
-    case 2: PSLD_PART(2);
-    case 3: PSLD_PART(3);
-    case 4: PSLD_PART(4);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef PSLD_PART
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool CHAIN>
-int split_dx(int act, const void* x, const void* g, void* dx,
-             const float* sums, const float* p, const void* scale, int sbf,
-             const void* bias, int bbf, long long total, long long hwc, int c,
-             int cgrp, float inv_n, float eps, cudaStream_t st) {
-  const int grid = split_grid(total);
-  const T* xt = static_cast<const T*>(x);
-  const T* gt = static_cast<const T*>(g);
-  T* dt = static_cast<T*>(dx);
-#define PSLD_DX(A)                                                           \
-  gn_split_dx_kernel<T, A, CHAIN><<<grid, SPLIT_THREADS, 0, st>>>(          \
-      xt, gt, dt, sums, p, scale, sbf, bias, bbf, total, hwc, c, cgrp,      \
-      inv_n, eps);                                                          \
-  break
-  switch (act) {
-    case 0: PSLD_DX(0);
-    case 1: PSLD_DX(1);
-    case 2: PSLD_DX(2);
-    case 3: PSLD_DX(3);
-    case 4: PSLD_DX(4);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef PSLD_DX
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
-// (B, H*W, C) NHWC x and cotangent g (this rank's rows), the global sums
-// (B, C / cgrp, 2) f32 of the forward over n elements a group -> p (B, C
-// / cgrp, 2) f32, the local (P1, P2), and dscale, dbias (C,) in the
-// parameters' types over the local pixels of the batch. cpart and gpart
-// are scratch of B * ceil(H*W / SPLIT_ROWS) * C * 2 and
-// B * ceil(H*W / SPLIT_ROWS) * (C / cgrp) * 2 floats. dtype: 0 =
-// float32, 1 = bfloat16; chain: 1 = the gn_bf16 chain (bfloat16 only).
-// Returns a cudaError_t.
-int psld_gn_split_partials(const void* x, const void* g, const void* sums,
-                           const void* scale, int scale_bf16,
-                           const void* bias, int bias_bf16, void* cpart,
-                           void* gpart, void* p, void* dscale, void* dbias,
-                           int b, int hw, int c, int cgrp, float n, int act,
-                           int chain, float eps, int dtype, void* stream) {
-  if ((dtype != 0 && dtype != 1) || (chain && dtype != 1) || b < 1 ||
-      b > 65535 || hw < 1 || c < 1 || c > 1024 || cgrp < 1 || c % cgrp ||
-      !(n > 0.f))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sm = static_cast<const float*>(sums);
-  float* cp = static_cast<float*>(cpart);
-  float* gp = static_cast<float*>(gpart);
-  const float inv_n = 1.f / n;
-  int err;
-  if (dtype == 0)
-    err = split_partials<float, false>(act, x, g, sm, scale, scale_bf16,
-                                       bias, bias_bf16, cp, gp, b, hw, c,
-                                       cgrp, inv_n, eps, st);
-  else if (chain)
-    err = split_partials<__nv_bfloat16, true>(act, x, g, sm, scale,
-                                              scale_bf16, bias, bias_bf16,
-                                              cp, gp, b, hw, c, cgrp, inv_n,
-                                              eps, st);
-  else
-    err = split_partials<__nv_bfloat16, false>(act, x, g, sm, scale,
-                                               scale_bf16, bias, bias_bf16,
-                                               cp, gp, b, hw, c, cgrp, inv_n,
-                                               eps, st);
-  if (err) return err;
-  const int nch = (hw + SPLIT_ROWS - 1) / SPLIT_ROWS;
-  const int items = b * (c / cgrp);
-  gn_split_fold_groups<<<(items + 255) / 256, 256, 0, st>>>(
-      gp, static_cast<float*>(p), b, nch, c / cgrp);
-  gn_split_fold_params<<<(c + 255) / 256, 256, 0, st>>>(
-      cp, dscale, scale_bf16, dbias, bias_bf16, b, nch, c);
-  return (int)cudaGetLastError();
-}
-
-// dx (x's type) from x, g, the global sums and the global (P1, P2) (B, C
-// / cgrp, 2) f32 over n elements a group. Returns a cudaError_t.
-int psld_gn_split_dx(const void* x, const void* g, void* dx,
-                     const void* sums, const void* p, const void* scale,
-                     int scale_bf16, const void* bias, int bias_bf16, int b,
-                     int hw, int c, int cgrp, float n, int act, int chain,
-                     float eps, int dtype, void* stream) {
-  if ((dtype != 0 && dtype != 1) || (chain && dtype != 1) || b < 1 ||
-      hw < 1 || c < 1 || cgrp < 1 || c % cgrp || !(n > 0.f))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long hwc = (long long)hw * c, total = hwc * b;
-  const float* sm = static_cast<const float*>(sums);
-  const float* pp = static_cast<const float*>(p);
-  const float inv_n = 1.f / n;
-  if (dtype == 0)
-    return split_dx<float, false>(act, x, g, dx, sm, pp, scale, scale_bf16,
-                                  bias, bias_bf16, total, hwc, c, cgrp,
-                                  inv_n, eps, st);
-  if (chain)
-    return split_dx<__nv_bfloat16, true>(act, x, g, dx, sm, pp, scale,
-                                         scale_bf16, bias, bias_bf16, total,
-                                         hwc, c, cgrp, inv_n, eps, st);
-  return split_dx<__nv_bfloat16, false>(act, x, g, dx, sm, pp, scale,
-                                        scale_bf16, bias, bias_bf16, total,
-                                        hwc, c, cgrp, inv_n, eps, st);
 }
 
 }  // extern "C"

@@ -38,7 +38,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from psld_tpu_torch.ops import attention, group_norm_act, hash_dropout
+from psld_tpu_torch.ops import (attention, attention_fits, attention_plain,
+                                group_norm_act, group_norm_act_plain,
+                                group_norm_fits, hash_dropout)
 from psld_tpu_torch.ops.group_norm import group_norm_act_split
 from psld_tpu_torch.ops.upfirdn import (conv_downsample_2d_nchw,
                                         downsample_2d_nchw, shard_halo,
@@ -329,6 +331,11 @@ class GroupNormAct(nn.Module):
     (``csrc/group_norm_fwd.cu`` forward, ``csrc/group_norm_bwd.cu``
     backward), which follow ``gn_bf16`` as the plain version does, where
     the JAX package's TPU kernel (``fused_gn``) runs f32 whatever it says.
+    A shape the kernels do not take (``ops.group_norm_fits``: C > 1024,
+    or bf16 with no slice of whole groups a multiple of 16 bytes) runs the
+    plain version, chosen by shape before any launch, as the JAX
+    package's ``fused_group_norm_act`` runs its jnp chain; under spatial
+    parallelism ``group_norm_act_split`` routes its own.
     """
 
     def __init__(self, ch: int, act: str = "none", eps: float = 1e-6):
@@ -340,7 +347,16 @@ class GroupNormAct(nn.Module):
         self.bias = nn.Parameter(torch.zeros(ch))
 
     def forward_nhwc(self, x):
-        fn = group_norm_act_split if spatial.active() else group_norm_act
+        if spatial.active():
+            return group_norm_act_split(x, self.scale, self.bias,
+                                        self.num_groups, self.eps, self.act)
+        return self.forward_whole(x)
+
+    def forward_whole(self, x):
+        """:meth:`forward_nhwc` of a map every rank holds whole (no sum
+        over the spatial group)."""
+        fn = group_norm_act if group_norm_fits(
+            x.shape, x.dtype, self.num_groups) else group_norm_act_plain
         return fn(x, self.scale, self.bias, self.num_groups, self.eps,
                   self.act)
 
@@ -408,7 +424,10 @@ class Combine(nn.Module):
 
 class AttnBlock(nn.Module):
     """Full-spatial single-head self-attention; on CUDA the score/softmax/
-    value chain is the kernel of :mod:`psld_tpu_torch.ops.attention`.
+    value chain is the kernel of :mod:`psld_tpu_torch.ops.attention`
+    where ``ops.attention_fits`` takes the tokens (N <= 256, C <= 512),
+    else the plain einsum chain with f32 scores, as the JAX package's
+    ``fused_attention`` falls back.
     Under spatial parallelism the block gathers its input's height, runs
     whole on every rank of the group (the unchanged kernel over every
     token) and keeps this rank's rows; the gather's backward carries the
@@ -435,13 +454,13 @@ class AttnBlock(nn.Module):
     def _whole(self, x):
         b, c, hh, ww = x.shape
         xh = _nhwc(x)
-        gn = self.GroupNormAct_0
-        h = group_norm_act(xh, gn.scale, gn.bias, gn.num_groups, gn.eps,
-                           gn.act)
+        h = self.GroupNormAct_0.forward_whole(xh)
         q = self.NIN_0(h).reshape(b, hh * ww, c)
         k = self.NIN_1(h).reshape(b, hh * ww, c)
         v = self.NIN_2(h).reshape(b, hh * ww, c)
-        h = attention(q, k, v, float(c) ** -0.5)
+        attn = attention if attention_fits(q.shape, q.dtype) \
+            else attention_plain
+        h = attn(q, k, v, float(c) ** -0.5)
         h = self.NIN_3(h.reshape(b, hh, ww, c).to(x.dtype))
         out = xh + h
         if self.skip_rescale:

@@ -240,10 +240,12 @@ class GroupNorm(GroupNormAct):
 
     On a CUDA tensor it launches the hand-written GroupNorm kernels
     (``csrc/group_norm_fwd.cu``, and ``csrc/group_norm_bwd.cu`` for its
-    gradient), which take C <= 1024 with C a multiple of the group count
-    and a slice of whole groups that is a multiple of 16 bytes (bf16 at
-    C = 4 or 12 has none); beyond that it raises and does not fall back
-    to the plain version. A CPU tensor runs the plain version."""
+    gradient) where they take the shape (``ops.group_norm_fits``: C <=
+    1024 with C a multiple of the group count and a slice of whole groups
+    that is a multiple of 16 bytes); elsewhere (C > 1024, or bf16 at C =
+    4 or 12, which has no such slice) it runs the plain version, chosen by
+    shape before any launch, as the JAX package's GroupNorm runs its jnp
+    chain. A CPU tensor runs the plain version."""
 
     def __init__(self, features: int):
         super().__init__(features, "none", 1e-6)

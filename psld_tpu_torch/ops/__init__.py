@@ -1,6 +1,7 @@
 from psld_tpu_torch.ops.attention import (  # noqa: F401
     attention,
     attention_backward,
+    attention_fits,
     attention_plain,
 )
 from psld_tpu_torch.ops.dropout import (  # noqa: F401
@@ -19,8 +20,10 @@ from psld_tpu_torch.ops.group_norm import (  # noqa: F401
     group_norm_act_backward_plain,
     group_norm_act_plain,
     group_norm_act_split,
+    group_norm_fits,
     group_norm_split_apply,
     group_norm_split_dx,
+    group_norm_split_fits,
     group_norm_split_partials,
     group_norm_split_stats,
 )

@@ -24,7 +24,23 @@ from psld_tpu_torch.kernels import build
 
 MAX_N = 256
 MAX_C = 512
+MAX_B = 65535
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_fits(shape, dtype) -> bool:
+    """Whether the kernel takes (B, N, C) q, k and v of ``shape`` and
+    ``dtype``: f32 or bf16, N at most 256, C a multiple of 8 up to 512, B
+    at most 65,535. Contiguity and 16-byte alignment are the caller's:
+    :func:`attention` raises on them. ``models.layers.AttnBlock`` runs
+    :func:`attention_plain` where this is False, as the JAX package's
+    ``fused_attention`` runs its einsum chain where its Pallas kernel does
+    not fit."""
+    if dtype not in _DTYPE_CODE or len(shape) != 3:
+        return False
+    b, n, c = shape
+    return 1 <= n <= MAX_N and 8 <= c <= MAX_C and c % 8 == 0 \
+        and 1 <= b <= MAX_B
 
 
 def attention_plain(q, k, v, scale: float):
@@ -108,7 +124,16 @@ def attention(q, k, v, scale: float):
         return attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"attention: no path for device {q.device}")
-    b, n, c = q.shape
+    _check_kernel_args(q, k, v)
+    return _Attention.apply(q, k, v, float(scale))
+
+
+attention.launches = 0
+
+
+def _check_kernel_args(q, k, v) -> None:
+    """Raise on what the kernel does not take: ``attention_fits``'s shapes
+    and dtypes, and q, k, v alike, contiguous, on 16-byte boundaries."""
     for t in (q, k, v):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError("attention kernel: q, k, v must share shape, "
@@ -118,11 +143,7 @@ def attention(q, k, v, scale: float):
                              "tensors on 16-byte boundaries")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"attention kernel: dtype {q.dtype} unsupported")
-    if not (1 <= n <= MAX_N and 8 <= c <= MAX_C and c % 8 == 0
-            and 1 <= b <= 65535):
+    if not attention_fits(q.shape, q.dtype):
         raise ValueError(f"attention kernel takes N <= {MAX_N} and C a "
-                         f"multiple of 8 up to {MAX_C}; got {(b, n, c)}")
-    return _Attention.apply(q, k, v, float(scale))
-
-
-attention.launches = 0
+                         f"multiple of 8 up to {MAX_C}; got "
+                         f"{tuple(q.shape)}")

@@ -72,9 +72,16 @@ the backward's partials), so a CUDA graph can capture them.
 Under spatial parallelism a rank holds a slice of each image's height,
 and the moments span the slices: :func:`group_norm_act_split` runs the
 split entry points of the two kernels (``group_norm_split_stats`` /
-``_apply`` in the forward source, ``_partials`` / ``_dx`` in the
-backward's; the source notes say how) around one all-reduce each way,
-with a plain version beside each.
+``_apply`` in the forward source, ``_partials`` / ``_dx`` in
+``csrc/group_norm_split_bwd.cu``; the source notes say how) around one
+all-reduce each way, with a plain version beside each.
+
+The ops raise on a shape their kernels do not take. Which shapes those
+are is written once, in :func:`group_norm_fits` (the fused kernels) and
+:func:`group_norm_split_fits` (the split entries), and the checks raise
+on top of them; the model layers ask them before any launch and run the
+plain versions where they are False, as the JAX package's dispatcher
+runs its jnp chain where its Pallas kernel does not fit.
 """
 
 from __future__ import annotations
@@ -137,6 +144,9 @@ _FWD_SMALL_TILE = 16384
 # forward work items (batch elements x slices) below which a narrower
 # slice pays: some four blocks for each of the H100's 132 SMs
 _FWD_ITEMS = 512
+# a forward slice's bytes, at most (a warp's 16-byte pieces); the
+# backward's slice is at most 512 channels, never fewer bytes
+_FWD_WIDEST = 512
 # maps of at most this many pixels take a warp a work item, with at most
 # _WARP_PIECES 16-byte pieces a lane (``WP`` in the CUDA source)
 _WARP_HW = 64
@@ -162,6 +172,16 @@ def _bwd_smem(resident: int, slice_: int, elem: int, threads: int) -> int:
                                                + 11 * slice_)
 
 
+def _slices(c: int, num_groups: int, elem: int, widest: int) -> list:
+    """Channels of each slice of whole groups of C that is a multiple of 16
+    bytes and at most ``widest`` bytes wide, widest first: the slices a
+    GroupNorm block may own."""
+    cg = c // num_groups
+    return [k * cg for k in range(num_groups, 0, -1)
+            if num_groups % k == 0 and k * cg * elem % 16 == 0
+            and k * cg * elem <= widest]
+
+
 def _plan(what: str, smem, staged: int, widest: int, small_tile: int,
           hw: int, c: int, num_groups: int, dtype,
           row_bytes: int = _ROW_BYTES, aligned: int = 1) -> dict:
@@ -175,9 +195,7 @@ def _plan(what: str, smem, staged: int, widest: int, small_tile: int,
         raise ValueError(f"C={c} is no multiple of G={num_groups}")
     elem = torch.empty((), dtype=dtype).element_size()
     cg = c // num_groups
-    slices = [k * cg for k in range(num_groups, 0, -1)
-              if num_groups % k == 0 and k * cg * elem % 16 == 0
-              and k * cg * elem <= widest]
+    slices = _slices(c, num_groups, elem, widest)
     if not slices:
         raise ValueError(
             f"{what} kernel: no slice of whole {cg}-channel groups of C={c} "
@@ -227,8 +245,8 @@ def plan_forward(hw: int, c: int, num_groups: int, dtype,
     chain is latency, not bytes. Raises ValueError where no slice of
     whole groups is a multiple of 16 bytes and at most 512 bytes (a
     warp's 16-byte pieces)."""
-    args = ("group_norm_act", _fwd_smem, 1, 512, _FWD_SMALL_TILE, hw, c,
-            num_groups, dtype)
+    args = ("group_norm_act", _fwd_smem, 1, _FWD_WIDEST, _FWD_SMALL_TILE,
+            hw, c, num_groups, dtype)
     plan = _plan(*args, aligned=32)
     elem = torch.empty((), dtype=dtype).element_size()
     if hw <= _WARP_HW:
@@ -320,6 +338,55 @@ def plan_split_stats(batch: int, hw: int, c: int, num_groups: int,
                 scratch=batch * chunks * num_groups * 2 if chunks > 1 else 0)
 
 
+# the split partials kernel (``psld_gn_split_partials``): pixel rows a
+# thread has in flight (``PART_UNROLL`` in the CUDA source, whose entry
+# refuses a chunk of several that is no multiple of the pass they give;
+# each row a load of x and one of the cotangent), the blocks an SM is counted to
+# hold in a wave (its registers allow two of 256 threads), the fewest
+# pixels a block reduces and the bytes of x a batch element may have and
+# still take one block
+_PART_UNROLL = 4
+_PART_RESIDENT = 2
+_PART_MIN_ROWS = _STATS_MIN_ROWS
+_PART_ONE_BLOCK = _STATS_ONE_BLOCK
+
+
+@functools.lru_cache(maxsize=None)
+def plan_split_partials(batch: int, hw: int, c: int, num_groups: int,
+                        dtype) -> dict:
+    """The split partials kernel's geometry for a (batch, H*W, C) shard,
+    planned as :func:`plan_split_stats` plans the stats: ``vec`` channels
+    a load, ``rows`` pixels a block reduces, ``chunks`` blocks a batch
+    element (the grid is (chunks, batch)), and ``scratch`` floats.
+
+    A pass of a block covers ``step`` rows: 256 threads over the row's
+    pieces, ``_PART_UNROLL`` rows a thread. A batch element of at most
+    ``_PART_ONE_BLOCK`` bytes of x is one block's; else ``rows`` is a
+    multiple of ``step``, at least ``_PART_MIN_ROWS``, and as few as give
+    ``_STATS_WAVES`` waves of ``_PART_RESIDENT`` blocks on each of
+    ``_SMS`` SMs over the batch. The scratch holds, with more than one
+    chunk, each chunk's (P1, P2) a group and (dscale, dbias) a channel, B
+    * chunks * (G + C) * 2 floats, and with more than one batch element
+    each element's (dscale, dbias) row, B * C * 2 floats: at most B *
+    (ceil(H*W / ``_PART_MIN_ROWS``) * (G + C) + C) * 2 in all."""
+    if c % num_groups:
+        raise ValueError(f"C={c} is no multiple of G={num_groups}")
+    elem = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // elem if c % (16 // elem) == 0 else 1
+    tx = min(c // vec, _STATS_THREADS)
+    step = _STATS_THREADS // tx * _PART_UNROLL
+    if hw * c * elem <= _PART_ONE_BLOCK:
+        rows, chunks = hw, 1
+    else:
+        per_row = max(1, _STATS_WAVES * _SMS * _PART_RESIDENT // batch)
+        rows = max(_PART_MIN_ROWS, -(-hw // per_row))
+        rows = -(-rows // step) * step
+        chunks = -(-hw // rows)
+    scratch = (batch * chunks * (num_groups + c) * 2 if chunks > 1 else 0) \
+        + (batch * c * 2 if batch > 1 else 0)
+    return dict(vec=vec, rows=rows, chunks=chunks, scratch=scratch)
+
+
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -347,8 +414,9 @@ _BWD_ARGS = [_P] * 4 + [_I, _P, _I] + [_P] * 4 + [_I] * 10 + [
 # counts of finished blocks, one zeroed buffer per (device, stream), which
 # every launch leaves at 0 again, so a CUDA graph may replay launches that
 # use it, on that stream: the backward kernel's per slice, the split
-# stats' per batch element (at most 65535). Launches on one stream run in
-# order, so the two kernels share it
+# stats' per batch element (at most 65535), the split partials' per batch
+# element and one more after them. Launches on one stream run in order,
+# so the kernels share it
 _DONE: dict = {}
 _DONE_SIZE = 65536
 
@@ -366,14 +434,52 @@ def _done_counts(device, what: str):
     return _DONE[key]
 
 
+_MAX_C = 1024
+_MAX_BATCH = 65535  # the split entries' grid rows
+
+
+def _refusal(shape, dtype, num_groups: int):
+    """Why every GroupNorm kernel refuses an x of ``shape`` and ``dtype``
+    (the words after the kernel's name), or None."""
+    if len(shape) != 4 or dtype not in _KERNEL_DTYPES:
+        return f" takes a 4D f32/bf16 tensor, got {tuple(shape)} {dtype}"
+    c = shape[-1]
+    if c % num_groups or c > _MAX_C:
+        return f": C={c} with G={num_groups} unsupported"
+    return None
+
+
+def group_norm_fits(shape, dtype, num_groups: int) -> bool:
+    """Whether the fused GroupNorm kernels (:func:`group_norm_act` and its
+    backward) take an NHWC x of ``shape`` and ``dtype``: 4D f32 or bf16, C
+    at most 1024 and a multiple of G, and a slice of whole groups a
+    multiple of 16 bytes and at most ``_FWD_WIDEST`` bytes wide (the
+    planners' rule; bf16 at C = 4 or 12 has none). Contiguity and 16-byte
+    alignment are the caller's: the ops raise on them. The model layers
+    run :func:`group_norm_act_plain` where this is False, as the JAX
+    package's ``fused_group_norm_act`` runs its jnp chain where its Pallas
+    kernel does not fit."""
+    if _refusal(shape, dtype, num_groups) is not None:
+        return False
+    elem = torch.empty((), dtype=dtype).element_size()
+    return bool(_slices(shape[-1], num_groups, elem, _FWD_WIDEST))
+
+
+def group_norm_split_fits(shape, dtype, num_groups: int) -> bool:
+    """Whether the split entries (stats, apply, partials, dx) take a shard
+    of ``shape`` and ``dtype``: the fused kernels' rule without the slice
+    (they load whole 16-byte pieces or single channels), and at most
+    65,535 batch elements. :func:`group_norm_act_split` runs their plain
+    versions where this is False."""
+    return _refusal(shape, dtype, num_groups) is None \
+        and shape[0] <= _MAX_BATCH
+
+
 def _check_kernel_args(what: str, x, scale, bias, num_groups: int) -> None:
-    if x.ndim != 4 or x.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"{what} kernel takes a 4D f32/bf16 tensor, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+    why = _refusal(x.shape, x.dtype, num_groups)
+    if why is not None:
+        raise ValueError(f"{what} kernel{why}")
     c = x.shape[-1]
-    if c % num_groups or c > 1024:
-        raise ValueError(f"{what} kernel: C={c} with G={num_groups} "
-                         "unsupported")
     if not x.is_contiguous():
         raise ValueError(f"{what} kernel needs contiguous NHWC")
     if x.data_ptr() % 16:
@@ -639,15 +745,14 @@ _SPLIT_STATS_ARGS = [_P] * 4 + [_I] * 7 + [_P]
 _SPLIT_APPLY_ARGS = [_P, _P, _P, _P, _I, _P, _I] + [_I] * 4 + [
     ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
 _SPLIT_PART_ARGS = [_P, _P, _P, _P, _I, _P, _I] + [_P] * 5 + [_I] * 4 + [
-    ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
+    ctypes.c_float, _I, _I, ctypes.c_float, _I, _I, _I, _P]
 _SPLIT_DX_ARGS = [_P] * 6 + [_I, _P, _I] + [_I] * 4 + [
     ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
-_SPLIT_ROWS = 64  # pixels a block of the partials reduces
 
 
 def _split_kernel_args(what: str, x, scale, bias, num_groups: int):
     _check_kernel_args(what, x, scale, bias, num_groups)
-    if x.shape[0] > 65535:
+    if not group_norm_split_fits(x.shape, x.dtype, num_groups):
         raise ValueError(f"{what} kernel takes at most 65535 batch rows")
 
 
@@ -717,7 +822,8 @@ def group_norm_split_partials(x, g, scale, bias, sums, count: float,
                               act: str = "none"):
     """:func:`group_norm_split_partials_plain` on a CPU tensor; on a CUDA
     tensor the ``psld_gn_split_partials`` entry of
-    ``csrc/group_norm_bwd.cu`` (``group_norm_split_partials.launches``)."""
+    ``csrc/group_norm_split_bwd.cu`` (``group_norm_split_partials.launches``),
+    with the geometry of :func:`plan_split_partials`: one launch."""
     if x.device.type == "cpu":
         return group_norm_split_partials_plain(x, g, scale, bias, sums,
                                                count, num_groups, eps, act)
@@ -728,24 +834,23 @@ def group_norm_split_partials(x, g, scale, bias, sums, count: float,
                        num_groups)
     _check_cotangent("group_norm_split_partials", x, g)
     b, h, w, c = x.shape
-    nch = -(-(h * w) // _SPLIT_ROWS)
-    cpart = torch.empty(b * nch * c * 2, dtype=torch.float32,
-                        device=x.device)
-    gpart = torch.empty(b * nch * num_groups * 2, dtype=torch.float32,
-                        device=x.device)
+    plan = plan_split_partials(b, h * w, c, num_groups, x.dtype)
+    part = torch.empty(plan["scratch"], dtype=torch.float32, device=x.device)
+    done = None if plan["chunks"] == 1 and b == 1 else _done_counts(
+        x.device, "group_norm_split_partials").data_ptr()
     p = torch.empty((b, num_groups, 2), dtype=torch.float32, device=x.device)
     dscale, dbias = torch.empty_like(scale), torch.empty_like(bias)
     sums = sums.contiguous()
-    lib = _lib("group_norm_bwd.cu", "psld_gn_split_partials",
+    lib = _lib("group_norm_split_bwd.cu", "psld_gn_split_partials",
                _SPLIT_PART_ARGS)
     with torch.cuda.device(x.device):
         err = lib.psld_gn_split_partials(
             x.data_ptr(), g.data_ptr(), sums.data_ptr(), scale.data_ptr(),
             _BF16[scale.dtype], bias.data_ptr(), _BF16[bias.dtype],
-            cpart.data_ptr(), gpart.data_ptr(), p.data_ptr(),
-            dscale.data_ptr(), dbias.data_ptr(), b, h * w, c,
-            c // num_groups, float(count), _ACT_CODE[act], int(_chain(x)),
-            float(eps), _BF16[x.dtype],
+            part.data_ptr() or None, done, p.data_ptr(), dscale.data_ptr(),
+            dbias.data_ptr(), b, h * w, c, c // num_groups, float(count),
+            _ACT_CODE[act], int(_chain(x)), float(eps), plan["rows"],
+            plan["vec"], _BF16[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "group_norm_split_partials kernel launch")
     group_norm_split_partials.launches += 1
@@ -759,8 +864,8 @@ def group_norm_split_dx(x, g, scale, bias, sums, p, count: float,
                         num_groups: int, eps: float = 1e-6,
                         act: str = "none"):
     """:func:`group_norm_split_dx_plain` on a CPU tensor; on a CUDA
-    tensor the ``psld_gn_split_dx`` entry of ``csrc/group_norm_bwd.cu``
-    (``group_norm_split_dx.launches``)."""
+    tensor the ``psld_gn_split_dx`` entry of
+    ``csrc/group_norm_split_bwd.cu`` (``group_norm_split_dx.launches``)."""
     if x.device.type == "cpu":
         return group_norm_split_dx_plain(x, g, scale, bias, sums, p, count,
                                          num_groups, eps, act)
@@ -771,7 +876,8 @@ def group_norm_split_dx(x, g, scale, bias, sums, p, count: float,
     b, h, w, c = x.shape
     dx = torch.empty_like(x)
     sums, p = sums.contiguous(), p.contiguous()
-    lib = _lib("group_norm_bwd.cu", "psld_gn_split_dx", _SPLIT_DX_ARGS)
+    lib = _lib("group_norm_split_bwd.cu", "psld_gn_split_dx",
+               _SPLIT_DX_ARGS)
     with torch.cuda.device(x.device):
         err = lib.psld_gn_split_dx(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), sums.data_ptr(),
@@ -793,36 +899,46 @@ def _check_cotangent(what: str, x, g) -> None:
             or not g.is_contiguous():
         raise ValueError(f"{what} kernel: the cotangent must be contiguous "
                          "NHWC of x's shape, dtype and device")
+    if g.data_ptr() % 16:
+        raise ValueError(f"{what} kernel needs the cotangent on a 16-byte "
+                         "boundary")
 
 
 class _SplitGroupNormAct(torch.autograd.Function):
     """GroupNorm over the height shards of a spatial group: local sums,
     one all-reduce of the (N, G, 2) sums, then the normalization; the
     backward's local (P1, P2), one all-reduce, then dx. Saves x, scale,
-    bias and the global sums."""
+    bias and the global sums. ``kernels`` False runs the plain pieces on
+    any device, with the same all-reduces."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, num_groups, eps, act):
+    def forward(ctx, x, scale, bias, num_groups, eps, act, kernels):
         from psld_tpu_torch.parallel import distributed
 
         count = _split_count(x, num_groups)
-        sums = group_norm_split_stats(x, num_groups)
+        stats, apply = (group_norm_split_stats, group_norm_split_apply) \
+            if kernels else (group_norm_split_stats_plain,
+                             group_norm_split_apply_plain)
+        sums = stats(x, num_groups)
         distributed.all_reduce_(sums, group=distributed.spatial_group())
         ctx.save_for_backward(x, scale, bias, sums)
         ctx.args = (count, num_groups, eps, act)
-        return group_norm_split_apply(x, scale, bias, sums, *ctx.args)
+        ctx.kernels = kernels
+        return apply(x, scale, bias, sums, *ctx.args)
 
     @staticmethod
     def backward(ctx, g):
         from psld_tpu_torch.parallel import distributed
 
         x, scale, bias, sums = ctx.saved_tensors
+        partials, dx_of = (group_norm_split_partials, group_norm_split_dx) \
+            if ctx.kernels else (group_norm_split_partials_plain,
+                                 group_norm_split_dx_plain)
         g = g.contiguous()
-        p, dscale, dbias = group_norm_split_partials(x, g, scale, bias, sums,
-                                                     *ctx.args)
+        p, dscale, dbias = partials(x, g, scale, bias, sums, *ctx.args)
         distributed.all_reduce_(p, group=distributed.spatial_group())
-        dx = group_norm_split_dx(x, g, scale, bias, sums, p, *ctx.args)
-        return dx, dscale, dbias, None, None, None
+        dx = dx_of(x, g, scale, bias, sums, p, *ctx.args)
+        return dx, dscale, dbias, None, None, None, None
 
 
 def group_norm_act_split(x, scale, bias, num_groups: int, eps: float = 1e-6,
@@ -831,8 +947,11 @@ def group_norm_act_split(x, scale, bias, num_groups: int, eps: float = 1e-6,
     split over the spatial group (:mod:`psld_tpu_torch.parallel.spatial`):
     the moments, and their gradients, span every shard. A CPU tensor
     runs the plain pieces, a CUDA tensor the split entry points of the
-    two GroupNorm kernels; each raises on what it does not take."""
+    two GroupNorm kernels where :func:`group_norm_split_fits` takes its
+    shape (C > 1024 runs the plain pieces on the card, chosen before any
+    launch); each raises on what else it does not take."""
     if act not in _ACTS:
         raise ValueError(f"unknown activation {act!r}")
-    return _SplitGroupNormAct.apply(x.contiguous(), scale, bias, num_groups,
-                                    eps, act)
+    return _SplitGroupNormAct.apply(
+        x.contiguous(), scale, bias, num_groups, eps, act,
+        group_norm_split_fits(x.shape, x.dtype, num_groups))

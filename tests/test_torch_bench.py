@@ -62,6 +62,8 @@ def tiny_bench(monkeypatch):
     """The bench at width 8 and train batch 2, on one PyTorch thread."""
     monkeypatch.setenv("PSLD_BENCH_NF", "8")
     monkeypatch.setenv("PSLD_BENCH_TRAIN_BATCH", "2")
+    # two timed steps: the line's keys and numbers, not their precision
+    monkeypatch.setattr(bench, "TRAIN_TIMED", 2)
     for var in ("PSLD_BENCH_TRAIN", "PSLD_BENCH_F32", "PSLD_GN_BF16"):
         monkeypatch.delenv(var, raising=False)
     n = torch.get_num_threads()

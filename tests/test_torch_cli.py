@@ -204,6 +204,7 @@ print("ODE", [(b["samples"], b["nfe"], b["nonfinite"]) for b in ode])
 print("NLL", [(b["samples"], b["nfe"], b["nonfinite"]) for b in nll],
       bpd == nll[0]["bits_per_dim"] and math.isfinite(bpd))
 os.environ.update(PSLD_BENCH_NF="8", PSLD_BENCH_TRAIN_BATCH="1")
+bench.TRAIN_TIMED = 1  # one timed step: the line, not its precision
 line = bench.run_bench(batch=1, nfe=2, device="cpu")
 print("BENCH", len(line), line["device"])
 from psld_tpu_torch.models import legacy_layers, normalization

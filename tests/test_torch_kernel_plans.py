@@ -1,6 +1,7 @@
-"""The host side of two kernels, on the CPU: the grid that the split
-GroupNorm stats kernel (``plan_split_stats``) and the strided hash dropout
-(``dropout._grid``) launch. The kernels run only on the card
+"""The host side of three kernels, on the CPU: the grid that the split
+GroupNorm stats and partials kernels (``plan_split_stats``,
+``plan_split_partials``) and the strided hash dropout (``dropout._grid``)
+launch. The kernels run only on the card
 (``tests/test_torch_kernels.py``); here each grid is walked in plain
 PyTorch as the kernel's blocks or programs walk it, so a shape that a
 plan leaves uncovered, covers twice or over-runs its scratch fails
@@ -11,6 +12,11 @@ without a card.
   CelebA-HQ 256 shard shape (and of ragged edge shapes) is read once, the
   grid stays within CUDA's limits and the partials within the scratch the
   wrapper allocates, at most B * ceil(H*W / 64) * G * 2 floats.
+- The partials: the same walk over two tensors, at batch 1, 8 and 64;
+  the scratch holds each chunk's (P1, P2) and (dscale, dbias) and each
+  batch element's (dscale, dbias) row, at most B * (ceil(H*W /
+  _PART_MIN_ROWS) * (G + C) + C) * 2 floats, and the channel sums' slots
+  fit shared memory.
 - The dropout: program (t, q) of a strided launch takes image q's run of
   L elements, whose positions start at p0 = elem_off + q * Gi (mod
   2**32), in rows of 128 positions from p0's row; the element it reaches
@@ -24,7 +30,9 @@ import torch
 
 import chip_smoke
 from psld_tpu_torch.ops import dropout
-from psld_tpu_torch.ops.group_norm import plan_split_stats
+from psld_tpu_torch.ops import group_norm
+from psld_tpu_torch.ops.group_norm import (plan_split_partials,
+                                           plan_split_stats)
 
 _THREADS = 256
 _GRID_Y = 65535
@@ -68,6 +76,50 @@ def test_split_stats_plan_covers_every_pixel_once(hw, c, batch, dtype):
     assert tx_n * ((pieces + tx_n - 1) // tx_n) >= pieces
     assert (pieces + tx_n - 1) // tx_n <= (1024 // _THREADS if vec == 1
                                            else 1)
+    seen = torch.zeros(hw, dtype=torch.int64)
+    for chunk in range(chunks):
+        p0, p1 = chunk * rows, min(hw, chunk * rows + rows)
+        for ty in range(ry):
+            seen[p0 + ty:p1:ry] += 1
+    assert bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [1, 8, 64])
+@pytest.mark.parametrize("hw,c", STATS_SHAPES,
+                         ids=[f"{hw}x{c}" for hw, c in STATS_SHAPES])
+def test_split_partials_plan_covers_every_pixel_once(hw, c, batch, dtype):
+    """The partials planner: the stats' rules for ``vec``, a pass of
+    ``_THREADS // tx * _PART_UNROLL`` rows, ``rows`` a multiple of it and
+    at least ``_PART_MIN_ROWS`` past one block, chunks that cover H*W, one
+    block for a batch element of at most ``_PART_ONE_BLOCK`` bytes of x,
+    and the scratch the kernel's layout takes, within B * (ceil(H*W /
+    _PART_MIN_ROWS) * (G + C) + C) * 2 floats; the kernel's walk reads
+    every pixel once."""
+    groups = _groups(c)
+    plan = plan_split_partials(batch, hw, c, groups, dtype)
+    elem = torch.empty((), dtype=dtype).element_size()
+    vec, rows, chunks = plan["vec"], plan["rows"], plan["chunks"]
+    assert vec == plan_split_stats(batch, hw, c, groups, dtype)["vec"]
+    pieces = c // vec
+    tx_n = min(pieces, _THREADS)
+    ry = _THREADS // tx_n
+    assert 1 <= chunks <= _GRID_X and batch <= _GRID_Y
+    assert chunks == -(-hw // rows)
+    if hw * c * elem <= group_norm._PART_ONE_BLOCK:
+        assert (rows, chunks) == (hw, 1)
+    else:
+        assert rows % (ry * group_norm._PART_UNROLL) == 0
+        assert rows >= group_norm._PART_MIN_ROWS
+    assert plan["scratch"] == (
+        (batch * chunks * (groups + c) * 2 if chunks > 1 else 0)
+        + (batch * c * 2 if batch > 1 else 0))
+    assert plan["scratch"] <= batch * (
+        -(-hw // group_norm._PART_MIN_ROWS) * (groups + c) + c) * 2
+    # the channel sums' slots in shared memory (PART_SLOTS floats each)
+    shuffle = tx_n < 32 and 32 % tx_n == 0
+    assert (_THREADS // 32 if shuffle else ry) * c <= 2048
     seen = torch.zeros(hw, dtype=torch.int64)
     for chunk in range(chunks):
         p0, p1 = chunk * rows, min(hw, chunk * rows + rows)

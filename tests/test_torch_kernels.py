@@ -901,8 +901,8 @@ def test_legacy_group_norm_variant_matches_plain(card, c, size, dtype):
     ``group_norm_act_plain`` and autograd through it (forward to the
     dtype's tolerance, gradients to 1e-4 / 2e-2 of their scale). In bf16
     at C = 4 and 12 no slice of whole groups is a multiple of 16 bytes:
-    the variant raises there and does not fall back to the plain
-    version."""
+    the kernels take no slice there: the variant runs the plain version
+    (``ops.group_norm_fits``), matches it and launches no kernel."""
     from psld_tpu_torch.models.normalization import GroupNorm
 
     mod = GroupNorm(c).to(card)
@@ -913,17 +913,15 @@ def test_legacy_group_norm_variant_matches_plain(card, c, size, dtype):
     g = rand((2, size, size, c), 3, dtype, card)
     x_in = x.permute(0, 3, 1, 2).detach().requires_grad_()
     assert x_in.is_contiguous(memory_format=torch.channels_last)
-    if dtype == torch.bfloat16 and c in (4, 12):
-        with pytest.raises(ValueError, match="16 bytes"):
-            mod(x_in)
-        return
+    routed = dtype == torch.bfloat16 and c in (4, 12)
+    assert ops.group_norm_fits(x.shape, dtype, min(c // 4, 32)) != routed
     n_f, n_b = ops.group_norm_act.launches, \
         ops.group_norm_act_backward.launches
     y = mod(x_in)
     dx, dscale, dbias = torch.autograd.grad(
         y, (x_in, mod.scale, mod.bias), g.permute(0, 3, 1, 2))
-    assert ops.group_norm_act.launches == n_f + 1
-    assert ops.group_norm_act_backward.launches == n_b + 1
+    assert ops.group_norm_act.launches == n_f + (not routed)
+    assert ops.group_norm_act_backward.launches == n_b + (not routed)
     groups = min(c // 4, 32)
     assert_close(y.permute(0, 2, 3, 1), ops.group_norm_act_plain(
         x, mod.scale, mod.bias, groups, 1e-6, "none"), TOL[dtype])
@@ -962,3 +960,225 @@ def test_legacy_average_pooling_gradient_on_channels_last(card, block):
     want = grads[0]
     assert float((grads[1] - want).abs().max()) <= 1e-4 * float(
         want.abs().max())
+
+
+# -- shapes the kernels refuse: the layers route them to the plain versions -
+def _launches():
+    from psld_tpu_torch.ops import group_norm as gn
+
+    return [f.launches for f in (
+        ops.group_norm_act, ops.group_norm_act_backward, ops.attention,
+        gn.group_norm_split_stats, gn.group_norm_split_apply,
+        gn.group_norm_split_partials, gn.group_norm_split_dx)]
+
+
+def _grads_close(got, want, tol, floor=0.0):
+    """Each of ``got`` within ``tol`` of its counterpart's scale, the
+    scale floored at ``floor`` of the largest of ``want``'s."""
+    torch.cuda.synchronize()
+    top = max(float(b.detach().float().abs().max()) for b in want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        err = float((a.detach().float().cpu() - b.detach().float().cpu())
+                    .abs().max())
+        assert err <= tol * max(float(b.detach().float().abs().max()),
+                                floor * top), err
+
+
+def test_attn_block_routes_past_the_kernels_tokens(card):
+    """An ``AttnBlock`` at N = 1,024 tokens (32 x 32, C = 256; the
+    attention kernel takes N <= 256): forward and gradients into x and
+    every parameter equal the CPU's (the plain chain) to 1e-4 of their
+    scale, f32, floored at 1e-3 of the largest gradient's (the keys'
+    bias has a gradient of 0 up to rounding: softmax ignores a shift
+    common to every key); its GroupNorm (C = 256) launches the GN kernels
+    once each way, attention launches nothing."""
+    from psld_tpu_torch.models.layers import AttnBlock
+
+    torch.manual_seed(0)
+    mod = AttnBlock(256, init_scale=0.1)
+    x = rand((2, 256, 32, 32), 0, torch.float32, "cpu")
+    ct = rand((2, 256, 32, 32), 1, torch.float32, "cpu")
+    assert not ops.attention_fits((2, 1024, 256), torch.float32)
+    out = []
+    for dev in ("cpu", card):
+        m = mod.to(dev)
+        xi = x.to(dev).requires_grad_()
+        n = _launches()
+        y = m(xi)
+        grads = torch.autograd.grad(y, [xi, *m.parameters()], ct.to(dev))
+        torch.cuda.synchronize()
+        if dev != "cpu":
+            d = [a - b for a, b in zip(_launches(), n)]
+            assert d == [1, 1, 0, 0, 0, 0, 0], d
+        out.append([y.detach().cpu(), *(t.cpu() for t in grads)])
+    _grads_close(out[1][:1], out[0][:1], 1e-4)
+    _grads_close(out[1][1:], out[0][1:], 1e-4, floor=1e-3)
+
+
+@pytest.mark.parametrize("c,dtype", [(2048, torch.float32),
+                                     (2048, torch.bfloat16),
+                                     (12, torch.bfloat16)],
+                         ids=["2048-f32", "2048-bf16", "12-bf16"])
+def test_group_norm_act_routes_past_the_kernels_widths(card, c, dtype):
+    """A ``GroupNormAct`` (swish) at C = 2,048 (past the kernels' 1,024)
+    and at bf16 C = 12 (no slice of whole groups a multiple of 16 bytes):
+    forward and gradients equal ``group_norm_act_plain`` and autograd
+    through it on the same inputs to the dtype's tolerance (gradients:
+    1e-4 / 2e-2 of their scale), and no kernel launches."""
+    from psld_tpu_torch.models.layers import GroupNormAct
+
+    mod = GroupNormAct(c, act="swish").to(card)
+    groups = mod.num_groups
+    with torch.no_grad():
+        mod.scale.copy_(rand((c,), 1, torch.float32, card, 0.1, 1.0))
+        mod.bias.copy_(rand((c,), 2, torch.float32, card, 0.1))
+    x = rand((2, 6, 5, c), 0, dtype, card, 2.0, 0.5)
+    g = rand((2, 6, 5, c), 3, dtype, card)
+    assert not ops.group_norm_fits(x.shape, dtype, groups)
+    xi = x.clone().requires_grad_()
+    n = _launches()
+    y = mod.forward_nhwc(xi)
+    grads = torch.autograd.grad(y, (xi, mod.scale, mod.bias), g)
+    assert _launches() == n
+    assert_close(y, ops.group_norm_act_plain(x, mod.scale, mod.bias, groups,
+                                             1e-6, "swish"), TOL[dtype])
+    _grads_close(grads, ops.group_norm_act_backward_plain(
+        x, mod.scale, mod.bias, g, groups, 1e-6, "swish"),
+        1e-4 if dtype == torch.float32 else 2e-2)
+
+
+def test_group_norm_act_split_routes_past_the_kernels_width(card,
+                                                            monkeypatch):
+    """``group_norm_act_split`` at C = 2,048 on the top half of a map, in
+    one process with the spatial group's all-reduces faked (they add the
+    bottom half's stats, then its (P1, P2)): the plain split pieces run,
+    no kernel launches, and y and dx equal the whole map's plain version
+    on those rows, dscale and dbias with the bottom half's added, to 1e-5
+    of their scale (f32)."""
+    from psld_tpu_torch.ops import group_norm as gn
+    from psld_tpu_torch.parallel import distributed
+
+    c, groups = 2048, 32
+    x = rand((2, 8, 4, c), 0, torch.float32, card, 2.0, 0.5)
+    g = rand((2, 8, 4, c), 3, torch.float32, card)
+    scale = rand((c,), 1, torch.float32, card, 0.1, 1.0)
+    bias = rand((c,), 2, torch.float32, card, 0.1)
+    count = float(8 * 4 * (c // groups))
+    top, bottom = x[:, :4].contiguous(), x[:, 4:].contiguous()
+    g_top, g_bottom = g[:, :4].contiguous(), g[:, 4:].contiguous()
+    sums = gn.group_norm_split_stats_plain(x, groups)
+    p_b, ds_b, db_b = gn.group_norm_split_partials_plain(
+        bottom, g_bottom, scale, bias, sums, count, groups, 1e-6, "swish")
+    adds = [gn.group_norm_split_stats_plain(bottom, groups), p_b]
+    monkeypatch.setattr(distributed, "all_reduce_",
+                        lambda t, group=None: t.add_(adds.pop(0)))
+    monkeypatch.setattr(distributed, "spatial_info", lambda: (0, 2, 0, 1))
+    assert not gn.group_norm_split_fits(top.shape, top.dtype, groups)
+    leaves = [t.clone().requires_grad_() for t in (top, scale, bias)]
+    n = _launches()
+    y = gn.group_norm_act_split(*leaves, groups, 1e-6, "swish")
+    dx, ds, db = torch.autograd.grad(y, leaves, g_top)
+    assert _launches() == n and not adds
+    dx_w, ds_w, db_w = ops.group_norm_act_backward_plain(
+        x, scale, bias, g, groups, 1e-6, "swish")
+    _grads_close([y, dx, ds + ds_b, db + db_b],
+                 [ops.group_norm_act_plain(x, scale, bias, groups, 1e-6,
+                                           "swish")[:, :4], dx_w[:, :4],
+                  ds_w, db_w], 1e-5)
+
+
+# -- the split backward entries at their edges --------------------------------
+@pytest.mark.parametrize("dtype,gn16", [(torch.float32, False),
+                                        (torch.bfloat16, False),
+                                        (torch.bfloat16, True)],
+                         ids=["f32", "bf16", "gn_bf16"])
+@pytest.mark.parametrize("b,hw,c,groups", [
+    (1, 7, 12, 4),        # B = 1, one block; bf16 C = 12: the scalar path
+    (2, 8, 256, 32),      # a block a batch element, the batch fold
+    (1, 5000, 96, 24),    # B = 1 over chunks: the chunk fold writes dscale
+    (3, 4099, 40, 10),    # rows no multiple of the plan's, ragged chunk
+    (2, 3001, 129, 3),    # C no multiple of a piece, over chunks
+    (64, 64, 128, 32),    # a large batch
+    (2, 300, 1024, 32),   # C at its limit, over chunks
+])
+def test_group_norm_split_backward_kernel_edges(card, monkeypatch, b, hw, c,
+                                                groups, dtype, gn16):
+    """``group_norm_split_partials`` and ``group_norm_split_dx`` at the
+    edges of their plans, for all five activations: (P1, P2), dscale and
+    dbias within 1e-5 of their plain versions' scale in f32 (sums in
+    another order) and 1e-2 in bf16; dx within the dtype's tolerance of
+    its scale (1e-2 in bf16 and under gn_bf16); two launches of each bit
+    for bit equal (every fold in a fixed order); one counted launch a
+    call."""
+    from psld_tpu_torch.ops import group_norm as gn
+
+    monkeypatch.setenv("PSLD_GN_BF16", "1" if gn16 else "0")
+    x = rand((b, hw, 1, c), hw, dtype, card, scale=2.0, shift=0.5)
+    g = rand((b, hw, 1, c), hw + 1, dtype, card)
+    scale = rand((c,), 1, torch.float32, card, 0.1, 1.0)
+    bias = rand((c,), 2, torch.float32, card, 0.1)
+    count = float(2 * hw * (c // groups))  # a shard of two
+    sums = gn.group_norm_split_stats_plain(x, groups) * 2.0
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+
+    def close(got, want, t):
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= t * max(float(want.float().abs().max()), 1e-30), err
+
+    for act in ACTS:
+        n = (gn.group_norm_split_partials.launches,
+             gn.group_norm_split_dx.launches)
+        args = (x, g, scale, bias, sums, count, groups, 1e-6, act)
+        got = gn.group_norm_split_partials(*args)
+        again = gn.group_norm_split_partials(*args)
+        want = gn.group_norm_split_partials_plain(*args)
+        for a, a2, w in zip(got, again, want):
+            assert torch.equal(a, a2)
+            close(a, w, tol)
+        p = want[0] * 2.0
+        dx = gn.group_norm_split_dx(x, g, scale, bias, sums, p, count,
+                                    groups, 1e-6, act)
+        dx2 = gn.group_norm_split_dx(x, g, scale, bias, sums, p, count,
+                                     groups, 1e-6, act)
+        assert (gn.group_norm_split_partials.launches,
+                gn.group_norm_split_dx.launches) == (n[0] + 2, n[1] + 2)
+        assert torch.equal(dx, dx2)
+        close(dx, gn.group_norm_split_dx_plain(x, g, scale, bias, sums, p,
+                                               count, groups, 1e-6, act),
+              tol)
+
+
+@pytest.mark.parametrize("hw", [256, 32768])
+def test_group_norm_split_partials_is_one_kernel_launch(card, hw):
+    """One split-partials call is one kernel on the card (the chunks' and
+    the batch elements' partials are folded by the launch's last blocks),
+    seen by ``torch.profiler`` in a process of its own
+    (``chip_smoke.split_kernels``), whether the planner gives one chunk a
+    batch element or many; a CUDA graph of it replays to the same sums."""
+    import chip_smoke
+    from psld_tpu_torch.ops import group_norm as gn
+
+    ran = chip_smoke.split_kernels(["partials"], [(8, hw, 1, 256, 32)])
+    assert len(ran) == 1 and "gn_split_partials" in ran[0], ran
+    x = rand((8, hw, 1, 256), 0, torch.bfloat16, card)
+    g = rand((8, hw, 1, 256), 1, torch.bfloat16, card)
+    scale = rand((256,), 2, torch.float32, card, 0.1, 1.0)
+    bias = rand((256,), 3, torch.float32, card, 0.1)
+    sums = gn.group_norm_split_stats(x, 32)
+    args = (x, g, scale, bias, sums, float(hw * 8), 32, 1e-6, "swish")
+    want = gn.group_norm_split_partials(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gn.group_norm_split_partials(*args)  # the counts, off capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = gn.group_norm_split_partials(*args)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    for a, w in zip(out, want):
+        assert torch.equal(a, w)
