@@ -133,10 +133,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     (20 NFE) and ``cli.likelihood`` (RK4 x 2, one probe; the VP-SDE's NLL
     without a momentum draw) from that checkpoint at batch 64, bf16.
 29. fid: ``cli.fid --fid --kid --isc --save-stats1`` on the card with
-    random Inception weights, the 64 vp_sample PNGs against 64 PNGs of
-    the synthetic set: finite values, the stats file read back and FID
-    from it equal, no kernel of the port launched; Inception's images/s
-    at batch 64.
+    random Inception weights, 64 PNGs of the synthetic set against 64
+    others: finite values, the stats file read back and FID from it
+    equal, no kernel of the port launched; Inception's images/s at batch
+    64. It runs in a thread beside build (its two host square roots
+    beside nvcc; no kernel launches then) and prints after it.
 30. sweep: ``cli.sweep_fid_nfe`` of the VP-SDE checkpoint over em_sde and
     ei_ode at 20 NFE (each record takes a host square root of 10 to 25 s),
     64 samples a point, FID against the
@@ -159,7 +160,7 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     ``profile_dir`` set: 4 profiled and 8 timed steps; one Chrome trace,
     holding the GroupNorm forwards of the 4 profiled steps and no more,
     and the StepTimer's ``data`` share.
-34. resume: the same entry point in a process of its own, for 2 epochs
+34. resume: the same entry point in a process of its own, for one epoch
     with ``auto_resume=true``, gets SIGTERM after its first logged step,
     exits 0 and leaves a checkpoint marked incomplete; the same command
     again resumes at that checkpoint's step, replays its epoch and ends
@@ -182,10 +183,9 @@ Phases, each of which ends the run with a non-zero exit if it fails:
     process group, then under ``PSLD_MULTIHOST=1`` on NCCL at world
     size 1 (the gradient all-reduce, the loss all-reduce, the stop
     agreement), then with ``training.fsdp=true`` (every leaf of 2**14
-    elements or more all-gathered and reduce-scattered). The three
-    checkpoints must be bit-equal; the NCCL run's is also held against
-    [train]'s (bit-equal, or the difference printed beside the first
-    run's); ms/step beside [train]'s, and the device ms of the all-reduce
+    elements or more all-gathered and reduce-scattered), ``DDP_STEPS``
+    steps each (one epoch). The three checkpoints must be bit-equal;
+    ms/step beside [train]'s, and the device ms of the all-reduce
     (and of the whole reduction with its copies) at the flagship's
     gradient shapes.
 40. ddp2, fsdp2: two ranks on the one card (NCCL takes one rank a card,
@@ -313,6 +313,8 @@ BATCH = 64
 SAMPLE_NFE = 100
 TRAIN_BATCH = 128
 TRAIN_WARMUP, TRAIN_TIMED = 2, 10
+# steps of each of [ddp]'s three runs: one epoch of the synthetic set
+DDP_STEPS = 4
 
 # published peaks of one H100 SXM: bytes/s of device memory, FLOP/s of the
 # bf16 tensor cores, and of float32 (and, taken as the same, integer)
@@ -569,8 +571,8 @@ def device_ms(fn, launches: int = 10, replays: int = 3) -> float:
     return start.elapsed_time(end) / (launches * replays)
 
 
-# one call of each split entry of argv[1] ("stats", "partials") at each
-# (batch, rows, width, C, G) of argv[2], entry after entry, under one
+# one call of each split entry of argv[1] ("stats", "apply", "partials") at
+# each (batch, rows, width, C, G) of argv[2], entry after entry, under one
 # torch.profiler session in a process of its own (a second profiler session
 # in one process may record no device activity, and the smoke's
 # [celebahq_train] traces its own window): prints the kernels' names
@@ -585,11 +587,15 @@ for entry in json.loads(sys.argv[1]):
         if entry == "stats":
             calls.append(lambda x=x, g=g: gn.group_norm_split_stats(x, g))
             continue
-        args = (x, torch.randn_like(x), torch.ones(c, device="cuda"),
-                torch.zeros(c, device="cuda"),
+        args = (torch.ones(c, device="cuda"), torch.zeros(c, device="cuda"),
                 gn.group_norm_split_stats(x, g), float(h * w * (c // g)), g,
                 1e-6, "swish")
-        calls.append(lambda args=args: gn.group_norm_split_partials(*args))
+        if entry == "apply":
+            calls.append(lambda x=x, args=args:
+                         gn.group_norm_split_apply(x, *args))
+            continue
+        calls.append(lambda x=x, gx=torch.randn_like(x), args=args:
+                     gn.group_norm_split_partials(x, gx, *args))
 for call in calls:
     call()
 torch.cuda.synchronize()
@@ -606,8 +612,8 @@ print(json.dumps([e.name for e in prof.events()
 
 def split_kernels(entries, shapes) -> list:
     """The kernels that one call of each split entry of ``entries``
-    ("stats", "partials") at each of ``shapes`` runs on the card, in
-    order, in a fresh process (``_SPLIT_KERNELS_SCRIPT``)."""
+    ("stats", "apply", "partials") at each of ``shapes`` runs on the card,
+    in order, in a fresh process (``_SPLIT_KERNELS_SCRIPT``)."""
     proc = subprocess.run(
         [sys.executable, "-c", _SPLIT_KERNELS_SCRIPT, json.dumps(entries),
          json.dumps(shapes)],
@@ -2577,18 +2583,20 @@ def phase_vp_check(card, weights):
     torch.cuda.empty_cache()
 
 
-def write_reference_pngs(work) -> str:
-    """The first 64 images of the synthetic set as PNGs: the reference
-    side of ``fid`` and ``sweep``."""
+def write_reference_pngs(work, first: int = 0,
+                         name: str = "reference") -> str:
+    """Images ``first`` to ``first + 64`` of the synthetic set as PNGs in
+    ``work/name``: the reference side of ``fid`` and ``sweep`` (the first
+    64), and ``fid``'s other side (the next 64)."""
     from psld_tpu_torch.cli._common import bootstrap
     from psld_tpu_torch.data.loader import get_dataset
     from psld_tpu_torch.utils.images import save_as_images
 
     cfg = bootstrap(VP.args + [
         "dataset.diffusion.data.name=synthetic"]).dataset.diffusion
-    out = os.path.join(work, "reference")
+    out = os.path.join(work, name)
     os.makedirs(out)
-    save_as_images(get_dataset(cfg).batch(np.arange(BATCH)),
+    save_as_images(get_dataset(cfg).batch(np.arange(first, first + BATCH)),
                    os.path.join(out, "synthetic"))
     return out
 
@@ -2620,14 +2628,17 @@ def write_fake_inception(path, seed: int = 12) -> str:
     return path
 
 
-def phase_fid(card, work, samples, reference):
+def phase_fid(card, work, samples, reference, lines):
     """``cli.fid --fid --kid --isc --save-stats1`` on the card with random
-    Inception weights: the VP-SDE's samples (``samples``, 64 PNGs)
-    against the synthetic set's (``reference``). The three values must be
-    finite and no kernel of the port may run (Inception is cuDNN); the
-    saved ``.npz`` is read back, and FID from it as ``--input1`` must
-    equal the first. Then Inception's feature extraction is timed at
-    batch 64 (CUDA events, 32 x 32 images resized to 299)."""
+    Inception weights: 64 PNGs (``samples``) against 64 others of the
+    synthetic set (``reference``). The three values must be finite and no
+    kernel of the port may run (Inception is cuDNN); the saved ``.npz`` is
+    read back, and FID from it as ``--input1`` must equal the first. Then
+    Inception's feature extraction is timed at batch 64 (CUDA events, 32
+    x 32 images resized to 299). The phase runs in a thread beside
+    [build] (its two SciPy square roots are host work, and no kernel of
+    the port launches then): its lines go into ``lines``, which the
+    caller prints."""
     from psld_tpu_torch.cli import fid as fid_cli
     from psld_tpu_torch.eval.fid import (FID_DIM, FIDInception,
                                          extract_features, load_stats,
@@ -2660,14 +2671,17 @@ def phase_fid(card, work, samples, reference):
         torch.Generator().manual_seed(0)), device="cuda")
     imgs = torch.rand(BATCH, 32, 32, 3, device="cuda")
     ms = cuda_ms(lambda: extract_features(net, imgs), iters=5, warmup=2)
-    say(f"[fid] cli.fid --fid --kid --isc, random Inception weights, "
-        f"{BATCH} VP-SDE samples against {BATCH} synthetic images: "
+    lines.append(
+        f"[fid] cli.fid --fid --kid --isc, random Inception weights, "
+        f"{BATCH} synthetic images against {BATCH} others: "
         + ", ".join(f"{k} {v:.6g}" for k, v in scores.items())
         + f" (finite); --save-stats1 read back (count {count}), FID from it "
         f"{again['frechet_inception_distance']:.6g}; entry point "
         f"{wall:.1f} s; no kernel of the port launched")
-    say(f"[fid] Inception features, f32 (TF32 off), batch {BATCH}, 32 -> "
-        f"299: {ms:.2f} ms a batch, {BATCH / ms * 1e3:.1f} images/s; {card}")
+    lines.append(
+        f"[fid] Inception features, f32 (TF32 off), batch {BATCH}, 32 -> "
+        f"299: {ms:.2f} ms a batch, {BATCH / ms * 1e3:.1f} images/s; {card}; "
+        f"the phase ran beside [build]")
     del net
     torch.cuda.empty_cache()
     return {"ms_batch": ms, "img_s": BATCH / ms * 1e3}
@@ -2978,6 +2992,9 @@ def write_folder(root, subdirs, per_dir: int, size: int, seed: int) -> int:
 
 
 HQ_SUBDIRS = ("train/male", "train/female")
+# epochs of [resume]'s run: SIGTERM lands in the first, the relaunch
+# replays it
+RESUME_EPOCHS = 1
 AFHQ_SUBDIRS = ("train/cat", "train/dog", "train/wild")
 PROFILE_STEPS = 4
 
@@ -3132,7 +3149,8 @@ print("RESUME " + json.dumps({
 
 def phase_resume(card, work, net=HQ, tag="resume"):
     """A process of ``cli.train_sde`` (CelebA-HQ 256 at batch 8 on the
-    ``celebahq_train`` folder, 2 epochs, ``auto_resume=true``) gets
+    ``celebahq_train`` folder, ``RESUME_EPOCHS`` epochs,
+    ``auto_resume=true``) gets
     SIGTERM after its first logged step: it must exit 0 and leave a
     checkpoint marked incomplete. The same command, started again,
     resumes at that checkpoint's step and replays its epoch, then runs
@@ -3146,7 +3164,8 @@ def phase_resume(card, work, net=HQ, tag="resume"):
     per_epoch = len([f for sub in HQ_SUBDIRS
                      for f in os.listdir(os.path.join(root, sub))]) \
         // HQ_BATCH
-    args = _folder_train_args(net, root, results, HQ_BATCH, 2, 1) + [
+    args = _folder_train_args(net, root, results, HQ_BATCH, RESUME_EPOCHS,
+                              1) + [
         "+dataset.diffusion.training.auto_resume=true"]
     cmd = [sys.executable, "-c", _RESUME_DRIVER, *args]
     env = {**os.environ, "PYTHONPATH": REPO}
@@ -3190,15 +3209,15 @@ def phase_resume(card, work, net=HQ, tag="resume"):
     saved_step = int(torch.load(ckpt, map_location="cpu",
                                 weights_only=True)["step"])
     check(meta["complete"] is False and saved_step == first["step"]
-          and 1 <= saved_step < 2 * per_epoch,
+          and 1 <= saved_step < RESUME_EPOCHS * per_epoch,
           f"{tag}: after SIGTERM at step {first['step']} the checkpoint "
           f"holds step {saved_step}, meta {meta}")
     second, second_s, _ = run(kill=False)
     epoch = int(meta["epoch"])
     rows = second["rows"]
-    want_steps = saved_step + (2 - epoch) * per_epoch
+    want_steps = saved_step + (RESUME_EPOCHS - epoch) * per_epoch
     check(rows[0] == [saved_step + 1, epoch] and second["step"] == want_steps
-          and len(rows) == (2 - epoch) * per_epoch,
+          and len(rows) == (RESUME_EPOCHS - epoch) * per_epoch,
           f"{tag}: the relaunch began at {rows[0]} and ended at step "
           f"{second['step']}; expected step {saved_step + 1} of epoch "
           f"{epoch}, ending at {want_steps}")
@@ -3757,11 +3776,11 @@ def _train_argv(batch, epochs, results, bf16=True, fsdp=False,
     ] + (["+dataset.diffusion.training.fsdp=true"] if fsdp else [])
 
 
-def phase_ddp(card, work, train_ckpt, train_ms):
+def phase_ddp(card, work, train_ms):
     """[ddp] and [fsdp] at world size 1 on NCCL (see the module's
     docstring); returns the launch counts of the NCCL run and of the FSDP
     run."""
-    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    n_steps = DDP_STEPS
     epochs = n_steps * TRAIN_BATCH // 512
     dirs = {t: os.path.join(work, t) for t in ("ddp_plain", "ddp", "fsdp")}
     runs = [{"tag": "plain", "kind": "train", "group": False,
@@ -3797,26 +3816,21 @@ def phase_ddp(card, work, train_ckpt, train_ms):
     same_fsdp, err_fsdp, _ = compare_states(ckpts["fsdp"], ckpts["ddp"])
     check(same_fsdp, f"[fsdp] FSDP at world size 1 differs from [ddp] by "
           f"{err_fsdp:.3e} of scale: not bit-equal")
-    same_train, err_train, _ = compare_states(ckpts["ddp"], train_ckpt)
-    same_ref, err_ref, _ = compare_states(ckpts["ddp_plain"], train_ckpt)
-    check(same_train == same_ref and err_train == err_ref,
-          "[ddp] the NCCL run and the one-process run stand apart from "
-          "[train]'s checkpoint")
     red = res["reduce"]
     fs = res["runs"]["fsdp"]
     say(f"[ddp] cli.train_sde of the flagship under torch.distributed.run "
         f"(--standalone, 1 process), NCCL, world size 1, batch "
         f"{TRAIN_BATCH}, bf16, hash dropout 0.15, {n_steps} steps, cuDNN "
         f"deterministic: checkpoint bit-equal to the same process's run "
-        f"without a process group; against [train]'s checkpoint (default "
-        f"cuDNN algorithms): "
-        + ("bit-equal" if same_train else
-           f"{err_train:.3e} of scale apart, as the run without a group "
-           f"is") + f"; ms/step {ms['ddp']:.2f} (no group "
+        f"without a process group; ms/step {ms['ddp']:.2f} over "
+        f"{n_steps - TRAIN_WARMUP} steps (no group "
         f"{ms['plain']:.2f}, [train] {train_ms:.2f}); all-reduce "
         f"{red['all_reduce_ms']:.3f} ms a step ({red['buckets']} buckets, "
         f"{red['bytes'] / 1e6:.1f} MB), with the copy in and the division "
-        f"{red['reducer_ms']:.3f} ms; ranks' process {wall:.1f} s; {card}")
+        f"{red['reducer_ms']:.3f} ms; ranks' process {wall:.1f} s (the "
+        "runs' own seconds: " + ", ".join(
+            f"{t} {r['seconds']:.1f}" for t, r in res["runs"].items())
+        + f"); {card}")
     say(f"[fsdp] the same with training.fsdp=true at world size 1: "
         f"checkpoint bit-equal to [ddp]'s; {fs['sharded_leaves']} leaves "
         f"sharded, {fs['state_bytes'] / 1e9:.4f} GB of state a rank (the "
@@ -4043,7 +4057,9 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
     entry's numbers summed over one forward's (stats, apply) or
     backward's (partials, dx) calls, the fused kernels' over the
     attention blocks' GroupNorms of one forward and backward, and the
-    strided dropout's over an AFHQ step."""
+    strided dropout's over an AFHQ step. Under gn_bf16 the apply is also
+    held bit-equal to its plain version on at least ``GN_BF16_EQUAL`` of
+    the elements, as [gn] holds the fused forward."""
     import torch.nn.functional as F
 
     from psld_tpu_torch import ops
@@ -4053,6 +4069,7 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
     names = ("stats", "apply", "partials", "dx")
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0}
            for k in names}
+    out["apply"]["bit_equal_share"] = 1.0
     totals = {k: {} for k in names}
     lib = lib_stats = 0.0
     rows = []
@@ -4100,6 +4117,12 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
                 if gn16:
                     out["apply"]["max_abs_err"] = max(
                         out["apply"]["max_abs_err"], e)
+                    share = float((y == want).float().mean())
+                    check(share >= GN_BF16_EQUAL, f"{what}: apply "
+                          f"{share:.5f} of the elements bit-equal, under "
+                          f"{GN_BF16_EQUAL}")
+                    out["apply"]["bit_equal_share"] = min(
+                        out["apply"]["bit_equal_share"], share)
                 p, ds, db = gn.group_norm_split_partials(
                     h, gh, sc, bi, sums, count, g, 1e-6, "swish")
                 wp, wds, wdb = gn.group_norm_split_partials_plain(
@@ -4221,22 +4244,26 @@ def phase_spatial_kernels(card, batch=HQ_BATCH, calls=HQ_SPLIT_GN_CALLS,
                         for i, k in enumerate(names))
             + f"; torch.var_mean {ls_ms:.4f}; F.group_norm+F.silu "
             f"{l_ms:.4f}")
-    # the stats and the partials are one kernel a call, the chunks' (and
-    # the batch elements') partials folded in the launch: a call at the
-    # largest shard and one at the smallest
-    entries = ["stats", "partials"]
+    # the stats, the apply and the partials are one kernel a call, the
+    # chunks' (and the batch elements') partials folded in the launch: a
+    # call at the largest shard and one at the smallest
+    entries = ["stats", "apply", "partials"]
     ran = split_kernels(entries, one_launch)
     want = [e for e in entries for _ in one_launch]
     check(len(ran) == len(want)
           and all(f"gn_split_{e}" in k for e, k in zip(want, ran)),
-          f"split stats and partials: the kernels of one call at each of "
-          f"{one_launch} (B, rows, W, C, G): {ran}")
-    st = out["stats"]
-    say(f"[{tag}]   stats and partials: one kernel a call (torch.profiler, "
-        "shards " + ", ".join(f"{h * w}x{c}" for _, h, w, c, _ in one_launch)
+          f"split stats, apply and partials: the kernels of one call at "
+          f"each of {one_launch} (B, rows, W, C, G): {ran}")
+    st, ap = out["stats"], out["apply"]
+    say(f"[{tag}]   stats, apply and partials: one kernel a call "
+        "(torch.profiler, shards "
+        + ", ".join(f"{h * w}x{c}" for _, h, w, c, _ in one_launch)
         + "); stats " f"{st['bound_ms'] / st['ms']:.3f} of its "
         f"bound, {st['library_ms'] / st['ms']:.2f}x faster than "
-        "torch.var_mean; partials "
+        f"torch.var_mean; apply {ap['bound_ms'] / ap['ms']:.3f} of its "
+        f"bound, {ap['library_ms'] / ap['ms']:.2f}x faster than "
+        f"F.group_norm+F.silu, bf16+gn_bf16 bit-equal share at least "
+        f"{ap['bit_equal_share']:.5f}; partials "
         f"{out['partials']['bound_ms'] / out['partials']['ms']:.3f}, dx "
         f"{out['dx']['bound_ms'] / out['dx']['ms']:.3f} of their bounds; "
         "worst f32 error of scale: partials "
@@ -5047,7 +5074,21 @@ def main() -> int:
     from psld_tpu_torch.cli._common import bootstrap
 
     card = phase_device()
-    phase_build()
+    work = os.path.join(REPO, "build", "smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    # [fid] is host work (two SciPy square roots of 2048 x 2048) and
+    # launches no kernel of the port: it runs in a thread beside the nvcc
+    # builds, and its lines print after them
+    reference = write_reference_pngs(work)
+    fid_lines: list = []
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        fid_job = pool.submit(phase_fid, card, work, write_reference_pngs(
+            work, BATCH, "fid_input"), reference, fid_lines)
+        phase_build()
+        fid = fid_job.result()
+    for line in fid_lines:
+        say(line)
     fused = phase_fused_act(card)
     # each kernel at the shapes of every path that launches it: the
     # flagship's at 64 (sample, sscs, guided) and 128 (train), the
@@ -5134,9 +5175,6 @@ def main() -> int:
     phase_likelihood_check(card, weights, VP, "vp_check", seed=43)
     del weights
     phase_hires_check(card)
-    work = os.path.join(REPO, "build", "smoke")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
     # each path is driven with the counts set to 0 just before it
     ckpt, n_train, train_t = phase_train(card, work)
     n_sample, sample = phase_sample(card, work, ckpt)
@@ -5164,9 +5202,6 @@ def main() -> int:
     n_vp_ode, vp_ode = phase_ode(card, work, vp_ckpt, VP, "vp_ode")
     n_vp_likelihood, vp_lik = phase_likelihood(card, work, vp_ckpt, VP,
                                                "vp_likelihood")
-    reference = write_reference_pngs(work)
-    fid = phase_fid(card, work, os.path.join(work, "vp_sample", "images"),
-                    reference)
     n_sweep = phase_sweep(card, work, vp_ckpt, reference,
                           write_fake_inception(os.path.join(
                               work, "pt_inception-fake.pth")))
@@ -5185,7 +5220,7 @@ def main() -> int:
     n_async, async_ckpt = phase_async_ckpt(card, work)
     n_fanout = phase_fanout(card, work, ckpt)
     # several processes: world size 1 on NCCL, then two ranks on the card
-    n_ddp, n_fsdp, _ = phase_ddp(card, work, ckpt, train_t["ms_step"])
+    n_ddp, n_fsdp, _ = phase_ddp(card, work, train_t["ms_step"])
     # and spatial parallelism, one image's height split over two ranks:
     # the gloo groups run together, beside the references and the CPU's
     # side of the NCSNv1/v2 component library (its path: the GroupNorm
@@ -5363,6 +5398,8 @@ def main() -> int:
         f"{SPATIAL} at B={HQ_BATCH}; launches over [spatial2] (bf16 and "
         "f32) and [spatial_sample]; max_abs_err of the bf16 entry against "
         "its plain version (partials and dx: over each output's scale); "
+        "bit_equal_share (apply): the least share of bit-equal elements "
+        "under gn_bf16 over the compared cases; "
         "library_ms: stats torch.var_mean over the shard's grouped view "
         "(bf16 in, its own dtype out), apply F.group_norm+F.silu on the "
         "shard, which normalizes the shard alone; none for partials and "
@@ -5409,10 +5446,12 @@ def main() -> int:
         drop_row,
         *[row(f"group_norm_split_{k}", "cuda",
               f"psld_tpu_torch/csrc/group_norm_{src}.cu",
-              f"psld_tpu/ops/group_norm.py:{line}", split_basis)
-          for k, src, line in (("stats", "fwd", 67), ("apply", "fwd", 67),
-                               ("partials", "split_bwd", 125),
-                               ("dx", "split_bwd", 125))],
+              f"psld_tpu/ops/group_norm.py:{line}", split_basis,
+              redesigned_in=pr)
+          for k, src, line, pr in (("stats", "fwd", 67, 15),
+                                   ("apply", "fwd", 67, 17),
+                                   ("partials", "split_bwd", 125, 16),
+                                   ("dx", "split_bwd", 125, 16))],
         row("fused_leaky_relu", "cuda", "psld_tpu_torch/csrc/fused_act.cu",
             "psld_tpu/ops/fused_act.py:23", fused_basis, fused["fwd"]),
         row("fused_leaky_relu_bwd", "cuda",

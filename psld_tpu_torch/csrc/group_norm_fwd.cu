@@ -79,31 +79,46 @@
 //     all-reduces them over the group;
 //   - psld_gn_split_apply runs the fused kernel's chain from the global
 //     sums (mean and rstd from them, f32 or the gn_bf16 rounding points,
-//     affine, act), one element a thread, grid-stride.
+//     affine, act), one launch.
 // Bound: the stats read x once and the apply reads it again and writes
 // y, so two reads and one write, a few f32 operations an element.
 //
-// The stats' design: a block of 256 threads owns a chunk of pixel rows
-// of one batch element (ops/group_norm.py::plan_split_stats sizes it: one
-// wave of four blocks an SM over a large shard, one block a batch element
-// of up to 128 KB). A thread owns one 16-byte piece of a row (8 bf16 or 4
+// Both walk the same tiles: a block of 256 threads owns a run of pixel
+// rows of one batch element (the grid is (tiles, batch), no division an
+// element), and a thread owns one 16-byte piece of a row (8 bf16 or 4
 // f32 channels; one channel, up to four of them, where C is no multiple
-// of the piece: the scalar path) and the rows RY apart, with
-// STATS_UNROLL loads in flight, and adds f32 sums of x and x^2 a channel.
-// The rows a warp holds are folded with shuffles, the warps' in shared
-// memory in slot order, then the channels into groups in channel order.
-// A batch element of one chunk writes its sums; else each block writes a
-// partial, and the last block of the batch element to finish (a
-// __threadfence and a counter in done[n], left at 0) adds the chunks'
-// partials in a fixed order: lane l of a group adds the chunks [l * K,
-// (l + 1) * K) in order, the lanes by a fixed shuffle tree. The sums are
-// deterministic and a call is one launch. On an NVIDIA H100 80GB HBM3 at
-// 700 W, over the 105 split GroupNorms of a CelebA-HQ 256 rank forward
-// (B=8, bf16), the stats read 52% of their bytes bound: the shards of
-// 32,768 pixels 72-82%, those of 8 to 2,048 pixels 3-7 us a call, where
-// a launch's latency and the fold's fence and counter are the time.
-// The apply keeps its first design (one element a thread, 19% of its
-// bound at those shapes, PERF.md section 6).
+// of the piece: the scalar path) and the rows RY apart.
+//
+// The stats (ops/group_norm.py::plan_split_stats sizes a chunk: one wave
+// of four blocks an SM over a large shard, one block a batch element of
+// up to 128 KB) keep STATS_UNROLL loads in flight and add f32 sums of x
+// and x^2 a channel. The rows a warp holds are folded with shuffles, the
+// warps' in shared memory in slot order, then the channels into groups
+// in channel order. A batch element of one chunk writes its sums; else
+// each block writes a partial, and the last block of the batch element
+// to finish (a __threadfence and a counter in done[n], left at 0) adds
+// the chunks' partials in a fixed order: lane l of a group adds the
+// chunks [l * K, (l + 1) * K) in order, the lanes by a fixed shuffle
+// tree. The sums are deterministic and a call is one launch.
+//
+// The apply (ops/group_norm.py::plan_split_apply sizes a tile: two passes
+// of APPLY_UNROLL rows a thread over a large shard, fewer rows where the
+// batch's tiles would give under 264 blocks) computes its channels'
+// constants once a thread: mean and rstd from their (n, group) sums with
+// the plain version's formula (a piece spans two groups where a group
+// has 4 channels, so they are a channel's), scale and bias, each rounded
+// to bf16 once under gn_bf16. It keeps APPLY_UNROLL 16-byte loads in
+// flight and runs the fused kernel's Affine on each piece (the f32 chain
+// as one fma a channel, gn_bf16 in bf16 pairs), 16-byte stores.
+//
+// What holds them back (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's
+// [spatial_kernels], the 105 split GroupNorms of a CelebA-HQ 256 rank
+// forward at B=8, bf16 gn_bf16): the stats read 52% of their bytes
+// bound, the apply 0.70 (PERF.md section 6). On the shards of 8,192 and
+// 32,768 pixels the apply runs at ~0.9 of its bound; its 66 calls of 8
+// to 512 pixels take ~3.5 us each, a launch and one chain of loads and
+// stores, and the stats' small calls 3-7 us, where the fold's fence and
+// counter add to the launch.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -685,6 +700,11 @@ constexpr int SPLIT_THREADS = 256;
 constexpr int STATS_UNROLL = 8;
 // floats of each of the stats' two channel-sum buffers: slots x C
 constexpr int STATS_SLOTS = 2048;
+// pixel rows a thread of the apply has in flight (2, 4 and 8 measured,
+// PERF.md section 6; the planner, ops/group_norm.py::_APPLY_UNROLL, makes
+// a tile of several a multiple of the pass, SPLIT_THREADS / pieces *
+// APPLY_UNROLL rows, and the entry refuses a tile that is not)
+constexpr int APPLY_UNROLL = 4;
 
 template <typename T>
 __device__ __forceinline__ float elem_f(T v) {
@@ -701,7 +721,7 @@ __device__ __forceinline__ T to_elem(float v) {
 // V channels of x at p as floats: one 16-byte load (V = Vec<T>::N), or
 // one scalar (V = 1)
 template <typename T, int V>
-struct StatsLoad {
+struct PieceLoad {
   using Raw = uint4;
   __device__ static Raw load(const T* p) {
     return __ldg(reinterpret_cast<const uint4*>(p));
@@ -713,7 +733,7 @@ struct StatsLoad {
 };
 
 template <typename T>
-struct StatsLoad<T, 1> {
+struct PieceLoad<T, 1> {
   using Raw = float;
   __device__ static Raw load(const T* p) { return elem_f(*p); }
   __device__ static Raw zero() { return 0.f; }
@@ -734,7 +754,7 @@ __global__ void __launch_bounds__(SPLIT_THREADS)
 gn_split_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
                       float* __restrict__ out, int* __restrict__ done,
                       int hw, int c, int cgrp, int rows) {
-  using L = StatsLoad<T, V>;
+  using L = PieceLoad<T, V>;
   constexpr int KP = V == 1 ? 1024 / SPLIT_THREADS : 1;
   constexpr int U = STATS_UNROLL;
   __shared__ float sh1[STATS_SLOTS], sh2[STATS_SLOTS];
@@ -880,54 +900,118 @@ void split_stats(const void* x, float* part, float* out, int* done, int b,
       static_cast<const T*>(x), part, out, done, hw, c, cgrp, rows);
 }
 
-// one element a thread: y = act of the chain from the global sums
-template <typename T, int ACT, bool CHAIN>
+// block (tile, n): y of pixels [tile * rows, +rows) of batch element n
+// from the global sums. A thread owns V channels of a row (KP pieces of
+// them on the scalar path) and the rows RY apart, APPLY_UNROLL of them in
+// flight; it computes its channels' constants once (mean and rstd from
+// their (n, group) sums, scale and bias, rounded to bf16 under CHAIN), and
+// runs the fused kernel's Affine on 16-byte pieces (the scalar path the
+// same chain a channel at a time).
+template <typename T, int V, int ACT, bool CHAIN>
 __global__ void __launch_bounds__(SPLIT_THREADS)
 gn_split_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
                       const float* __restrict__ sums,
                       const void* __restrict__ scale, int scale_bf16,
-                      const void* __restrict__ bias, int bias_bf16,
-                      long long total, long long hwc, int c, int cgrp,
-                      float inv_n, float eps) {
-  const int ng = c / cgrp;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    const long long n = i / hwc;
-    const int ch = (int)(i % c);
-    const float* sm = sums + (n * ng + ch / cgrp) * 2;
-    const float mean = sm[0] * inv_n;
-    const float var = fmaxf(sm[1] * inv_n - mean * mean, 0.f);
-    const float rs = rsqrtf(var + eps);
-    const float v = elem_f(x[i]);
-    const float sc = load_param(scale, scale_bf16, ch);
-    const float bi = load_param(bias, bias_bf16, ch);
-    float o;
-    if (CHAIN) {
-      const float xh = bf16r(bf16r(v - bf16r(mean)) * bf16r(rs));
-      o = act_of<ACT>(bf16r(bf16r(xh * bf16r(sc)) + bf16r(bi)));
-    } else {
-      o = act_of<ACT>((v - mean) * rs * sc + bi);
+                      const void* __restrict__ bias, int bias_bf16, int hw,
+                      int c, int cgrp, int rows, float inv_n, float eps) {
+  using L = PieceLoad<T, V>;
+  constexpr int KP = V == 1 ? 1024 / SPLIT_THREADS : 1;
+  constexpr int U = APPLY_UNROLL;
+  const int n = blockIdx.y, tid = threadIdx.x;
+  const int pieces = c / V;
+  const int tx_n = pieces < SPLIT_THREADS ? pieces : SPLIT_THREADS;
+  const int ry = SPLIT_THREADS / tx_n;
+  const int tx = tid % tx_n, ty = tid / tx_n;
+  if (ty >= ry) return;
+  const int p0 = blockIdx.x * rows;
+  const int p1 = p0 + min(hw - p0, rows);
+  const size_t base = (size_t)n * hw * c;
+  const T* xb = x + base;
+  T* yb = y + base;
+  typename L::Raw raw[U][KP];
+  auto load_rows = [&](int r) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < KP; ++k) {
+        const int row = r + u * ry, pc = tx + k * tx_n;
+        raw[u][k] = row < p1 && pc < pieces
+                        ? L::load(xb + (size_t)row * c + (size_t)pc * V)
+                        : L::zero();
+      }
+  };
+  // the first rows go out before the constants' loads
+  load_rows(p0 + ty);
+  float mu[KP][V], rs[KP][V], sc[KP][V], bi[KP][V];
+  const float* sn = sums + (size_t)n * (c / cgrp) * 2;
+#pragma unroll
+  for (int k = 0; k < KP; ++k)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int ch = min((tx + k * tx_n) * V + v, c - 1);
+      const float* sm = sn + (ch / cgrp) * 2;
+      const float mean = sm[0] * inv_n;
+      const float var =
+          fmaxf(__fsub_rn(__fmul_rn(sm[1], inv_n), __fmul_rn(mean, mean)),
+                0.f);
+      const float rstd = rsqrtf(var + eps);
+      const float s = load_param(scale, scale_bf16, ch);
+      const float b = load_param(bias, bias_bf16, ch);
+      mu[k][v] = CHAIN ? bf16r(mean) : mean;
+      rs[k][v] = CHAIN ? bf16r(rstd) : rstd;
+      sc[k][v] = CHAIN ? bf16r(s) : s;
+      bi[k][v] = CHAIN ? bf16r(b) : b;
     }
-    y[i] = to_elem<T>(o);
+  if constexpr (V > 1) {
+    const Affine<T, CHAIN> aff(sc[0], bi[0], mu[0], rs[0]);
+    for (int r = p0 + ty; r < p1; r += ry * U) {
+      if (r != p0 + ty) load_rows(r);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int row = r + u * ry;
+        if (row < p1)
+          *reinterpret_cast<uint4*>(yb + (size_t)row * c + (size_t)tx * V) =
+              aff.template apply<ACT>(raw[u][0]);
+      }
+    }
+  } else {
+    // the fused kernel's f32 chain as one fma a channel
+    float ka[KP], kb[KP];
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      ka[k] = rs[k][0] * sc[k][0];
+      kb[k] = bi[k][0] - mu[k][0] * ka[k];
+    }
+    for (int r = p0 + ty; r < p1; r += ry * U) {
+      if (r != p0 + ty) load_rows(r);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int k = 0; k < KP; ++k) {
+          const int row = r + u * ry, pc = tx + k * tx_n;
+          if (row >= p1 || pc >= pieces) continue;
+          const float v = raw[u][k];
+          const float z =
+              CHAIN ? bf16r(bf16r(bf16r(bf16r(v - mu[k][0]) * rs[k][0]) *
+                                  sc[k][0]) + bi[k][0])
+                    : fmaf(v, ka[k], kb[k]);
+          yb[(size_t)row * c + pc] = to_elem<T>(act_of<ACT>(z));
+        }
+    }
   }
 }
 
-int split_grid(long long total) {
-  const long long blocks = (total + SPLIT_THREADS - 1) / SPLIT_THREADS;
-  return (int)(blocks < 132 * 32 ? blocks : 132 * 32);
-}
-
-template <typename T, bool CHAIN>
+template <typename T, int V, bool CHAIN>
 int split_apply(int act, const void* x, void* y, const float* sums,
-                const void* scale, int sbf, const void* bias, int bbf,
-                long long total, long long hwc, int c, int cgrp, float inv_n,
-                float eps, cudaStream_t st) {
+                const void* scale, int sbf, const void* bias, int bbf, int b,
+                int hw, int c, int cgrp, int rows, float inv_n, float eps,
+                cudaStream_t st) {
+  const dim3 grid((unsigned)(((long long)hw + rows - 1) / rows), b);
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
-  const int grid = split_grid(total);
-#define PSLD_APPLY(A)                                                        \
-  gn_split_apply_kernel<T, A, CHAIN><<<grid, SPLIT_THREADS, 0, st>>>(       \
-      xt, yt, sums, scale, sbf, bias, bbf, total, hwc, c, cgrp, inv_n, eps); \
+#define PSLD_APPLY(A)                                                       \
+  gn_split_apply_kernel<T, V, A, CHAIN><<<grid, SPLIT_THREADS, 0, st>>>(   \
+      xt, yt, sums, scale, sbf, bias, bbf, hw, c, cgrp, rows, inv_n, eps); \
   break
   switch (act) {
     case 0: PSLD_APPLY(0);
@@ -983,32 +1067,44 @@ int psld_gn_split_stats(const void* x, void* part, void* out, void* done,
 
 // (B, H*W, C) NHWC x -> y of x's type, normalized with the global sums
 // (B, C / cgrp, 2) f32 over n elements a group (all ranks' pixels times
-// cgrp). scale_bf16 / bias_bf16: the parameters' type; chain: 1 = the
-// gn_bf16 chain (bfloat16 only). Returns a cudaError_t.
+// cgrp). rows: pixels a block normalizes (ops/group_norm.py::
+// plan_split_apply), with more than one tile a multiple of the pass
+// (SPLIT_THREADS / (C / vec, at most SPLIT_THREADS) * APPLY_UNROLL rows);
+// vec: the channels an access, 16 / sizeof(T) (C a multiple of it, x and
+// y on 16-byte boundaries) or 1. scale_bf16 / bias_bf16: the parameters'
+// type; chain: 1 = the gn_bf16 chain (bfloat16 only). Returns a
+// cudaError_t.
 int psld_gn_split_apply(const void* x, void* y, const void* sums,
                         const void* scale, int scale_bf16, const void* bias,
                         int bias_bf16, int b, int hw, int c, int cgrp,
-                        float n, int act, int chain, float eps, int dtype,
-                        void* stream) {
+                        float n, int act, int chain, float eps, int rows,
+                        int vec, int dtype, void* stream) {
+  const int wide = dtype == 0 ? 4 : 8;
   if ((dtype != 0 && dtype != 1) || (chain && dtype != 1) || b < 1 ||
-      hw < 1 || c < 1 || cgrp < 1 || c % cgrp || !(n > 0.f))
+      b > 65535 || hw < 1 || c < 1 || c > 1024 || cgrp < 1 || c % cgrp ||
+      !(n > 0.f) || rows < 1 || (vec != 1 && vec != wide) || c % vec ||
+      (vec != 1 && (reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(y)) % 16))
     return (int)cudaErrorInvalidValue;
+  const int pieces = c / vec;
+  const int pass = SPLIT_THREADS / (pieces < SPLIT_THREADS ? pieces
+                                                          : SPLIT_THREADS)
+                   * APPLY_UNROLL;
+  if (rows < hw && rows % pass) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long hwc = (long long)hw * c, total = hwc * b;
   const float* sm = static_cast<const float*>(sums);
   const float inv_n = 1.f / n;
-  if (dtype == 0)
-    return split_apply<float, false>(act, x, y, sm, scale, scale_bf16, bias,
-                                     bias_bf16, total, hwc, c, cgrp, inv_n,
-                                     eps, st);
-  if (chain)
-    return split_apply<__nv_bfloat16, true>(act, x, y, sm, scale,
-                                            scale_bf16, bias, bias_bf16,
-                                            total, hwc, c, cgrp, inv_n, eps,
-                                            st);
-  return split_apply<__nv_bfloat16, false>(act, x, y, sm, scale, scale_bf16,
-                                           bias, bias_bf16, total, hwc, c,
-                                           cgrp, inv_n, eps, st);
+#define PSLD_SPLIT(T, V, CH)                                                 \
+  return split_apply<T, V, CH>(act, x, y, sm, scale, scale_bf16, bias,       \
+                               bias_bf16, b, hw, c, cgrp, rows, inv_n, eps,  \
+                               st)
+  if (dtype == 0 && vec == 1) PSLD_SPLIT(float, 1, false);
+  if (dtype == 0) PSLD_SPLIT(float, 4, false);
+  if (chain && vec == 1) PSLD_SPLIT(__nv_bfloat16, 1, true);
+  if (chain) PSLD_SPLIT(__nv_bfloat16, 8, true);
+  if (vec == 1) PSLD_SPLIT(__nv_bfloat16, 1, false);
+  PSLD_SPLIT(__nv_bfloat16, 8, false);
+#undef PSLD_SPLIT
 }
 
 }  // extern "C"

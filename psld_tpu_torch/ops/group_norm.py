@@ -302,6 +302,18 @@ _STATS_MIN_ROWS = 64
 _STATS_ONE_BLOCK = 128 * 1024
 
 
+def _split_pass(c: int, num_groups: int, dtype, unroll: int):
+    """(bytes an element, ``vec`` channels an access, ``step`` rows a
+    pass) of a split kernel's block: 16-byte accesses where C is a
+    multiple of their channels, else 1 (the scalar path); 256 threads
+    over a row's pieces, ``unroll`` rows a thread."""
+    if c % num_groups:
+        raise ValueError(f"C={c} is no multiple of G={num_groups}")
+    elem = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // elem if c % (16 // elem) == 0 else 1
+    return elem, vec, _STATS_THREADS // min(c // vec, _STATS_THREADS) * unroll
+
+
 @functools.lru_cache(maxsize=None)
 def plan_split_stats(batch: int, hw: int, c: int, num_groups: int,
                      dtype) -> dict:
@@ -322,12 +334,7 @@ def plan_split_stats(batch: int, hw: int, c: int, num_groups: int,
     blocks of 512 pixels. Chosen on the card (``PERF.md``, section 6) among
     1 to 8 waves, 2 to 8 rows in flight and at least 64 or 256 pixels a
     block."""
-    if c % num_groups:
-        raise ValueError(f"C={c} is no multiple of G={num_groups}")
-    elem = torch.empty((), dtype=dtype).element_size()
-    vec = 16 // elem if c % (16 // elem) == 0 else 1
-    tx = min(c // vec, _STATS_THREADS)
-    step = _STATS_THREADS // tx * _STATS_UNROLL
+    elem, vec, step = _split_pass(c, num_groups, dtype, _STATS_UNROLL)
     if hw * c * elem <= _STATS_ONE_BLOCK:
         return dict(vec=vec, rows=hw, chunks=1, scratch=0)
     per_row = max(1, _STATS_WAVES * _SMS * _STATS_RESIDENT // batch)
@@ -369,12 +376,7 @@ def plan_split_partials(batch: int, hw: int, c: int, num_groups: int,
     * chunks * (G + C) * 2 floats, and with more than one batch element
     each element's (dscale, dbias) row, B * C * 2 floats: at most B *
     (ceil(H*W / ``_PART_MIN_ROWS``) * (G + C) + C) * 2 in all."""
-    if c % num_groups:
-        raise ValueError(f"C={c} is no multiple of G={num_groups}")
-    elem = torch.empty((), dtype=dtype).element_size()
-    vec = 16 // elem if c % (16 // elem) == 0 else 1
-    tx = min(c // vec, _STATS_THREADS)
-    step = _STATS_THREADS // tx * _PART_UNROLL
+    elem, vec, step = _split_pass(c, num_groups, dtype, _PART_UNROLL)
     if hw * c * elem <= _PART_ONE_BLOCK:
         rows, chunks = hw, 1
     else:
@@ -385,6 +387,40 @@ def plan_split_partials(batch: int, hw: int, c: int, num_groups: int,
     scratch = (batch * chunks * (num_groups + c) * 2 if chunks > 1 else 0) \
         + (batch * c * 2 if batch > 1 else 0)
     return dict(vec=vec, rows=rows, chunks=chunks, scratch=scratch)
+
+
+# the split apply kernel (``psld_gn_split_apply``): pixel rows a thread
+# has in flight (``APPLY_UNROLL`` in the CUDA source, whose entry refuses
+# a tile of several that is no multiple of the pass they give), passes of
+# them a thread makes over a tile of a large shard, and the blocks below
+# which a shard's tiles shrink (down to one pass) to spread over more SMs
+_APPLY_UNROLL = 4
+_APPLY_PASSES = 2
+_APPLY_BLOCKS = 264
+
+
+@functools.lru_cache(maxsize=None)
+def plan_split_apply(batch: int, hw: int, c: int, num_groups: int,
+                     dtype) -> dict:
+    """The split apply kernel's geometry for a (batch, H*W, C) shard:
+    ``vec`` channels an access (16 bytes where C is a multiple of them,
+    else 1, the scalar path), ``rows`` pixels a block normalizes and
+    ``tiles`` blocks a batch element (the grid is (tiles, batch)).
+
+    A pass of a block covers ``step`` rows: 256 threads over the row's
+    pieces, ``_APPLY_UNROLL`` rows a thread. A tile is ``_APPLY_PASSES``
+    passes, or, where that gives fewer than ``_APPLY_BLOCKS`` blocks over
+    the batch, the passes that give about that many (at least one); a
+    shard that one tile covers is one tile of ``hw`` rows. Else ``rows``
+    is a multiple of ``step``. Chosen on the card (``PERF.md``, section 6)
+    among 2 to 8 rows in flight, 1 to 16 passes and 132 to 528 blocks."""
+    _, vec, step = _split_pass(c, num_groups, dtype, _APPLY_UNROLL)
+    rows = step * _APPLY_PASSES
+    if -(-hw // rows) * batch < _APPLY_BLOCKS:
+        want = -(-hw * batch // _APPLY_BLOCKS)
+        rows = -(-want // step) * step
+    rows = min(rows, hw)
+    return dict(vec=vec, rows=rows, tiles=-(-hw // rows))
 
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -743,7 +779,7 @@ def _split_count(x, num_groups: int) -> float:
 
 _SPLIT_STATS_ARGS = [_P] * 4 + [_I] * 7 + [_P]
 _SPLIT_APPLY_ARGS = [_P, _P, _P, _P, _I, _P, _I] + [_I] * 4 + [
-    ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
+    ctypes.c_float, _I, _I, ctypes.c_float, _I, _I, _I, _P]
 _SPLIT_PART_ARGS = [_P, _P, _P, _P, _I, _P, _I] + [_P] * 5 + [_I] * 4 + [
     ctypes.c_float, _I, _I, ctypes.c_float, _I, _I, _I, _P]
 _SPLIT_DX_ARGS = [_P] * 6 + [_I, _P, _I] + [_I] * 4 + [
@@ -791,7 +827,8 @@ def group_norm_split_apply(x, scale, bias, sums, count: float,
                            act: str = "none"):
     """:func:`group_norm_split_apply_plain` on a CPU tensor; on a CUDA
     tensor the ``psld_gn_split_apply`` entry of
-    ``csrc/group_norm_fwd.cu`` (``group_norm_split_apply.launches``)."""
+    ``csrc/group_norm_fwd.cu`` (``group_norm_split_apply.launches``),
+    with the geometry of :func:`plan_split_apply`: one launch."""
     if x.device.type == "cpu":
         return group_norm_split_apply_plain(x, scale, bias, sums, count,
                                             num_groups, eps, act)
@@ -799,6 +836,7 @@ def group_norm_split_apply(x, scale, bias, sums, count: float,
         raise ValueError(f"group_norm_split_apply: no path for {x.device}")
     _split_kernel_args("group_norm_split_apply", x, scale, bias, num_groups)
     b, h, w, c = x.shape
+    plan = plan_split_apply(b, h * w, c, num_groups, x.dtype)
     y = torch.empty_like(x)
     sums = sums.contiguous()
     lib = _lib("group_norm_fwd.cu", "psld_gn_split_apply", _SPLIT_APPLY_ARGS)
@@ -807,8 +845,8 @@ def group_norm_split_apply(x, scale, bias, sums, count: float,
             x.data_ptr(), y.data_ptr(), sums.data_ptr(), scale.data_ptr(),
             _BF16[scale.dtype], bias.data_ptr(), _BF16[bias.dtype], b,
             h * w, c, c // num_groups, float(count), _ACT_CODE[act],
-            int(_chain(x)), float(eps), _BF16[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            int(_chain(x)), float(eps), plan["rows"], plan["vec"],
+            _BF16[x.dtype], torch.cuda.current_stream().cuda_stream)
     build.check(lib, err, "group_norm_split_apply kernel launch")
     group_norm_split_apply.launches += 1
     return y

@@ -1,7 +1,7 @@
-"""The host side of three kernels, on the CPU: the grid that the split
-GroupNorm stats and partials kernels (``plan_split_stats``,
-``plan_split_partials``) and the strided hash dropout (``dropout._grid``)
-launch. The kernels run only on the card
+"""The host side of four kernels, on the CPU: the grid that the split
+GroupNorm stats, partials and apply kernels (``plan_split_stats``,
+``plan_split_partials``, ``plan_split_apply``) and the strided hash
+dropout (``dropout._grid``) launch. The kernels run only on the card
 (``tests/test_torch_kernels.py``); here each grid is walked in plain
 PyTorch as the kernel's blocks or programs walk it, so a shape that a
 plan leaves uncovered, covers twice or over-runs its scratch fails
@@ -17,6 +17,11 @@ without a card.
   batch element's (dscale, dbias) row, at most B * (ceil(H*W /
   _PART_MIN_ROWS) * (G + C) + C) * 2 floats, and the channel sums' slots
   fit shared memory.
+- The apply: block (tile, n) normalizes pixels [tile * rows, +rows) of
+  batch element n, a thread the rows ``ry`` apart and its pieces; every
+  pixel and channel of every shard is written once, a tile of several is
+  a multiple of the pass, and a shard with few tiles over its batch gets
+  smaller ones.
 - The dropout: program (t, q) of a strided launch takes image q's run of
   L elements, whose positions start at p0 = elem_off + q * Gi (mod
   2**32), in rows of 128 positions from p0's row; the element it reaches
@@ -31,7 +36,8 @@ import torch
 import chip_smoke
 from psld_tpu_torch.ops import dropout
 from psld_tpu_torch.ops import group_norm
-from psld_tpu_torch.ops.group_norm import (plan_split_partials,
+from psld_tpu_torch.ops.group_norm import (plan_split_apply,
+                                           plan_split_partials,
                                            plan_split_stats)
 
 _THREADS = 256
@@ -125,6 +131,49 @@ def test_split_partials_plan_covers_every_pixel_once(hw, c, batch, dtype):
         p0, p1 = chunk * rows, min(hw, chunk * rows + rows)
         for ty in range(ry):
             seen[p0 + ty:p1:ry] += 1
+    assert bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("batch", [1, 8, 300])
+@pytest.mark.parametrize("hw,c", STATS_SHAPES + [(16, 128), (3001, 129)],
+                         ids=[f"{hw}x{c}" for hw, c in STATS_SHAPES]
+                         + ["16x128", "3001x129"])
+def test_split_apply_plan_covers_every_pixel_once(hw, c, batch, dtype):
+    """The apply planner: the stats' rules for ``vec`` (at most four
+    scalar pieces a thread), tiles that cover H*W, ``rows`` a multiple of
+    the pass of ``_THREADS // tx * _APPLY_UNROLL`` rows where a batch
+    element has several tiles, ``_APPLY_PASSES`` passes a tile unless
+    that leaves fewer than ``_APPLY_BLOCKS`` blocks; the kernel's walk
+    writes every pixel and channel once."""
+    groups = _groups(c)
+    plan = plan_split_apply(batch, hw, c, groups, dtype)
+    vec, rows, tiles = plan["vec"], plan["rows"], plan["tiles"]
+    assert vec == plan_split_stats(batch, hw, c, groups, dtype)["vec"]
+    pieces = c // vec
+    tx_n = min(pieces, _THREADS)
+    ry = _THREADS // tx_n
+    kp = -(-pieces // tx_n)
+    assert kp <= (1024 // _THREADS if vec == 1 else 1)
+    step = ry * group_norm._APPLY_UNROLL
+    assert 1 <= tiles <= _GRID_X and batch <= _GRID_Y
+    assert 1 <= rows <= hw and tiles == -(-hw // rows)
+    if tiles > 1:
+        assert rows % step == 0
+    full = step * group_norm._APPLY_PASSES
+    if -(-hw // full) * batch >= group_norm._APPLY_BLOCKS:
+        assert rows == min(hw, full)
+    else:  # the fewest passes that give each block a share of the batch's
+        want = -(-hw * batch // group_norm._APPLY_BLOCKS)
+        assert rows == min(hw, -(-want // step) * step) <= min(hw, full)
+    seen = torch.zeros(hw, pieces, dtype=torch.int64)
+    for tile in range(tiles):
+        p0, p1 = tile * rows, min(hw, tile * rows + rows)
+        for ty in range(ry):
+            for k in range(kp):
+                cols = torch.arange(k * tx_n, min(pieces, (k + 1) * tx_n))
+                seen[p0 + ty:p1:ry, cols] += 1
     assert bool((seen == 1).all())
 
 

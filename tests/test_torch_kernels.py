@@ -13,10 +13,12 @@ and replay of each redesigned kernel in a CUDA graph, rows and channels of the
 fused bias + leaky ReLU that fit no vector width, the GroupNorm kernels
 under ``gn_bf16`` against the plain version's bf16 chain, the GroupNorm
 variant of the legacy normalizers at its edge widths, the strided
-dropout at ragged image slices and the split GroupNorm stats at widths
+dropout at ragged image slices, the split GroupNorm stats at widths
 with and without whole 16-byte pieces (bit-equal from launch to launch,
-one kernel a call), and the inputs the wrappers refuse (a misaligned x
-among them). They need a
+one kernel a call), the split apply at the edges of its plan (the
+scalar path, a piece over two groups, one pixel row, a partial last
+tile, one tile and many a batch element), and the inputs the wrappers
+refuse (a misaligned x among them). They need a
 CUDA device (the CUDA source is built for sm_90a) and skip without one:
 
     python -m pytest -m cuda --noconftest tests/test_torch_kernels.py
@@ -1149,6 +1151,83 @@ def test_group_norm_split_backward_kernel_edges(card, monkeypatch, b, hw, c,
         close(dx, gn.group_norm_split_dx_plain(x, g, scale, bias, sums, p,
                                                count, groups, 1e-6, act),
               tol)
+
+
+# -- the split apply at its edges --------------------------------------------
+@pytest.mark.parametrize("dtype,gn16", [(torch.float32, False),
+                                        (torch.bfloat16, False),
+                                        (torch.bfloat16, True)],
+                         ids=["f32", "bf16", "gn_bf16"])
+@pytest.mark.parametrize("b,h,w,c,groups", [
+    (1, 7, 1, 12, 4),       # B = 1, one tile; bf16 C = 12: the scalar path
+    (2, 3001, 1, 129, 3),   # the scalar path (both dtypes) over tiles
+    (8, 1, 16, 128, 32),    # one pixel row; a piece spans two groups
+    (3, 4099, 1, 40, 10),   # many tiles, the last one partial
+    (1, 32768, 1, 128, 32),  # B = 1: the most tiles a batch element
+    (300, 16, 1, 256, 32),  # B past the planner's blocks: one tile each
+    (2, 300, 1, 1024, 32),  # C at its limit
+])
+def test_group_norm_split_apply_kernel_edges(card, monkeypatch, b, h, w, c,
+                                             groups, dtype, gn16):
+    """``group_norm_split_apply`` at the edges of its plan, for all five
+    activations: within the dtype's tolerance of its plain version's
+    scale (1e-2 in bf16 and under gn_bf16), bit-equal to it on at least
+    ``GN_BF16_EQUAL`` of the elements under gn_bf16, two launches bit
+    for bit equal, one counted launch a call."""
+    from psld_tpu_torch.ops import group_norm as gn
+
+    monkeypatch.setenv("PSLD_GN_BF16", "1" if gn16 else "0")
+    x = rand((b, h, w, c), h * w, dtype, card, scale=2.0, shift=0.5)
+    scale = rand((c,), 1, torch.float32, card, 0.1, 1.0)
+    bias = rand((c,), 2, torch.float32, card, 0.1)
+    count = float(2 * h * w * (c // groups))  # a shard of two
+    sums = gn.group_norm_split_stats_plain(x, groups) * 2.0
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for act in ACTS:
+        n = gn.group_norm_split_apply.launches
+        args = (x, scale, bias, sums, count, groups, 1e-6, act)
+        y = gn.group_norm_split_apply(*args)
+        again = gn.group_norm_split_apply(*args)
+        want = gn.group_norm_split_apply_plain(*args)
+        torch.cuda.synchronize()
+        assert gn.group_norm_split_apply.launches == n + 2
+        assert y.dtype == want.dtype and y.shape == want.shape
+        assert torch.equal(y, again)
+        err = float((y.float() - want.float()).abs().max())
+        assert err <= tol * float(want.float().abs().max()), (act, err)
+        if gn16:
+            share = float((y == want).float().mean())
+            assert share >= GN_BF16_EQUAL, (act, share)
+
+
+@pytest.mark.parametrize("hw", [8, 32768], ids=["one_tile", "tiles"])
+def test_group_norm_split_apply_is_one_kernel_launch(card, hw):
+    """One split-apply call is one kernel on the card, seen by
+    ``torch.profiler`` in a process of its own
+    (``chip_smoke.split_kernels``), whether the planner gives one tile a
+    batch element or many; a CUDA graph of it replays to the same bits."""
+    import chip_smoke
+    from psld_tpu_torch.ops import group_norm as gn
+
+    ran = chip_smoke.split_kernels(["apply"], [(8, hw, 1, 256, 32)])
+    assert len(ran) == 1 and "gn_split_apply" in ran[0], ran
+    x = rand((8, hw, 1, 256), 0, torch.bfloat16, card)
+    scale = rand((256,), 2, torch.float32, card, 0.1, 1.0)
+    bias = rand((256,), 3, torch.float32, card, 0.1)
+    args = (x, scale, bias, gn.group_norm_split_stats(x, 32),
+            float(hw * 8), 32, 1e-6, "swish")
+    want = gn.group_norm_split_apply(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gn.group_norm_split_apply(*args)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = gn.group_norm_split_apply(*args)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("hw", [256, 32768])
